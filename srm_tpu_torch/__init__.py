@@ -1,0 +1,27 @@
+"""srm_tpu_torch — the PyTorch/CUDA port of ``srm_tpu``.
+
+A second package beside the JAX reference: the same physics-informed
+surrogate reservoir model (multi-model PINN trained against finite-volume
+PDE residuals), written in PyTorch, with each Pallas TPU kernel of the
+reference replaced by a hand-written CUDA kernel for Hopper (``sm_90a``).
+
+Subpackages carry the reference's names so each module's counterpart is
+easy to find:
+
+  utils/     normalization transforms + statistics table   (srm_tpu/utils/stats.py)
+  data/      KLE realizations, weaving, dataset cache       (srm_tpu/data/)
+  ops/       stencil padding and face helpers              (srm_tpu/ops/stencil.py)
+  physics/   relperm, spline PVT, wells, rate/BHP solver   (srm_tpu/physics/)
+  nn/        encoder-decoder, residual net, hard layer,
+             model map and the flax→torch weight loader    (srm_tpu/nn/)
+  kernels/   CUDA kernels + their plain PyTorch versions   (srm_tpu/kernels/)
+  losses/    PhysicsLoss                                   (srm_tpu/losses/)
+  training/  optimizers + trainer                          (srm_tpu/training/)
+  examples/  case construction                             (srm_tpu/examples/)
+
+The package imports ``torch``, ``numpy`` and ``srm_tpu.config`` (pure Python
+and numpy) and never JAX. What is ported so far is the dry-gas 2D
+physics-mode training step; ``ROADMAP.md`` lists what remains.
+"""
+
+__version__ = "0.1.0"

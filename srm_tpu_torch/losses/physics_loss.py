@@ -1,0 +1,213 @@
+"""PhysicsLoss: finite-volume PDE residual loss over the multi-model SRM.
+
+Port of ``srm_tpu/losses/physics_loss.py`` for dry gas in 2D (Nz = 1) in
+physics mode with a scalar porosity: ``_residuals_dg`` (``:493-574``),
+``loss_and_metrics`` (``:971-1055``, physics branch) and
+``pinn_batch_sse_grad`` (``:1057-1074``).
+
+One evaluation: Model 2 gives the per-sample Δt1 on ``x`` and Δt2 on ``x1``
+(``x`` with its time channel shifted by the normalized Δt1); Model 1 and the
+PVT run once on the doubled batch ``[x; x1]``; the well model gives rates
+and BHP at n1; the fused DG stencil (``srm_tpu_torch.kernels.stencil``)
+gives dom, ibc, tde and mbc; the weighted SSE sums the terms.
+
+``use_cuda_stencil`` mirrors the reference's ``use_pallas_stencil``. On (the
+default), the residual goes through the fused op, which launches the CUDA
+kernel for tensors on a GPU and takes its plain version for tensors on the
+CPU; off, it goes straight to the plain PyTorch version on any device and
+dtype. Per-cell porosity, which the reference computes on its unfused path,
+raises ``NotImplementedError`` until that path is ported.
+
+Feature layout: ``x`` is the woven normalized tensor ``(B, T, H, W, 5)``
+with channels ``(z, y, x, time, permx)``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from srm_tpu.config import (
+    DEFAULT_GENERAL_CONFIG,
+    DEFAULT_RESERVOIR_CONFIG,
+    DEFAULT_SCAL_CONFIG,
+    DEFAULT_WELLS_CONFIG,
+    get_conversion_constants,
+    get_optimizer_model_mapping,
+)
+
+from srm_tpu_torch.kernels.stencil import (StencilConfig, dg_stencil_residual,
+                                           dg_stencil_residual_reference)
+from srm_tpu_torch.ops.stencil import pad_symmetric
+from srm_tpu_torch.physics.relperm import RelativePermeability
+from srm_tpu_torch.physics.wells import scatter_to_grid
+from srm_tpu_torch.utils.stats import denormalize, normalize_diff
+
+# loss-term order (the reference's LOSS_TERMS)
+LOSS_TERMS = ("dom", "dbc", "nbc", "ibc", "ic", "mbc", "cmbc", "tde", "td")
+
+_LOGICAL_NAMES = {"pressure": "pressure", "time_step": "time_step",
+                  "fluid_property": "pvt_model", "well_rate_bhp": "well_rate_bhp_model",
+                  "saturation": "saturation_model"}
+
+
+class PhysicsLoss:
+    """Dry-gas PDE residual losses with per-model gradients."""
+
+    def __init__(self, models: Dict[str, Any], data_summary,
+                 optimizer_model_names_map: Optional[Dict[str, str]] = None,
+                 general_config: Optional[Dict] = None,
+                 reservoir_config: Optional[Dict] = None,
+                 wells_config: Optional[Dict] = None,
+                 scal_config: Optional[Dict] = None,
+                 fluid_type: Optional[str] = None,
+                 use_cuda_stencil: bool = True):
+        self.models = models
+        self.general_config = general_config or DEFAULT_GENERAL_CONFIG
+        self.reservoir_config = res = reservoir_config or DEFAULT_RESERVOIR_CONFIG
+        self.wells_config = wells_config or DEFAULT_WELLS_CONFIG
+        self.scal_config = scal_config or DEFAULT_SCAL_CONFIG
+        g = self.general_config
+        self.fluid_type = (fluid_type or g["fluid_type"]).upper()
+        self.physics_mode_fraction = float(g["physics_mode_fraction"])
+        if self.fluid_type != "DG" or res["Nz"] > 1:
+            raise NotImplementedError("only the dry-gas 2D residual is ported")
+        if self.physics_mode_fraction < 1.0:
+            raise NotImplementedError("only physics mode (physics_mode_fraction >= 1) is ported")
+        if g.get("remat_forwards") or int(g.get("dt_input_stride", 1) or 1) > 1:
+            raise NotImplementedError("remat_forwards and dt_input_stride are not ported yet")
+        if np.ndim(res["porosity"]) != 0:
+            raise NotImplementedError("per-cell porosity is not ported yet")
+        self.optimizer_model_names_map = (optimizer_model_names_map
+                                          or get_optimizer_model_mapping(self.fluid_type))
+
+        self.device = next(models["pressure"].parameters()).device
+        self.use_cuda_stencil = use_cuda_stencil
+
+        units = get_conversion_constants(g["srm_units"])
+        self.C, self.D = units["C"], units["D"]
+        self.dx = res["length"] / res["Nx"]
+        self.dy = res["width"] / res["Ny"]
+        self.dz = res["thickness"] / res["Nz"]
+        self.phi0 = float(res["porosity"])
+        self.Sgi = 1.0 - self.scal_config["end_points"]["Swmin"]
+        relperm = RelativePermeability.from_config(
+            self.scal_config["end_points"], self.scal_config["corey_exponents"])
+        krgo_sgi = float(relperm(torch.tensor(self.Sgi, dtype=torch.float32))[1])
+        self.stencil_cfg = StencilConfig(C=self.C, D=self.D, dx=self.dx, dy=self.dy,
+                                         dz=self.dz, Sgi=self.Sgi, krgo=krgo_sgi,
+                                         phi=self.phi0)
+
+        conn = models["well_rate_bhp_model"].well_data["connection_index"]
+        self.q_well_idx = torch.from_numpy(
+            scatter_to_grid((1, res["Ny"], res["Nx"]), conn[:, 1:], 1.0)[0]).to(self.device)
+
+        ds = data_summary
+        nc = g["data_normalization"]
+        self.norm = dict(method=nc["feature_normalization_method"],
+                         limits=tuple(nc["normalization_limits"]))
+        self.t_row = torch.from_numpy(ds.row("time")).to(self.device)
+        self.k_row = torch.from_numpy(ds.row("permx")).to(self.device)
+        self.k_is_log = ds.is_log("permx")
+
+        w = g["default_weights"]["gas"]
+        self.loss_keys = {"gas": [f"{t}_g" for t in LOSS_TERMS]}
+        self.weights = {"gas": {"dom": w["dom"], "dbc": w["obc"], "nbc": w["obc"],
+                                "ibc": w["ibc"], "ic": w["ic"], "mbc": w["mbc"],
+                                "cmbc": w["cmbc"], "tde": w["tde"], "td": w["td"]}}
+        self.trainable_models_keys = [k for k in self.optimizer_model_names_map
+                                      if k in ("pressure", "time_step")]
+
+    @staticmethod
+    def logical_name(optimizer_key: str) -> str:
+        return _LOGICAL_NAMES[optimizer_key]
+
+    # ------------------------------------------------------------------
+    def _denorm_permx(self, k: torch.Tensor) -> torch.Tensor:
+        return denormalize(k, self.k_row, is_log=self.k_is_log, **self.norm)
+
+    def _norm_dt(self, dt: torch.Tensor) -> torch.Tensor:
+        return normalize_diff(dt, self.t_row, is_log=False, **self.norm)
+
+    @staticmethod
+    def _sq(f: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, 1) → (B, H, W), contiguous for the stencil."""
+        return f[:, 0, :, :, 0].contiguous()
+
+    def stencil_inputs(self, x: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], Dict]:
+        """The network forwards of one evaluation: the fused stencil's ten
+        tensor arguments and the model outputs
+        (srm_tpu/losses/physics_loss.py:496-552)."""
+        m = self.models
+        kx_c = self._denorm_permx(x[:, 0, :, :, 4])                 # (B, H, W)
+
+        # per-sample Δt: the spatial mean of Model 2's field
+        dt0f = m["time_step"](x)
+        tstep = dt0f.mean(dim=tuple(range(1, dt0f.dim() - 1)), keepdim=True)
+        x1 = torch.cat([x[..., :3], x[..., 3:4] + self._norm_dt(tstep), x[..., 4:]], dim=-1)
+        dt1f = m["time_step"](x1)
+        tstep2 = dt1f.mean(dim=tuple(range(1, dt1f.dim() - 1)), keepdim=True)
+
+        # pressure and PVT at n0 and n1 as one doubled-batch forward
+        B = x.shape[0]
+        p01 = m["pressure"](torch.cat([x, x1], dim=0))
+        pvt01 = m["pvt_model"](p01)
+        p0f, p1f = p01[:B], p01[B:]
+        pvt0, pvt1 = pvt01[:, :, :B], pvt01[:, :, B:]
+        q1, pwf1 = m["well_rate_bhp_model"].compute_rates_and_bhp(x1, p1f, m["pvt_model"])
+
+        sq = self._sq
+        invBg0, dinvBg0 = sq(pvt0[0, 0]), sq(pvt0[1, 0])
+        invBg1, invug1 = sq(pvt1[0, 0]), sq(pvt1[0, 1])
+        tsteps = torch.cat([tstep.reshape(-1, 1), tstep2.reshape(-1, 1)], dim=1)
+        args = (pad_symmetric(sq(p0f)), pad_symmetric(sq(p1f)), pad_symmetric(kx_c),
+                pad_symmetric(invBg1 * invug1), invBg0, invBg1, dinvBg0, sq(q1),
+                self.q_well_idx, tsteps)
+        outputs = {"p_n0": p0f, "p_n1": p1f, "tstep": tstep, "tstep2": tstep2,
+                   "q": q1, "pwf": pwf1}
+        return args, outputs
+
+    def residuals(self, x: torch.Tensor) -> Dict[str, Any]:
+        """Dry-gas residual fields (srm_tpu/losses/physics_loss.py:493-574)."""
+        args, outputs = self.stencil_inputs(x)
+        stencil = (dg_stencil_residual if self.use_cuda_stencil
+                   else dg_stencil_residual_reference)
+        dom, ibc, tde, mbc = stencil(*args, self.stencil_cfg)
+        zeros = torch.zeros_like(dom)
+        return {
+            "gas": {"dom": dom, "dbc": zeros, "nbc": zeros, "ibc": ibc, "ic": zeros,
+                    "mbc": mbc, "cmbc": zeros, "tde": tde},
+            "outputs": outputs,
+        }
+
+    def loss_and_metrics(self, x: torch.Tensor, y) -> Tuple[torch.Tensor, Dict]:
+        """Total weighted SSE and the per-term weighted MSEs (physics mode:
+        the td term compares the n0 pressure with the labels at the td
+        weight, 0 by default)."""
+        res = self.residuals(x)
+        p0 = res["outputs"]["p_n0"]
+        label = (y["PRESSURE"] if isinstance(y, dict) else y).reshape(p0.shape)
+        total = x.new_zeros(())
+        aux: Dict[str, Dict[str, torch.Tensor]] = {"gas": {}}
+        for t in LOSS_TERMS:
+            err = p0 - label if t == "td" else res["gas"][t]
+            wsse = self.weights["gas"][t] * torch.sum(torch.square(err))
+            total = total + wsse
+            aux["gas"][t] = wsse / max(float(err.numel()), 1.0)
+        aux["outputs"] = res["outputs"]
+        return total, aux
+
+    def pinn_batch_sse_grad(self, x: torch.Tensor, y):
+        """(aux, grads_by_key, total): the gradient of the total weighted
+        loss with respect to each trainable model's parameters, keyed by
+        optimizer key, as lists in ``module.parameters()`` order."""
+        total, aux = self.loss_and_metrics(x, y)
+        keys = self.trainable_models_keys
+        params = [list(self.models[self.logical_name(k)].parameters()) for k in keys]
+        grads = torch.autograd.grad(total, [p for ps in params for p in ps])
+        out, i = {}, 0
+        for k, ps in zip(keys, params):
+            out[k] = list(grads[i:i + len(ps)])
+            i += len(ps)
+        return aux, out, total

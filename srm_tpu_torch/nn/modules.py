@@ -1,0 +1,127 @@
+"""Composition modules and the dry-gas model map.
+
+Port of ``srm_tpu/nn/modules.py`` for dry gas in 2D:
+
+* :class:`CompleteTrainableModule` — a backbone with an optional HardLayer
+  fed the time channel (``inputs[..., -2:-1]``).
+* :func:`build_model_map` — Model 1 (pressure: encoder–decoder +
+  HardLayer), Model 2 (adaptive Δt: residual net with the scaled x·tanh(x)
+  head), Model 3 (spline PVT) and the well rate/BHP model, keyed by the
+  reference's logical names. The trainable modules are initialized from an
+  explicit ``torch.Generator`` and moved to ``device``.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from srm_tpu.config import DEFAULT_GENERAL_CONFIG, DEFAULT_RESERVOIR_CONFIG, get_configuration
+from torch import nn
+
+from srm_tpu_torch.data.pvt_table import load_pvt_table
+from srm_tpu_torch.nn.common import scaled_tanh_lisht
+from srm_tpu_torch.nn.encoder_decoder import EncoderDecoder
+from srm_tpu_torch.nn.hard_layer import HardLayer
+from srm_tpu_torch.nn.residual import ResidualNetwork
+from srm_tpu_torch.physics.pvt import SplinePVT, make_spline_pvt
+from srm_tpu_torch.physics.well_solver import WellRatesPressure
+
+
+class CompleteTrainableModule(nn.Module):
+    """Backbone + optional HardLayer (srm_tpu/nn/modules.py:44-64)."""
+
+    def __init__(self, network: nn.Module, hard_layer: Optional[HardLayer] = None):
+        super().__init__()
+        self.network = network
+        self.hard_layer = hard_layer
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        net_out = self.network(inputs)
+        if self.hard_layer is None:
+            return net_out
+        return self.hard_layer(inputs[..., -2:-1], net_out)
+
+
+def build_pressure_model(sample_shape: Tuple[int, ...], general_config: Optional[Dict] = None,
+                         reservoir_config: Optional[Dict] = None,
+                         generator: Optional[torch.Generator] = None) -> CompleteTrainableModule:
+    """Model 1: 2D temporal encoder–decoder + HardLayer (init value Pi).
+    ``sample_shape`` is one model input without the batch axis, (T, H, W, C)."""
+    g = general_config or DEFAULT_GENERAL_CONFIG
+    res = reservoir_config or DEFAULT_RESERVOIR_CONFIG
+    if res.get("Nz", 1) > 1:
+        raise NotImplementedError("the 3D pressure model is not ported yet")
+    ed = get_configuration("encoder_decoder")
+    rp = ed["residual_params"]
+    rp["Extra_Conv_Layers"]["Count"] = 2
+    rp["Extra_Dec_Conv_Layers"]["Count"] = 2
+    rp["Latent_Layer"]["Depth"] = 1
+    rp["Latent_Layer"]["Activation"] = None
+    rp["Out_Activation_Func"] = None
+    rp["Skip_Connections"] = {"Add": False, "Layers": [1, 1, 1, 1]}
+    for knob in ("compute_dtype", "precision_policy", "spatial_pad_to", "network_width"):
+        if g.get(knob):
+            raise NotImplementedError(f"general_config[{knob!r}] is not ported yet")
+
+    hard = get_configuration("hard_layer")
+    hard["init_value"] = res["initialization"]["Pi"]
+    hard["kernel_activation"] = None
+    hard["kernel_exponent_config"].update(initial_value=0.5, min_value=0.1, max_value=1.0)
+    T, H, W, C = sample_shape
+    return CompleteTrainableModule(
+        EncoderDecoder.from_config(ed, in_channels=C, generator=generator),
+        HardLayer.from_config(hard, exp_shape=(T, H, W, 1)))
+
+
+def build_time_step_model(sample_shape: Tuple[int, ...], general_config: Optional[Dict] = None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> CompleteTrainableModule:
+    """Model 2: cnn residual net with the scaled x·tanh(x) Δt head in
+    (0.1, maximum_srm_timestep]."""
+    g = general_config or DEFAULT_GENERAL_CONFIG
+    cfg = get_configuration("residual")
+    cfg["network_type"] = "cnn"
+    cfg["output_distribution"] = False
+    cfg["output_activation"] = partial(scaled_tanh_lisht, min_val=0.1,
+                                       max_val=g["maximum_srm_timestep"])
+    return CompleteTrainableModule(
+        ResidualNetwork.from_config(cfg, in_channels=sample_shape[-1], generator=generator))
+
+
+def build_pvt_model(general_config: Optional[Dict] = None) -> SplinePVT:
+    """Model 3: the spline PVT on Model 1's pressure, spline order 1 as the
+    reference's ``build_pvt_model`` sets it."""
+    g = general_config or DEFAULT_GENERAL_CONFIG
+    if g.get("pvt_fitting_method", "spline") != "spline":
+        raise NotImplementedError("only the spline PVT is ported")
+    return make_spline_pvt(get_configuration("pvt_layer", fluid_type="DG"),
+                           load_pvt_table(), order=1)
+
+
+def build_model_map(input_shape: Tuple[int, ...], device: torch.device,
+                    fluid_type: Optional[str] = None, seed: Optional[int] = None,
+                    general_config: Optional[Dict] = None,
+                    reservoir_config: Optional[Dict] = None,
+                    wells_config: Optional[Dict] = None,
+                    data_summary=None) -> Dict[str, Any]:
+    """All dry-gas models keyed by the reference's logical names:
+    'pressure', 'time_step', 'pvt_model', 'well_rate_bhp_model'.
+
+    ``input_shape`` is the training-data shape (K, T, D, H, W, C); a model
+    input is (B, D, H, W, C) with D folded as the temporal axis."""
+    g = general_config or DEFAULT_GENERAL_CONFIG
+    fluid_type = (fluid_type or g["fluid_type"]).upper()
+    if fluid_type != "DG":
+        raise NotImplementedError("only the dry-gas model map is ported")
+    gen = torch.Generator().manual_seed(int(g["seed"] if seed is None else seed))
+    sample_shape = tuple(input_shape[2:])
+    return {
+        "pressure": build_pressure_model(sample_shape, g, reservoir_config, gen).to(device),
+        "time_step": build_time_step_model(sample_shape, g, gen).to(device),
+        "pvt_model": build_pvt_model(g).to(device),
+        "well_rate_bhp_model": WellRatesPressure(
+            data_summary, device, fluid_type=fluid_type, general_config=g,
+            reservoir_config=reservoir_config, wells_config=wells_config),
+    }

@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch and the CUDA toolkit:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+Without a card every test here skips: a CUDA kernel has no CPU mode.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from srm_tpu_torch.kernels import stencil as st
+
+# the kernel keeps the plain version's operation order and is built without
+# multiply-add contraction; they differ where PyTorch rounds otherwise (a
+# division by a scalar as a reciprocal multiply, the order of the mbc sum):
+# a few float32 ulps of each output's largest value
+RTOL, ATOL_REL = 1e-4, 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(B, H, W, device, seed=0):
+    """Physically scaled stencil inputs (as tests/test_pallas_kernels.py
+    makes them), padded with replicate as the loss pads them."""
+    rng = np.random.RandomState(seed)
+    pad = lambda a: np.pad(a, [(0, 0), (1, 1), (1, 1)], mode="symmetric")  # noqa: E731
+    p0 = rng.uniform(4500, 5000, (B, H, W)).astype(np.float32)
+    p1 = p0 - rng.uniform(0, 50, (B, H, W)).astype(np.float32)
+    kx = rng.uniform(0.5, 10.0, (B, H, W)).astype(np.float32)
+    invBg = rng.uniform(0.9, 1.2, (B, H, W)).astype(np.float32)
+    invug = rng.uniform(30, 40, (B, H, W)).astype(np.float32)
+    dinvBg = rng.uniform(1e-4, 3e-4, (B, H, W)).astype(np.float32)
+    q = np.zeros((B, H, W), np.float32)
+    q[:, H // 2, W // 2] = 500.0
+    qwell = np.zeros((H, W), np.float32)
+    qwell[H // 2, W // 2] = 1.0
+    tsteps = rng.uniform(1.0, 9.0, (B, 2)).astype(np.float32)
+    args = [pad(p0), pad(p1), pad(kx), pad(invBg * invug), invBg, invBg * 0.99, dinvBg, q,
+            qwell, tsteps]
+    cfg = st.StencilConfig(C=0.001127, D=5.6145833334, dx=74.36, dy=74.36, dz=80.0,
+                           Sgi=0.78, krgo=0.8, phi=0.2)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args], cfg
+
+
+def _close(got, want):
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL_REL * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 39, 39), (3, 13, 17), (1, 1, 300)])
+def test_dg_stencil_kernel_matches_plain_version(cuda, shape):
+    args, cfg = _inputs(*shape, cuda)
+    before = st.launches
+    got = st.dg_stencil_residual(*args, cfg)
+    want = st.dg_stencil_residual_reference(*args, cfg)
+    torch.cuda.synchronize()
+    assert st.launches == before + 1
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.cuda
+def test_dg_stencil_kernel_gradient_matches_plain_autograd(cuda):
+    args, cfg = _inputs(32, 39, 39, cuda)
+    grads = []
+    for fn in (st.dg_stencil_residual, st.dg_stencil_residual_reference):
+        a = [t.clone().requires_grad_(i != 8) for i, t in enumerate(args)]
+        dom, ibc, tde, mbc = fn(*a, cfg)
+        ((dom**2).sum() + (ibc**2).sum() + (tde**2).sum() + (mbc**2).sum()).backward()
+        grads.append([t.grad for i, t in enumerate(a) if i != 8])
+    for g, w in zip(*grads):
+        _close(g, w)
+
+
+@pytest.mark.cuda
+def test_dg_stencil_kernel_is_deterministic(cuda):
+    args, cfg = _inputs(32, 39, 39, cuda)
+    first = st.dg_stencil_residual(*args, cfg)
+    for _ in range(3):
+        for a, b in zip(first, st.dg_stencil_residual(*args, cfg)):
+            assert torch.equal(a, b)
