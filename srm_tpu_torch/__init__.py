@@ -20,8 +20,9 @@ easy to find:
   examples/  case construction                             (srm_tpu/examples/)
 
 The package imports ``torch``, ``numpy`` and ``srm_tpu.config`` (pure Python
-and numpy) and never JAX. What is ported so far is the dry-gas 2D
-physics-mode training step; ``ROADMAP.md`` lists what remains.
+and numpy) and never JAX. What is ported so far is the dry-gas
+physics-mode training step in 2D and in 3D (Nz > 1, through
+``examples.common.setup_case(nz=...)``); ``ROADMAP.md`` lists what remains.
 """
 
 __version__ = "0.1.0"

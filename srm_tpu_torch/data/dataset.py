@@ -73,12 +73,23 @@ class SRMDataProcessor:
 
     # -- pieces ---------------------------------------------------------------
     def generate_kle_splits(self) -> Dict[str, np.ndarray]:
-        """KLE permeability realizations split along axis 0."""
+        """Permeability realizations split along axis 0: the dense KLE
+        sampler, or iid log-normal fields for ``method="uncorrelated"``
+        (srm_tpu/data/dataset.py:79-91), the 3D cases' sampler."""
         res = self.reservoir_config
         spec = res["realizations"]["permx"]
-        if spec.get("method", "KLE") != "KLE":
-            raise NotImplementedError(
-                f"permeability method {spec.get('method')!r} is not ported yet")
+        method = spec.get("method", "KLE")
+        if method == "uncorrelated":
+            rng = np.random.RandomState(spec.get("seed") or self.seed)
+            shape = (spec["number"], res["Nz"], res["Ny"], res["Nx"])
+            mu, sig = np.log(spec["mean"]), spec["std"] / spec["mean"]
+            fields = np.exp(rng.normal(mu, sig, shape)).astype(self.dtype)
+            splits = split_realizations(fields, self.split_ratio[0],
+                                        self.general_config["split_sampling_method"],
+                                        self.seed)
+            return {k: splits[k] for k in self.split_keys}
+        if method != "KLE":
+            raise NotImplementedError(f"permeability method {method!r} is not ported yet")
         fields, num_modes, _ = generate_kle_numpy(
             n_realizations=spec["number"],
             Nx=res["Nx"], Ny=res["Ny"], Nz=res["Nz"],

@@ -3,8 +3,10 @@
 Port of ``srm_tpu/examples/common.py::setup_case`` for dry gas: the data
 processor, the generated or cached physics-mode dataset, its statistics,
 the model map on ``device`` and the PhysicsLoss, as one dict bundle.
-``nx`` and ``n_realizations`` resize the problem for tests and smoke runs,
-as in the reference.
+``nx``, ``nz`` and ``n_realizations`` resize the problem, and
+``kle_method="uncorrelated"`` selects iid log-normal permeability fields,
+as in the reference; ``nz > 1`` gives the 3D (7-point) case, which needs
+``nz >= 9`` at the default encoder depth (``EncoderDecoder``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from srm_tpu_torch.utils.stats import DataSummary
 def setup_case(fluid_type: str, base_dir: Optional[str] = None,
                nx: Optional[int] = None, n_realizations: Optional[int] = None,
                general_config: Optional[Dict] = None, seed: Optional[int] = None,
+               nz: Optional[int] = None, kle_method: Optional[str] = None,
                device: Optional[torch.device] = None) -> Dict:
     """Build everything for one training case; returns a dict bundle."""
     fluid_type = fluid_type.upper()
@@ -36,20 +39,25 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
         g["seed"] = seed
     processor = SRMDataProcessor(base_dir=base_dir, general_config=g)
     res = processor.reservoir_config
-    if nx is not None:
+    if nx is not None or nz is not None:
         # resize the grid: rescale well positions and the unit target shape
+        nx = nx or res["Nx"]
+        nz = nz or res["Nz"]
         scale = nx / res["Nx"]
         res["Nx"] = res["Ny"] = nx
-        g["unit_target_shape"] = (1, 1, nx, nx, 1)
+        res["Nz"] = nz
+        g["unit_target_shape"] = (1, nz, nx, nx, 1) if nz > 1 else (1, 1, nx, nx, 1)
         for conn in processor.wells_config["connections"]:
             conn["i"] = min(int(conn["i"] * scale), nx - 1)
             conn["j"] = min(int(conn["j"] * scale), nx - 1)
-            conn["k"] = min(conn.get("k", 0), res["Nz"] - 1)
+            conn["k"] = min(conn.get("k", 0), nz - 1)
         res["realizations"]["permx"]["conditional_values"] = {
             (min(5, nx - 1), min(5, nx - 1), 0): 2.0}
         processor.general_config = g
     if n_realizations is not None:
         res["realizations"]["permx"]["number"] = n_realizations
+    if kle_method is not None:
+        res["realizations"]["permx"]["method"] = kle_method
 
     path, train_groups, val_groups, test_groups, pred_groups = \
         processor.get_or_generate_training_data()

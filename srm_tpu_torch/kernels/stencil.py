@@ -1,24 +1,30 @@
-"""Fused dry-gas stencil residual: CUDA kernel, plain version, gradient.
+"""Fused dry-gas stencil residuals: CUDA kernels, plain versions, gradients.
 
-Port of ``srm_tpu/kernels/stencil_pallas.py::dg_stencil_residual`` (kernel
-B1). Three pieces, as in the reference:
+Port of the two dry-gas kernels of ``srm_tpu/kernels/stencil_pallas.py``:
+``dg_stencil_residual`` (kernel B1, 2D, 5-point) and
+``dg3d_stencil_residual`` (kernel B2, 3D, 7-point). Each has three
+pieces, as in the reference:
 
-* :func:`dg_stencil_residual_reference` — the plain PyTorch version, a
-  straight batched port of ``_residual_math`` / ``_jnp_forward``
-  (``stencil_pallas.py:57-103, 151-160``). The CPU path and the checks of
-  the kernel use it.
-* the CUDA kernel ``csrc/dg_stencil.cu``, built with ``nvcc`` for
-  ``sm_90a`` at first use and called through ctypes on PyTorch's current
-  stream. ``launches`` counts its launches.
-* :class:`DGStencilResidualFn` — the ``torch.autograd.Function``: forward
-  through the kernel (or, for tensors on the CPU, the plain version);
-  backward recomputes the plain version and differentiates it, as the
-  reference's ``jax.custom_vjp`` differentiates its jnp twin
-  (``stencil_pallas.py:568-571``). A hand-written backward kernel is later
-  work.
+* a plain PyTorch version, a straight batched port of the reference's
+  math and jnp twin (:func:`dg_stencil_residual_reference`, from
+  ``_residual_math`` / ``_jnp_forward`` ``:57-103, 151-160``;
+  :func:`dg3d_stencil_residual_reference`, from ``_residual_math_3d`` /
+  ``_jnp_forward_3d`` ``:179-235, 284-292``). The CPU path and the checks
+  of the kernels use them.
+* a CUDA kernel (``csrc/dg_stencil.cu``, ``csrc/dg3d_stencil.cu``), built
+  with ``nvcc`` for ``sm_90a`` at first use and called through ctypes on
+  PyTorch's current stream. ``launches`` counts B1's launches and
+  ``launches_3d`` B2's.
+* a ``torch.autograd.Function`` (:class:`DGStencilResidualFn`,
+  :class:`DG3DStencilResidualFn`): forward through the kernel (or, for
+  tensors on the CPU, the plain version); backward recomputes the plain
+  version and differentiates it, as the reference's ``jax.custom_vjp``
+  differentiates its jnp twin (``:568-571``, ``:313-316``). Hand-written
+  backward kernels are later work.
 
-:func:`dg_stencil_residual` is the public op. A CUDA tensor goes to the
-kernel, or the call raises: there is no fallback to the plain version.
+:func:`dg_stencil_residual` and :func:`dg3d_stencil_residual` are the public
+ops. A CUDA tensor goes to the kernel, or the call raises: there is no
+fallback to the plain version.
 """
 
 from __future__ import annotations
@@ -30,12 +36,16 @@ from typing import NamedTuple, Tuple
 import torch
 
 from srm_tpu_torch.kernels.build import load_library
-from srm_tpu_torch.ops.stencil import average_faces, five_point_divergence, harmonic_faces, neighbors
+from srm_tpu_torch.ops.stencil import (average_faces, average_faces_3d, five_point_divergence,
+                                       harmonic_faces, harmonic_faces_3d, neighbors,
+                                       neighbors_3d)
 
 EPSILON = 1e-7
 
-#: number of launches of the CUDA kernel (the plain version never counts)
+#: launches of the B1 (2D) kernel; the plain version never counts
 launches = 0
+#: launches of the B2 (3D) kernel; the plain version never counts
+launches_3d = 0
 
 
 class StencilConfig(NamedTuple):
@@ -93,24 +103,81 @@ def dg_stencil_residual_reference(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0,
     return dom, ibc, tde, -mbc_cell.sum(dim=(1, 2))
 
 
-# ---------------------------------------------------------------------------
-# CUDA kernel
-# ---------------------------------------------------------------------------
-class _Scalars(ctypes.Structure):
-    """``DGStencilScalars`` of csrc/dg_stencil.cu: StencilConfig's products,
-    folded in double as JAX folds them from Python floats, then rounded."""
-    _fields_ = [(name, ctypes.c_float) for name in (
-        "C", "krgo", "inv_dxx", "inv_dyy", "inv_D", "D", "dv", "dv_over_D", "phi",
-        "phi_cf", "Sgi", "dv_Sgi_phi", "two_eps")]
+def dg3d_stencil_residual_reference(p0p, p1p, kxp, kzp, bgugp, invBg0, invBg1, dinvBg0, q,
+                                    qwell, tsteps, cfg: StencilConfig):
+    """(dom, ibc, tde, mbc) of the 7-point residual, with the operation
+    order of the reference's ``_residual_math_3d``. ``kzp`` arrives
+    pre-scaled by the vertical anisotropy (kv/kh)."""
+    C, D = cfg.C, cfg.D
+    dv = cfg.dx * cfg.dy * cfg.dz
+    t1 = tsteps[:, 0].reshape(-1, 1, 1, 1)
+    t2 = tsteps[:, 1].reshape(-1, 1, 1, 1)
 
-    @classmethod
-    def from_config(cls, cfg: StencilConfig) -> "_Scalars":
-        dv = cfg.dx * cfg.dy * cfg.dz
-        return cls(C=cfg.C, krgo=cfg.krgo, inv_dxx=1.0 / (cfg.dx * cfg.dx),
-                   inv_dyy=1.0 / (cfg.dy * cfg.dy), inv_D=1.0 / cfg.D, D=cfg.D, dv=dv,
-                   dv_over_D=dv / cfg.D, phi=cfg.phi,
-                   phi_cf=cfg.phi * rock_compressibility(cfg.phi), Sgi=cfg.Sgi,
-                   dv_Sgi_phi=dv * cfg.Sgi * cfg.phi, two_eps=2.0 * EPSILON)
+    kx_ih, kx_i_h, ky_jh, ky_j_h, kz_kh, kz_k_h = harmonic_faces_3d(neighbors_3d(kxp),
+                                                                    neighbors_3d(kzp))
+    b_ih, b_i_h, b_jh, b_j_h, b_kh, b_k_h = average_faces_3d(neighbors_3d(bgugp))
+    p = neighbors_3d(p1p)
+    p0 = p0p[:, 1:-1, 1:-1, 1:-1]
+
+    cf = rock_compressibility(cfg.phi)
+    cr0 = cfg.phi * cf * invBg0
+    cp1 = cfg.Sgi * (cfg.phi * dinvBg0 + cr0)
+
+    inv_dxx = 1.0 / (cfg.dx * cfg.dx)
+    inv_dyy = 1.0 / (cfg.dy * cfg.dy)
+    inv_dzz = 1.0 / (cfg.dz * cfg.dz)
+    a1 = C * kx_i_h * cfg.krgo * b_i_h * inv_dxx
+    a2 = C * ky_j_h * cfg.krgo * b_j_h * inv_dyy
+    a3 = C * kx_ih * cfg.krgo * b_ih * inv_dxx
+    a4 = C * ky_jh * cfg.krgo * b_jh * inv_dyy
+    a5 = C * kz_k_h * cfg.krgo * b_k_h * inv_dzz
+    a6 = C * kz_kh * cfg.krgo * b_kh * inv_dzz
+    a_acc = (1.0 / D) * (cp1 / t1)
+
+    p2 = (p.ij - p0) * (1.0 + t2 / torch.clamp_min(t1, 1e-12)) + p0
+    tde = (dv / D) * cp1 * (
+        2.0 * EPSILON / t1
+        + (t2 * p0 + t1 * p2 - (t1 + t2) * p.ij) / (t1 * t2 + t2 * t2))
+
+    # the twin's order (faces i-1/2, j-1/2, i+1/2, j+1/2, k-1/2, k+1/2), not
+    # that of ops.stencil.seven_point_divergence
+    divq = dv * ((-a1 * p.i_1) + (-a2 * p.j_1) + (-a5 * p.k_1)
+                 + ((a1 + a2 + a3 + a4 + a5 + a6) * p.ij)
+                 + (-a3 * p.i1) + (-a4 * p.j1) + (-a6 * p.k1) + q / dv)
+    acc = dv * a_acc * (p.ij - p0)
+    dom = divq + acc
+    ibc = qwell * divq
+    mbc_cell = q + dv * cfg.Sgi * cfg.phi * (invBg1 - invBg0) / (D * t1)
+    return dom, ibc, tde, -mbc_cell.sum(dim=(1, 2, 3))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+_FIELDS_2D = ("C", "krgo", "inv_dxx", "inv_dyy", "inv_D", "D", "dv", "dv_over_D", "phi",
+              "phi_cf", "Sgi", "dv_Sgi_phi", "two_eps")
+
+
+def _pack(struct_cls, cfg: StencilConfig):
+    """StencilConfig's products, folded in double as JAX folds them from
+    Python floats, then rounded to float in the kernel's struct."""
+    dv = cfg.dx * cfg.dy * cfg.dz
+    v = dict(C=cfg.C, krgo=cfg.krgo, inv_dxx=1.0 / (cfg.dx * cfg.dx),
+             inv_dyy=1.0 / (cfg.dy * cfg.dy), inv_dzz=1.0 / (cfg.dz * cfg.dz),
+             inv_D=1.0 / cfg.D, D=cfg.D, dv=dv, dv_over_D=dv / cfg.D, phi=cfg.phi,
+             phi_cf=cfg.phi * rock_compressibility(cfg.phi), Sgi=cfg.Sgi,
+             dv_Sgi_phi=dv * cfg.Sgi * cfg.phi, two_eps=2.0 * EPSILON)
+    return struct_cls(**{name: v[name] for name, _ in struct_cls._fields_})
+
+
+class _Scalars(ctypes.Structure):
+    """``DGStencilScalars`` of csrc/dg_stencil.cu."""
+    _fields_ = [(name, ctypes.c_float) for name in _FIELDS_2D]
+
+
+class _Scalars3D(ctypes.Structure):
+    """``DG3DStencilScalars`` of csrc/dg3d_stencil.cu: B1's, then inv_dzz."""
+    _fields_ = [(name, ctypes.c_float) for name in _FIELDS_2D + ("inv_dzz",)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,80 +191,127 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _cuda_forward(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps,
-                  cfg: StencilConfig):
-    global launches
-    lib = _library()
-    B, H, W = q.shape
+@functools.lru_cache(maxsize=None)
+def _library_3d() -> ctypes.CDLL:
+    lib = load_library("dg3d_stencil.cu")
+    lib.dg3d_stencil_num_blocks.argtypes = [ctypes.c_int] * 3
+    lib.dg3d_stencil_num_blocks.restype = ctypes.c_int
+    lib.dg3d_stencil_forward.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
+                                         + [_Scalars3D, ctypes.c_void_p])
+    lib.dg3d_stencil_forward.restype = ctypes.c_int
+    return lib
+
+
+def _launch(fn, q, n_blocks, ins, dims, scalars):
+    """Allocate the outputs and the (B, n_blocks) mbc scratch, call the C
+    launcher on the current stream, raise on a refused launch."""
+    B = q.shape[0]
     dom, ibc, tde = (torch.empty_like(q) for _ in range(3))
     mbc = torch.empty((B,), dtype=q.dtype, device=q.device)
-    partial = torch.empty((B, lib.dg_stencil_num_blocks(H, W)), dtype=q.dtype, device=q.device)
-    ins = (p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps)
+    partial = torch.empty((B, n_blocks), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dg_stencil_forward(
-            *(t.data_ptr() for t in ins + (dom, ibc, tde, partial, mbc)),
-            B, H, W, _Scalars.from_config(cfg), stream)
+        err = fn(*(t.data_ptr() for t in tuple(ins) + (dom, ibc, tde, partial, mbc)),
+                 *dims, scalars, stream)
     if err != 0:
-        raise RuntimeError(f"dg_stencil_forward: CUDA error {err} at launch")
-    launches += 1
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")
     return dom, ibc, tde, mbc
 
 
+def _cuda_forward(*args):
+    global launches
+    *ins, cfg = args
+    lib = _library()
+    B, H, W = ins[7].shape
+    out = _launch(lib.dg_stencil_forward, ins[7], lib.dg_stencil_num_blocks(H, W), ins,
+                  (B, H, W), _pack(_Scalars, cfg))
+    launches += 1
+    return out
+
+
+def _cuda_forward_3d(*args):
+    global launches_3d
+    *ins, cfg = args
+    lib = _library_3d()
+    B, D, H, W = ins[8].shape
+    out = _launch(lib.dg3d_stencil_forward, ins[8], lib.dg3d_stencil_num_blocks(D, H, W), ins,
+                  (B, D, H, W), _pack(_Scalars3D, cfg))
+    launches_3d += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
-# public op
+# public ops
 # ---------------------------------------------------------------------------
+def _plain_backward(reference, ctx, grads):
+    """The gradient of the recomputed plain version, for the inputs that
+    need one (the reference's custom-vjp backward)."""
+    saved = ctx.saved_tensors
+    need = ctx.needs_input_grad[:len(saved)]
+    args = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+    with torch.enable_grad():
+        outs = reference(*args, ctx.cfg)
+    wanted = [a for a, n in zip(args, need) if n]
+    live = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in live], wanted, [g for _, g in live],
+                                   allow_unused=True)
+               if wanted and live else [None] * len(wanted))
+    return tuple(next(got) if n else None for n in need) + (None,)
+
+
 class DGStencilResidualFn(torch.autograd.Function):
-    """Forward: the kernel (the plain version for CPU tensors). Backward:
-    autograd through the recomputed plain version."""
+    """B1. Forward: the kernel (the plain version for CPU tensors).
+    Backward: autograd through the recomputed plain version."""
 
     @staticmethod
-    def forward(ctx, p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps, cfg):
-        args = (p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps)
-        ctx.save_for_backward(*args)
+    def forward(ctx, *args):
+        *tensors, cfg = args
+        ctx.save_for_backward(*tensors)
         ctx.cfg = cfg
-        if q.is_cuda:
-            return _cuda_forward(*args, cfg)
-        return dg_stencil_residual_reference(*args, cfg)
+        if tensors[0].is_cuda:
+            return _cuda_forward(*args)
+        return dg_stencil_residual_reference(*args)
 
     @staticmethod
     def backward(ctx, *grads):
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[:len(saved)]
-        args = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-        with torch.enable_grad():
-            outs = dg_stencil_residual_reference(*args, ctx.cfg)
-        wanted = [a for a, n in zip(args, need) if n]
-        live = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-        got = iter(torch.autograd.grad([o for o, _ in live], wanted, [g for _, g in live],
-                                       allow_unused=True)
-                   if wanted and live else [None] * len(wanted))
-        return tuple(next(got) if n else None for n in need) + (None,)
+        return _plain_backward(dg_stencil_residual_reference, ctx, grads)
 
 
-def _check(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps):
-    if q.dim() != 3:
-        raise ValueError(f"q must be (B, H, W), got {tuple(q.shape)}")
-    B, H, W = q.shape
-    want = {"p0p": (B, H + 2, W + 2), "p1p": (B, H + 2, W + 2), "kxp": (B, H + 2, W + 2),
-            "bgugp": (B, H + 2, W + 2), "invBg0": (B, H, W), "invBg1": (B, H, W),
-            "dinvBg0": (B, H, W), "q": (B, H, W), "qwell": (H, W), "tsteps": (B, 2)}
-    got = dict(p0p=p0p, p1p=p1p, kxp=kxp, bgugp=bgugp, invBg0=invBg0, invBg1=invBg1,
-               dinvBg0=dinvBg0, q=q, qwell=qwell, tsteps=tsteps)
-    for name, t in got.items():
+class DG3DStencilResidualFn(torch.autograd.Function):
+    """B2. Forward: the kernel (the plain version for CPU tensors).
+    Backward: autograd through the recomputed plain version."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        *tensors, cfg = args
+        ctx.save_for_backward(*tensors)
+        ctx.cfg = cfg
+        if tensors[0].is_cuda:
+            return _cuda_forward_3d(*args)
+        return dg3d_stencil_residual_reference(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _plain_backward(dg3d_stencil_residual_reference, ctx, grads)
+
+
+def _check(tensors: dict, want: dict):
+    """float32, the expected shapes, contiguous, one device — or raise."""
+    device = tensors["q"].device
+    for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must have shape {want[name]}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, q on {device}")
 
 
 def dg_stencil_residual(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps,
                         cfg: StencilConfig) -> Tuple[torch.Tensor, ...]:
-    """Fused DG residual: (dom, ibc, tde, mbc) from padded/centred fields.
+    """Fused DG residual (B1): (dom, ibc, tde, mbc) from padded/centred fields.
 
     Args (B = batch, H/W = grid), all float32 and contiguous on one device:
       p0p, p1p      (B, H+2, W+2) edge-padded pressures at n0/n1
@@ -209,6 +323,44 @@ def dg_stencil_residual(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell,
       qwell         (H, W)        well-cell indicator
       tsteps        (B, 2)        per-sample (Δt1, Δt2)
     """
-    _check(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps)
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, H, W), got {tuple(q.shape)}")
+    B, H, W = q.shape
+    padded, centred = (B, H + 2, W + 2), (B, H, W)
+    _check(dict(p0p=p0p, p1p=p1p, kxp=kxp, bgugp=bgugp, invBg0=invBg0, invBg1=invBg1,
+                dinvBg0=dinvBg0, q=q, qwell=qwell, tsteps=tsteps),
+           dict(p0p=padded, p1p=padded, kxp=padded, bgugp=padded, invBg0=centred,
+                invBg1=centred, dinvBg0=centred, q=centred, qwell=(H, W), tsteps=(B, 2)))
     return DGStencilResidualFn.apply(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q,
                                      qwell, tsteps, cfg)
+
+
+def dg3d_stencil_residual(p0p, p1p, kxp, kzp, bgugp, invBg0, invBg1, dinvBg0, q, qwell,
+                          tsteps, cfg: StencilConfig) -> Tuple[torch.Tensor, ...]:
+    """Fused 3D DG residual (B2): (dom, ibc, tde, mbc) from padded/centred
+    volumes, in the argument order of the reference's
+    ``dg3d_stencil_residual``.
+
+    Args (B = batch, D/H/W = grid), all float32 and contiguous on one device:
+      p0p, p1p      (B, D+2, H+2, W+2) edge-padded pressures at n0/n1
+      kxp           (B, D+2, H+2, W+2) padded horizontal permeability (mD)
+      kzp           (B, D+2, H+2, W+2) padded vertical permeability, already
+                                       scaled by kv/kh (no further scaling)
+      bgugp         (B, D+2, H+2, W+2) padded invBg·invug at n1
+      invBg0/1      (B, D, H, W)       centre 1/Bg at n0/n1
+      dinvBg0       (B, D, H, W)       d(1/Bg)/dP at n0
+      q             (B, D, H, W)       well rates at n1
+      qwell         (D, H, W)          well-cell indicator
+      tsteps        (B, 2)             per-sample (Δt1, Δt2)
+    """
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, D, H, W), got {tuple(q.shape)}")
+    B, D, H, W = q.shape
+    padded, centred = (B, D + 2, H + 2, W + 2), (B, D, H, W)
+    _check(dict(p0p=p0p, p1p=p1p, kxp=kxp, kzp=kzp, bgugp=bgugp, invBg0=invBg0,
+                invBg1=invBg1, dinvBg0=dinvBg0, q=q, qwell=qwell, tsteps=tsteps),
+           dict(p0p=padded, p1p=padded, kxp=padded, kzp=padded, bgugp=padded,
+                invBg0=centred, invBg1=centred, dinvBg0=centred, q=centred,
+                qwell=(D, H, W), tsteps=(B, 2)))
+    return DG3DStencilResidualFn.apply(p0p, p1p, kxp, kzp, bgugp, invBg0, invBg1, dinvBg0,
+                                       q, qwell, tsteps, cfg)

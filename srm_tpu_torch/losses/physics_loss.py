@@ -1,15 +1,19 @@
 """PhysicsLoss: finite-volume PDE residual loss over the multi-model SRM.
 
-Port of ``srm_tpu/losses/physics_loss.py`` for dry gas in 2D (Nz = 1) in
-physics mode with a scalar porosity: ``_residuals_dg`` (``:493-574``),
+Port of ``srm_tpu/losses/physics_loss.py`` for dry gas in physics mode with
+a scalar porosity, in 2D (Nz = 1) and 3D (Nz > 1): ``_residuals_dg``
+(``:493-574``), ``_residuals_dg_3d`` (``:576-653``, its fused branch),
 ``loss_and_metrics`` (``:971-1055``, physics branch) and
-``pinn_batch_sse_grad`` (``:1057-1074``).
+``pinn_batch_sse_grad`` (``:1057-1074``). :meth:`PhysicsLoss.residuals`
+dispatches on ``Nz > 1``, as the reference does (``:473-477``).
 
 One evaluation: Model 2 gives the per-sample Δt1 on ``x`` and Δt2 on ``x1``
 (``x`` with its time channel shifted by the normalized Δt1); Model 1 and the
 PVT run once on the doubled batch ``[x; x1]``; the well model gives rates
-and BHP at n1; the fused DG stencil (``srm_tpu_torch.kernels.stencil``)
-gives dom, ibc, tde and mbc; the weighted SSE sums the terms.
+and BHP at n1; the fused DG stencil (``srm_tpu_torch.kernels.stencil``:
+B1 in 2D, B2 in 3D) gives dom, ibc, tde and mbc; the weighted SSE sums the
+terms. In 3D the vertical permeability is ``vertical_anisotropy · kx``,
+padded and passed to the stencil pre-scaled.
 
 ``use_cuda_stencil`` mirrors the reference's ``use_pallas_stencil``. On (the
 default), the residual goes through the fused op, which launches the CUDA
@@ -18,8 +22,9 @@ CPU; off, it goes straight to the plain PyTorch version on any device and
 dtype. Per-cell porosity, which the reference computes on its unfused path,
 raises ``NotImplementedError`` until that path is ported.
 
-Feature layout: ``x`` is the woven normalized tensor ``(B, T, H, W, 5)``
-with channels ``(z, y, x, time, permx)``.
+Feature layout: ``x`` is the woven normalized tensor, ``(B, 1, H, W, 5)``
+in 2D and ``(B, 1, D, H, W, 5)`` in 3D, with channels
+``(z, y, x, time, permx)``.
 """
 
 from __future__ import annotations
@@ -37,9 +42,10 @@ from srm_tpu.config import (
     get_optimizer_model_mapping,
 )
 
-from srm_tpu_torch.kernels.stencil import (StencilConfig, dg_stencil_residual,
-                                           dg_stencil_residual_reference)
-from srm_tpu_torch.ops.stencil import pad_symmetric
+from srm_tpu_torch.kernels.stencil import (StencilConfig, dg3d_stencil_residual,
+                                           dg3d_stencil_residual_reference,
+                                           dg_stencil_residual, dg_stencil_residual_reference)
+from srm_tpu_torch.ops.stencil import pad_symmetric, pad_symmetric_3d
 from srm_tpu_torch.physics.relperm import RelativePermeability
 from srm_tpu_torch.physics.wells import scatter_to_grid
 from srm_tpu_torch.utils.stats import denormalize, normalize_diff
@@ -71,8 +77,8 @@ class PhysicsLoss:
         g = self.general_config
         self.fluid_type = (fluid_type or g["fluid_type"]).upper()
         self.physics_mode_fraction = float(g["physics_mode_fraction"])
-        if self.fluid_type != "DG" or res["Nz"] > 1:
-            raise NotImplementedError("only the dry-gas 2D residual is ported")
+        if self.fluid_type != "DG":
+            raise NotImplementedError("only the dry-gas residual is ported")
         if self.physics_mode_fraction < 1.0:
             raise NotImplementedError("only physics mode (physics_mode_fraction >= 1) is ported")
         if g.get("remat_forwards") or int(g.get("dt_input_stride", 1) or 1) > 1:
@@ -99,9 +105,13 @@ class PhysicsLoss:
                                          dz=self.dz, Sgi=self.Sgi, krgo=krgo_sgi,
                                          phi=self.phi0)
 
+        # well-cell indicator: (H, W) in 2D, (D, H, W) in 3D (:356-365)
         conn = models["well_rate_bhp_model"].well_data["connection_index"]
-        self.q_well_idx = torch.from_numpy(
-            scatter_to_grid((1, res["Ny"], res["Nx"]), conn[:, 1:], 1.0)[0]).to(self.device)
+        self.Nz = res["Nz"]
+        self.kv_kh = res.get("vertical_anisotropy", 1.0)
+        grid = (scatter_to_grid((1, self.Nz, res["Ny"], res["Nx"]), conn, 1.0) if self.Nz > 1
+                else scatter_to_grid((1, res["Ny"], res["Nx"]), conn[:, 1:], 1.0))
+        self.q_well_idx = torch.from_numpy(grid[0]).to(self.device)
 
         ds = data_summary
         nc = g["data_normalization"]
@@ -130,17 +140,18 @@ class PhysicsLoss:
     def _norm_dt(self, dt: torch.Tensor) -> torch.Tensor:
         return normalize_diff(dt, self.t_row, is_log=False, **self.norm)
 
-    @staticmethod
-    def _sq(f: torch.Tensor) -> torch.Tensor:
-        """(B, T, H, W, 1) → (B, H, W), contiguous for the stencil."""
-        return f[:, 0, :, :, 0].contiguous()
+    def _stencil_fields(self, f: torch.Tensor) -> torch.Tensor:
+        """A model field (B, 1, H, W, 1) or (B, 1, D, H, W, 1) as the
+        stencil's contiguous (B, H, W) or (B, D, H, W)."""
+        return f.reshape((f.shape[0],) + tuple(f.shape[2:-1])).contiguous()
 
     def stencil_inputs(self, x: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], Dict]:
-        """The network forwards of one evaluation: the fused stencil's ten
-        tensor arguments and the model outputs
-        (srm_tpu/losses/physics_loss.py:496-552)."""
+        """The network forwards of one evaluation: the fused stencil's tensor
+        arguments (ten for B1, eleven for B2) and the model outputs
+        (srm_tpu/losses/physics_loss.py:496-552, :600-644)."""
         m = self.models
-        kx_c = self._denorm_permx(x[:, 0, :, :, 4])                 # (B, H, W)
+        vol = self._stencil_fields
+        kx_c = vol(self._denorm_permx(x[..., 4:5]))                 # (B, [D,] H, W)
 
         # per-sample Δt: the spatial mean of Model 2's field
         dt0f = m["time_step"](x)
@@ -157,23 +168,34 @@ class PhysicsLoss:
         pvt0, pvt1 = pvt01[:, :, :B], pvt01[:, :, B:]
         q1, pwf1 = m["well_rate_bhp_model"].compute_rates_and_bhp(x1, p1f, m["pvt_model"])
 
-        sq = self._sq
-        invBg0, dinvBg0 = sq(pvt0[0, 0]), sq(pvt0[1, 0])
-        invBg1, invug1 = sq(pvt1[0, 0]), sq(pvt1[0, 1])
+        invBg0, dinvBg0 = vol(pvt0[0, 0]), vol(pvt0[1, 0])
+        invBg1, invug1 = vol(pvt1[0, 0]), vol(pvt1[0, 1])
         tsteps = torch.cat([tstep.reshape(-1, 1), tstep2.reshape(-1, 1)], dim=1)
-        args = (pad_symmetric(sq(p0f)), pad_symmetric(sq(p1f)), pad_symmetric(kx_c),
-                pad_symmetric(invBg1 * invug1), invBg0, invBg1, dinvBg0, sq(q1),
-                self.q_well_idx, tsteps)
+        if self.Nz > 1:
+            pad = pad_symmetric_3d
+            perm = (pad(kx_c), pad(self.kv_kh * kx_c))
+        else:
+            pad = pad_symmetric
+            perm = (pad(kx_c),)
+        args = (pad(vol(p0f)), pad(vol(p1f))) + perm + (
+            pad(invBg1 * invug1), invBg0, invBg1, dinvBg0, vol(q1), self.q_well_idx, tsteps)
         outputs = {"p_n0": p0f, "p_n1": p1f, "tstep": tstep, "tstep2": tstep2,
                    "q": q1, "pwf": pwf1}
         return args, outputs
 
     def residuals(self, x: torch.Tensor) -> Dict[str, Any]:
-        """Dry-gas residual fields (srm_tpu/losses/physics_loss.py:493-574)."""
+        """Dry-gas residual fields (srm_tpu/losses/physics_loss.py:473-477,
+        :493-574, :576-653). In 3D, dom, ibc and tde take the pressure
+        field's (B, 1, D, H, W) layout, as the reference returns them."""
         args, outputs = self.stencil_inputs(x)
-        stencil = (dg_stencil_residual if self.use_cuda_stencil
-                   else dg_stencil_residual_reference)
-        dom, ibc, tde, mbc = stencil(*args, self.stencil_cfg)
+        if self.Nz > 1:
+            fn = dg3d_stencil_residual if self.use_cuda_stencil else dg3d_stencil_residual_reference
+        else:
+            fn = dg_stencil_residual if self.use_cuda_stencil else dg_stencil_residual_reference
+        dom, ibc, tde, mbc = fn(*args, self.stencil_cfg)
+        if self.Nz > 1:
+            shape = tuple(outputs["p_n0"].shape[:-1])
+            dom, ibc, tde = (f.reshape(shape) for f in (dom, ibc, tde))
         zeros = torch.zeros_like(dom)
         return {
             "gas": {"dom": dom, "dbc": zeros, "nbc": zeros, "ibc": ibc, "ic": zeros,

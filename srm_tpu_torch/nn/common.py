@@ -79,12 +79,13 @@ def glorot_normal_(weight: torch.Tensor, fan_in: int, fan_out: int,
 
 
 def init_conv_(conv: torch.nn.Module, generator: Optional[torch.Generator] = None):
-    """Glorot-normal weights and zero bias for a Conv2d or ConvTranspose2d,
-    with flax's fans: kh·kw·in and kh·kw·out."""
+    """Glorot-normal weights and zero bias for a 2D or 3D convolution or
+    transposed convolution, with flax's fans: (receptive field)·in and
+    (receptive field)·out."""
     w = conv.weight
-    rf = w.shape[2] * w.shape[3]
-    c_in, c_out = ((w.shape[0], w.shape[1]) if isinstance(conv, torch.nn.ConvTranspose2d)
-                   else (w.shape[1], w.shape[0]))
+    rf = int(np.prod(w.shape[2:]))
+    transposed = isinstance(conv, (torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d))
+    c_in, c_out = (w.shape[0], w.shape[1]) if transposed else (w.shape[1], w.shape[0])
     glorot_normal_(w, rf * c_in, rf * c_out, generator)
     if conv.bias is not None:
         with torch.no_grad():

@@ -6,11 +6,12 @@ to a numpy array — and fills the port's ``pressure`` and ``time_step``
 modules so both packages compute the same function. The spline PVT has no
 params (both packages solve its weights on the host from the same table).
 
-Layouts: a flax ``Conv`` kernel is (kh, kw, in, out) → torch (out, in, kh,
-kw); a flax ``Dense`` kernel (in, out) becomes a 1×1 conv (out, in, 1, 1);
-a flax ``ConvTranspose`` does not flip its kernel and torch's does, so its
-(kh, kw, in, out) kernel is flipped on both spatial axes and reordered to
-torch's (in, out, kh, kw).
+Layouts, in 2D and 3D: a flax ``Conv`` kernel is (*spatial, in, out) →
+torch (out, in, *spatial), e.g. (kd, kh, kw, in, out) → (out, in, kd, kh,
+kw); a flax ``Dense`` kernel (in, out) becomes a 1×1 (or 1×1×1) conv; a
+flax ``ConvTranspose`` does not flip its kernel and torch's does, so its
+(*spatial, in, out) kernel is flipped on every spatial axis and reordered
+to torch's (in, out, *spatial).
 """
 
 from __future__ import annotations
@@ -22,19 +23,21 @@ import torch
 from torch import nn
 
 
-def _conv_weight(kernel: np.ndarray) -> np.ndarray:
+def _conv_weight(kernel: np.ndarray, nd: int) -> np.ndarray:
     if kernel.ndim == 2:                               # Dense (in, out)
-        return kernel.T[:, :, None, None]
-    return np.transpose(kernel, (3, 2, 0, 1))
+        return kernel.T.reshape(kernel.T.shape + (1,) * nd)
+    return np.transpose(kernel, (nd + 1, nd) + tuple(range(nd)))
 
 
-def _deconv_weight(kernel: np.ndarray) -> np.ndarray:
-    return np.transpose(kernel[::-1, ::-1], (2, 3, 0, 1))
+def _deconv_weight(kernel: np.ndarray, nd: int) -> np.ndarray:
+    flipped = kernel[(slice(None, None, -1),) * nd]
+    return np.transpose(flipped, (nd, nd + 1) + tuple(range(nd)))
 
 
 def _load(module: nn.Module, leaf: Mapping[str, Any], transpose: bool = False):
     kernel = np.asarray(leaf["kernel"], np.float32)
-    weight = _deconv_weight(kernel) if transpose else _conv_weight(kernel)
+    nd = module.weight.dim() - 2                       # spatial dims of the torch layer
+    weight = _deconv_weight(kernel, nd) if transpose else _conv_weight(kernel, nd)
     if tuple(weight.shape) != tuple(module.weight.shape):
         raise ValueError(f"weight shape {weight.shape} does not fit {tuple(module.weight.shape)}")
     with torch.no_grad():

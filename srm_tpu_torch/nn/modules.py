@@ -1,6 +1,6 @@
 """Composition modules and the dry-gas model map.
 
-Port of ``srm_tpu/nn/modules.py`` for dry gas in 2D:
+Port of ``srm_tpu/nn/modules.py`` for dry gas, in 2D and 3D (``Nz > 1``):
 
 * :class:`CompleteTrainableModule` — a backbone with an optional HardLayer
   fed the time channel (``inputs[..., -2:-1]``).
@@ -47,13 +47,16 @@ class CompleteTrainableModule(nn.Module):
 def build_pressure_model(sample_shape: Tuple[int, ...], general_config: Optional[Dict] = None,
                          reservoir_config: Optional[Dict] = None,
                          generator: Optional[torch.Generator] = None) -> CompleteTrainableModule:
-    """Model 1: 2D temporal encoder–decoder + HardLayer (init value Pi).
-    ``sample_shape`` is one model input without the batch axis, (T, H, W, C)."""
+    """Model 1: temporal encoder–decoder + HardLayer (init value Pi), over
+    (H, W) or, for ``Nz > 1``, over (D, H, W) with the leading singleton as
+    the temporal axis (srm_tpu/nn/modules.py:89-130). ``sample_shape`` is
+    one model input without the batch axis, (T, H, W, C) or (1, D, H, W, C).
+    The network raises ``ValueError`` on a grid that its encoder collapses
+    (Nz < 9)."""
     g = general_config or DEFAULT_GENERAL_CONFIG
     res = reservoir_config or DEFAULT_RESERVOIR_CONFIG
-    if res.get("Nz", 1) > 1:
-        raise NotImplementedError("the 3D pressure model is not ported yet")
     ed = get_configuration("encoder_decoder")
+    ed["spatial_dims"] = 3 if res.get("Nz", 1) > 1 else 2
     rp = ed["residual_params"]
     rp["Extra_Conv_Layers"]["Count"] = 2
     rp["Extra_Dec_Conv_Layers"]["Count"] = 2
@@ -69,20 +72,24 @@ def build_pressure_model(sample_shape: Tuple[int, ...], general_config: Optional
     hard["init_value"] = res["initialization"]["Pi"]
     hard["kernel_activation"] = None
     hard["kernel_exponent_config"].update(initial_value=0.5, min_value=0.1, max_value=1.0)
-    T, H, W, C = sample_shape
+    if len(sample_shape) != ed["spatial_dims"] + 2:
+        raise ValueError(f"sample shape {tuple(sample_shape)} does not fit a "
+                         f"{ed['spatial_dims']}D grid")
+    # the HardLayer's exponent is per cell: (T, H, W, 1) or (1, D, H, W, 1)
     return CompleteTrainableModule(
-        EncoderDecoder.from_config(ed, in_channels=C, generator=generator),
-        HardLayer.from_config(hard, exp_shape=(T, H, W, 1)))
+        EncoderDecoder.from_config(ed, in_channels=sample_shape[-1], generator=generator),
+        HardLayer.from_config(hard, exp_shape=tuple(sample_shape[:-1]) + (1,)))
 
 
 def build_time_step_model(sample_shape: Tuple[int, ...], general_config: Optional[Dict] = None,
                           generator: Optional[torch.Generator] = None
                           ) -> CompleteTrainableModule:
-    """Model 2: cnn residual net with the scaled x·tanh(x) Δt head in
-    (0.1, maximum_srm_timestep]."""
+    """Model 2: residual net with the scaled x·tanh(x) Δt head in
+    (0.1, maximum_srm_timestep]; ``cnn`` on (T, H, W, C) samples, ``cnn3d``
+    on (1, D, H, W, C) samples (srm_tpu/nn/modules.py:185-209)."""
     g = general_config or DEFAULT_GENERAL_CONFIG
     cfg = get_configuration("residual")
-    cfg["network_type"] = "cnn"
+    cfg["network_type"] = "cnn3d" if len(sample_shape) == 5 else "cnn"
     cfg["output_distribution"] = False
     cfg["output_activation"] = partial(scaled_tanh_lisht, min_val=0.1,
                                        max_val=g["maximum_srm_timestep"])
@@ -109,8 +116,10 @@ def build_model_map(input_shape: Tuple[int, ...], device: torch.device,
     """All dry-gas models keyed by the reference's logical names:
     'pressure', 'time_step', 'pvt_model', 'well_rate_bhp_model'.
 
-    ``input_shape`` is the training-data shape (K, T, D, H, W, C); a model
-    input is (B, D, H, W, C) with D folded as the temporal axis."""
+    ``input_shape`` is the training-data shape: (K, T, 1, H, W, C) in 2D,
+    where a model input (B, 1, H, W, C) folds the singleton as its temporal
+    axis, or (K, T, 1, D, H, W, C) in 3D, where a model input is
+    (B, 1, D, H, W, C)."""
     g = general_config or DEFAULT_GENERAL_CONFIG
     fluid_type = (fluid_type or g["fluid_type"]).upper()
     if fluid_type != "DG":

@@ -1,13 +1,13 @@
-"""Finite-volume stencil primitives on (..., H, W) tensors.
+"""Finite-volume stencil primitives on (..., H, W) and (..., D, H, W) tensors.
 
-Port of the 2D part of ``srm_tpu/ops/stencil.py``: ghost-cell padding,
-the 5-point neighbourhood of a padded field, harmonic and arithmetic face
-values and the 5-point divergence. Each keeps the reference's operation
-order, so the plain stencil in ``srm_tpu_torch.kernels.stencil`` rounds as
-the reference does.
+Port of ``srm_tpu/ops/stencil.py``: ghost-cell padding, the 5-point (2D)
+and 7-point (3D) neighbourhood of a padded field, harmonic and arithmetic
+face values and the 5- and 7-point divergences. Each keeps the
+reference's operation order, so the plain stencils in
+``srm_tpu_torch.kernels.stencil`` round as the reference does.
 
 Convention: i indexes the last axis (x / width), j the second-to-last
-(y / height).
+(y / height), k the third-from-last (z / depth).
 """
 
 from __future__ import annotations
@@ -70,3 +70,68 @@ def five_point_divergence(a_ih, a_i_h, a_jh, a_j_h, p: Neighbors, q_over_dv, dv)
     return dv * ((-a_i_h * p.i_1) + (-a_j_h * p.j_1)
                  + ((a_i_h + a_j_h + a_ih + a_jh) * p.ij)
                  + (-a_ih * p.i1) + (-a_jh * p.j1) + q_over_dv)
+
+
+# ---------------------------------------------------------------------------
+# 3D (7-point), srm_tpu/ops/stencil.py:97-160
+# ---------------------------------------------------------------------------
+def pad_symmetric_3d(f: torch.Tensor) -> torch.Tensor:
+    """One ghost cell on each side of the last three axes (edge repeat, as
+    :func:`pad_symmetric`). ``replicate`` on a 4D tensor would read it as
+    an unbatched (C, D, H, W) volume, so the volumes are flattened to
+    (N, 1, D, H, W) explicitly."""
+    lead = f.shape[:-3]
+    f4 = f.reshape((-1,) + tuple(f.shape[-3:]))
+    out = F.pad(f4.unsqueeze(1), (1, 1, 1, 1, 1, 1), mode="replicate").squeeze(1)
+    return out.reshape(tuple(lead) + tuple(out.shape[-3:]))
+
+
+class Neighbors3D(NamedTuple):
+    """Centre and 6-neighbourhood of a padded (..., D+2, H+2, W+2) field."""
+    ij: torch.Tensor
+    i1: torch.Tensor
+    i_1: torch.Tensor
+    j1: torch.Tensor
+    j_1: torch.Tensor
+    k1: torch.Tensor    # k+1 (down)
+    k_1: torch.Tensor   # k-1 (up)
+
+
+def neighbors_3d(fp: torch.Tensor) -> Neighbors3D:
+    return Neighbors3D(
+        ij=fp[..., 1:-1, 1:-1, 1:-1],
+        i1=fp[..., 1:-1, 1:-1, 2:],
+        i_1=fp[..., 1:-1, 1:-1, :-2],
+        j1=fp[..., 1:-1, 2:, 1:-1],
+        j_1=fp[..., 1:-1, :-2, 1:-1],
+        k1=fp[..., 2:, 1:-1, 1:-1],
+        k_1=fp[..., :-2, 1:-1, 1:-1],
+    )
+
+
+def harmonic_faces_3d(k: Neighbors3D, kz: Neighbors3D) -> Tuple[torch.Tensor, ...]:
+    """Harmonic-mean permeability at the six faces: (kx_ih, kx_i_h, ky_jh,
+    ky_j_h, kz_kh, kz_k_h); the z faces use the vertical field ``kz``."""
+    kx_ih = 2.0 * k.i1 * k.ij / (k.i1 + k.ij)
+    kx_i_h = 2.0 * k.ij * k.i_1 / (k.ij + k.i_1)
+    ky_jh = 2.0 * k.j1 * k.ij / (k.j1 + k.ij)
+    ky_j_h = 2.0 * k.ij * k.j_1 / (k.ij + k.j_1)
+    kz_kh = 2.0 * kz.k1 * kz.ij / (kz.k1 + kz.ij)
+    kz_k_h = 2.0 * kz.ij * kz.k_1 / (kz.ij + kz.k_1)
+    return kx_ih, kx_i_h, ky_jh, ky_j_h, kz_kh, kz_k_h
+
+
+def average_faces_3d(f: Neighbors3D) -> Tuple[torch.Tensor, ...]:
+    """Arithmetic face averages: (f_ih, f_i_h, f_jh, f_j_h, f_kh, f_k_h)."""
+    return (0.5 * (f.i1 + f.ij), 0.5 * (f.ij + f.i_1),
+            0.5 * (f.j1 + f.ij), 0.5 * (f.ij + f.j_1),
+            0.5 * (f.k1 + f.ij), 0.5 * (f.ij + f.k_1))
+
+
+def seven_point_divergence(a_ih, a_i_h, a_jh, a_j_h, a_kh, a_k_h, p: Neighbors3D,
+                           q_over_dv, dv):
+    """dv · (−a_i_h·p_{i−1} − a_j_h·p_{j−1} − a_k_h·p_{k−1} + Σa·p_ijk
+    − a_ih·p_{i+1} − a_jh·p_{j+1} − a_kh·p_{k+1} + q/dv)."""
+    return dv * ((-a_i_h * p.i_1) + (-a_j_h * p.j_1) + (-a_k_h * p.k_1)
+                 + ((a_i_h + a_j_h + a_k_h + a_ih + a_jh + a_kh) * p.ij)
+                 + (-a_ih * p.i1) + (-a_jh * p.j1) + (-a_kh * p.k1) + q_over_dv)

@@ -90,3 +90,71 @@ def test_dg_stencil_kernel_is_deterministic(cuda):
     for _ in range(3):
         for a, b in zip(first, st.dg_stencil_residual(*args, cfg)):
             assert torch.equal(a, b)
+
+
+def _inputs_3d(B, D, H, W, device, kv_kh=0.1, seed=0):
+    """3D stencil inputs on the main path's scales (dz = 80/10 ft), with
+    kz = kv_kh · kx ≠ kx so that a mix-up of the two shows."""
+    rng = np.random.RandomState(seed)
+    pad = lambda a: np.pad(a, [(0, 0), (1, 1), (1, 1), (1, 1)], mode="symmetric")  # noqa: E731
+    shp = (B, D, H, W)
+    p0 = rng.uniform(4500, 5000, shp).astype(np.float32)
+    p1 = p0 - rng.uniform(0, 50, shp).astype(np.float32)
+    kx = rng.uniform(0.5, 10.0, shp).astype(np.float32)
+    invBg = rng.uniform(0.9, 1.2, shp).astype(np.float32)
+    invug = rng.uniform(30, 40, shp).astype(np.float32)
+    dinvBg = rng.uniform(1e-4, 3e-4, shp).astype(np.float32)
+    q = np.zeros(shp, np.float32)
+    q[:, 0, H // 2, W // 2] = 500.0
+    qwell = np.zeros((D, H, W), np.float32)
+    qwell[0, H // 2, W // 2] = 1.0
+    tsteps = rng.uniform(1.0, 9.0, (B, 2)).astype(np.float32)
+    args = [pad(p0), pad(p1), pad(kx), pad(np.float32(kv_kh) * kx), pad(invBg * invug), invBg,
+            invBg * np.float32(0.99), dinvBg, q, qwell, tsteps]
+    cfg = st.StencilConfig(C=0.001127, D=5.6145833334, dx=2900.0 / 39, dy=2900.0 / 39,
+                           dz=80.0 / D, Sgi=0.78, krgo=0.8, phi=0.2)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args], cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 10, 39, 39), (3, 5, 13, 17), (1, 1, 1, 300)])
+def test_dg3d_stencil_kernel_matches_plain_version(cuda, shape):
+    args, cfg = _inputs_3d(*shape, cuda)
+    before, before_2d = st.launches_3d, st.launches
+    got = st.dg3d_stencil_residual(*args, cfg)
+    want = st.dg3d_stencil_residual_reference(*args, cfg)
+    torch.cuda.synchronize()
+    assert (st.launches_3d, st.launches) == (before + 1, before_2d)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.cuda
+def test_dg3d_stencil_kernel_gradient_matches_plain_autograd(cuda):
+    args, cfg = _inputs_3d(32, 10, 39, 39, cuda)
+    grads = []
+    for fn in (st.dg3d_stencil_residual, st.dg3d_stencil_residual_reference):
+        a = [t.clone().requires_grad_(i != 9) for i, t in enumerate(args)]
+        dom, ibc, tde, mbc = fn(*a, cfg)
+        ((dom**2).sum() + (ibc**2).sum() + (tde**2).sum() + (mbc**2).sum()).backward()
+        grads.append([t.grad for i, t in enumerate(a) if i != 9])
+    for g, w in zip(*grads):
+        _close(g, w)
+
+
+@pytest.mark.cuda
+def test_dg3d_stencil_kernel_is_deterministic(cuda):
+    args, cfg = _inputs_3d(32, 10, 39, 39, cuda)
+    first = st.dg3d_stencil_residual(*args, cfg)
+    for _ in range(3):
+        for a, b in zip(first, st.dg3d_stencil_residual(*args, cfg)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dg3d_stencil_refuses_a_mixed_device_call(cuda):
+    """A CUDA call goes to the kernel or raises: no fallback."""
+    args, cfg = _inputs_3d(2, 3, 5, 6, cuda)
+    args[9] = args[9].cpu()
+    with pytest.raises(ValueError):
+        st.dg3d_stencil_residual(*args, cfg)

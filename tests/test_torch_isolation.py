@@ -18,8 +18,11 @@ def _run(args, cwd, env_extra=None, timeout=300):
                           timeout=timeout)
 
 
-def test_port_never_imports_jax(tmp_path):
-    script = textwrap.dedent(f"""
+def _isolated_step(base_dir, case_kwargs: str) -> str:
+    """A script that imports every module of the port, builds a case with
+    ``setup_case(..., <case_kwargs>)``, takes one CPU train step and fails
+    if JAX or any of the JAX package beyond ``srm_tpu.config`` was loaded."""
+    return textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import torch
         torch.set_num_threads(2)
@@ -28,8 +31,8 @@ def test_port_never_imports_jax(tmp_path):
             importlib.import_module(mod.name)
         from srm_tpu_torch.examples.common import setup_case
         from srm_tpu_torch.training.trainer import Trainer
-        case = setup_case("DG", base_dir={str(tmp_path)!r}, nx=9, n_realizations=6,
-                          device="cpu")
+        case = setup_case("DG", base_dir={str(base_dir)!r}, n_realizations=6, device="cpu",
+                          {case_kwargs})
         trainer = Trainer(case["loss_fn"])
         nb, n = trainer.stage_dataset("train", case["train_groups"], 8)
         x, y, _, bs = trainer._resident["train"]
@@ -43,6 +46,18 @@ def test_port_never_imports_jax(tmp_path):
         assert not ref, ref
         print("isolated")
     """)
+
+
+def test_port_never_imports_jax(tmp_path):
+    proc = _run([sys.executable, "-c", _isolated_step(tmp_path, "nx=9")], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+def test_port_3d_never_imports_jax(tmp_path):
+    """The 3D path (uncorrelated fields, Conv3d networks, the 7-point
+    stencil) stands alone as well."""
+    script = _isolated_step(tmp_path, 'nx=9, nz=9, kle_method="uncorrelated"')
     proc = _run([sys.executable, "-c", script], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "isolated" in proc.stdout
