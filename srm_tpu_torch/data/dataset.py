@@ -9,9 +9,10 @@ normalization → (features, labels) groups.
 
 The cache files are the reference's: ``training_data_{hash}.npz`` and
 ``training_statistics_summary_{hash}.json`` under
-``static_dynamic/{name}_{hash}/``, keyed by the shared
-``srm_tpu.config.generate_full_config_hash``, so either package reads what
-the other wrote. Simulator and Eclipse labels are not ported yet.
+``static_dynamic/{name}_{hash}/``, keyed by
+``srm_tpu_torch.config.generate_full_config_hash``, the port's copy of the
+JAX package's: while the two hashes agree (``tests/test_torch_config.py``),
+either package reads what the other wrote. Simulator and Eclipse labels are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,14 +25,14 @@ import zipfile
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-from srm_tpu.config import (
+
+from srm_tpu_torch.config import (
     DEFAULT_GENERAL_CONFIG,
     DEFAULT_RESERVOIR_CONFIG,
     DEFAULT_WELLS_CONFIG,
     WORKING_DIRECTORY,
     generate_full_config_hash,
 )
-
 from srm_tpu_torch.data.kle import generate_kle_numpy, split_realizations
 from srm_tpu_torch.data.weave import (create_positional_grids, split_tensor_sequence,
                                       weave_tensors)

@@ -1,10 +1,9 @@
 """The bundled PVT table (spline knots for the PVT model).
 
-Port of ``srm_tpu/data/pvt_table.py::load_pvt_table``. The table itself is
-the reference package's CSV asset (37 pressure points × [Pre, InvBg, InvBo,
-Invug, Invuo, Rs, Rv, InvBgd, Invugd, Vro]); it is read from the installed
-``srm_tpu`` package's files without importing ``srm_tpu.data``, whose
-``__init__`` imports JAX.
+Port of ``srm_tpu/data/pvt_table.py::load_pvt_table``. The port ships its
+own copy of the table, ``srm_tpu_torch/data/assets/pvt_table.csv`` (37
+pressure points × [Pre, InvBg, InvBo, Invug, Invuo, Rs, Rv, InvBgd, Invugd,
+Vro]), byte for byte the JAX package's asset.
 """
 
 from __future__ import annotations
@@ -14,10 +13,8 @@ import os
 from typing import Dict
 
 import numpy as np
-import srm_tpu
 
-ASSET = os.path.join(os.path.dirname(os.path.abspath(srm_tpu.__file__)),
-                     "data", "assets", "pvt_table.csv")
+ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "pvt_table.csv")
 
 
 def load_pvt_table(path: str = ASSET) -> Dict[str, np.ndarray]:

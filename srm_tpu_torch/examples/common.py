@@ -1,12 +1,18 @@
 """Case construction for the training entry points.
 
-Port of ``srm_tpu/examples/common.py::setup_case`` for dry gas: the data
-processor, the generated or cached physics-mode dataset, its statistics,
-the model map on ``device`` and the PhysicsLoss, as one dict bundle.
-``nx``, ``nz`` and ``n_realizations`` resize the problem, and
-``kle_method="uncorrelated"`` selects iid log-normal permeability fields,
-as in the reference; ``nz > 1`` gives the 3D (7-point) case, which needs
-``nz >= 9`` at the default encoder depth (``EncoderDecoder``).
+Port of ``srm_tpu/examples/common.py::setup_case`` for dry gas ("DG") and
+gas condensate ("GC"): the data processor, the generated or cached
+physics-mode dataset, its statistics, the model map on ``device`` and the
+PhysicsLoss, as one dict bundle. ``nx``, ``nz`` and ``n_realizations``
+resize the problem, and ``kle_method="uncorrelated"`` selects iid log-normal
+permeability fields, as in the reference; ``nz > 1`` gives the 3D
+(7-point) dry-gas case, which needs ``nz >= 9`` at the default encoder depth
+(``EncoderDecoder``). ``pi`` and ``min_bhp`` set the initial pressure and
+the wells' BHP floor (the reference's drawdown scenarios); both enter the
+config hash.
+
+The case runs on the GPU: ``device=None`` means ``"cuda"``, and without a
+usable CUDA device the call raises. Pass ``device="cpu"`` to run on the CPU.
 """
 
 from __future__ import annotations
@@ -15,8 +21,8 @@ import copy
 from typing import Dict, Optional
 
 import torch
-from srm_tpu.config import DEFAULT_GENERAL_CONFIG, get_optimizer_model_mapping
 
+from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG, get_optimizer_model_mapping
 from srm_tpu_torch.data.dataset import SRMDataProcessor
 from srm_tpu_torch.losses.physics_loss import PhysicsLoss
 from srm_tpu_torch.nn.modules import build_model_map
@@ -27,12 +33,16 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
                nx: Optional[int] = None, n_realizations: Optional[int] = None,
                general_config: Optional[Dict] = None, seed: Optional[int] = None,
                nz: Optional[int] = None, kle_method: Optional[str] = None,
+               pi: Optional[float] = None, min_bhp: Optional[float] = None,
                device: Optional[torch.device] = None) -> Dict:
     """Build everything for one training case; returns a dict bundle."""
     fluid_type = fluid_type.upper()
-    if fluid_type != "DG":
-        raise NotImplementedError("only the dry-gas case is ported")
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    if fluid_type not in ("DG", "GC"):
+        raise ValueError(f"Unknown fluid type: {fluid_type}. Use 'DG' or 'GC'.")
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no usable CUDA device: the port runs on the GPU by default; "
+                           'pass device="cpu" (CLI: --device cpu) to run on the CPU')
     g = copy.deepcopy(general_config or DEFAULT_GENERAL_CONFIG)
     g["fluid_type"] = fluid_type
     if seed is not None:
@@ -58,6 +68,11 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
         res["realizations"]["permx"]["number"] = n_realizations
     if kle_method is not None:
         res["realizations"]["permx"]["method"] = kle_method
+    if pi is not None:
+        res["initialization"]["Pi"] = float(pi)
+    if min_bhp is not None:
+        for conn in processor.wells_config["connections"]:
+            conn["minimum_bhp"] = float(min_bhp)
 
     path, train_groups, val_groups, test_groups, pred_groups = \
         processor.get_or_generate_training_data()

@@ -1,30 +1,33 @@
-"""Fused dry-gas stencil residuals: CUDA kernels, plain versions, gradients.
+"""Fused stencil residuals: CUDA kernels, plain versions, gradients.
 
-Port of the two dry-gas kernels of ``srm_tpu/kernels/stencil_pallas.py``:
-``dg_stencil_residual`` (kernel B1, 2D, 5-point) and
-``dg3d_stencil_residual`` (kernel B2, 3D, 7-point). Each has three
-pieces, as in the reference:
+Port of the three kernels of ``srm_tpu/kernels/stencil_pallas.py``:
+``dg_stencil_residual`` (kernel B1, dry gas, 2D, 5-point),
+``dg3d_stencil_residual`` (kernel B2, dry gas, 3D, 7-point) and
+``gc_stencil_residual`` (kernel B3, gas condensate, 2D, two phases). Each
+has three pieces, as in the reference:
 
 * a plain PyTorch version, a straight batched port of the reference's
   math and jnp twin (:func:`dg_stencil_residual_reference`, from
   ``_residual_math`` / ``_jnp_forward`` ``:57-103, 151-160``;
   :func:`dg3d_stencil_residual_reference`, from ``_residual_math_3d`` /
-  ``_jnp_forward_3d`` ``:179-235, 284-292``). The CPU path and the checks
+  ``_jnp_forward_3d`` ``:179-235, 284-292``;
+  :func:`gc_stencil_residual_reference`, from ``_residual_math_gc`` /
+  ``_gc_jnp_forward`` ``:352-453, 508-515``). The CPU path and the checks
   of the kernels use them.
-* a CUDA kernel (``csrc/dg_stencil.cu``, ``csrc/dg3d_stencil.cu``), built
-  with ``nvcc`` for ``sm_90a`` at first use and called through ctypes on
-  PyTorch's current stream. ``launches`` counts B1's launches and
-  ``launches_3d`` B2's.
+* a CUDA kernel (``csrc/dg_stencil.cu``, ``csrc/dg3d_stencil.cu``,
+  ``csrc/gc_stencil.cu``), built with ``nvcc`` for ``sm_90a`` at first use
+  and called through ctypes on PyTorch's current stream. ``launches``
+  counts B1's launches, ``launches_3d`` B2's and ``launches_gc`` B3's.
 * a ``torch.autograd.Function`` (:class:`DGStencilResidualFn`,
-  :class:`DG3DStencilResidualFn`): forward through the kernel (or, for
-  tensors on the CPU, the plain version); backward recomputes the plain
-  version and differentiates it, as the reference's ``jax.custom_vjp``
-  differentiates its jnp twin (``:568-571``, ``:313-316``). Hand-written
-  backward kernels are later work.
+  :class:`DG3DStencilResidualFn`, :class:`GCStencilResidualFn`): forward
+  through the kernel (or, for tensors on the CPU, the plain version);
+  backward recomputes the plain version and differentiates it, as the
+  reference's ``jax.custom_vjp`` differentiates its jnp twin (``:568-571``,
+  ``:313-316``, ``:529-540``). Hand-written backward kernels are later work.
 
-:func:`dg_stencil_residual` and :func:`dg3d_stencil_residual` are the public
-ops. A CUDA tensor goes to the kernel, or the call raises: there is no
-fallback to the plain version.
+:func:`dg_stencil_residual`, :func:`dg3d_stencil_residual` and
+:func:`gc_stencil_residual` are the public ops. A CUDA tensor goes to the
+kernel, or the call raises: there is no fallback to the plain version.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 from srm_tpu_torch.kernels.build import load_library
 from srm_tpu_torch.ops.stencil import (average_faces, average_faces_3d, five_point_divergence,
                                        harmonic_faces, harmonic_faces_3d, neighbors,
-                                       neighbors_3d)
+                                       neighbors_3d, upstream_faces)
 
 EPSILON = 1e-7
 
@@ -46,6 +49,8 @@ EPSILON = 1e-7
 launches = 0
 #: launches of the B2 (3D) kernel; the plain version never counts
 launches_3d = 0
+#: launches of the B3 (gas-condensate) kernel; the plain version never counts
+launches_gc = 0
 
 
 class StencilConfig(NamedTuple):
@@ -57,6 +62,26 @@ class StencilConfig(NamedTuple):
     Sgi: float
     krgo: float          # constant DG relperm at Sgi
     phi: float           # constant porosity
+
+
+class GCStencilConfig(NamedTuple):
+    C: float
+    D: float
+    dx: float
+    dy: float
+    dz: float
+    Swmin: float
+    phi: float           # constant porosity
+
+
+#: B3's 25 fields, in the reference's ``_GC_ARGS`` order (``:456-459``):
+#: padded (B, H+2, W+2) where the name ends in "p", centred (B, H, W) else
+GC_ARGS = ("p0", "p1p", "kxp", "Sg0", "Sg1", "krgo1p", "krog1p",
+           "invBg0", "invBo0", "Rs0", "Rv0", "dinvBg0", "dinvBo0", "dRs0",
+           "dRv0", "invBg1p", "invBo1p", "invug1p", "invuo1p", "Rs1p", "Rv1p",
+           "qfg", "qdg", "qfo", "qvo")
+GC_PADDED = frozenset(("p1p", "kxp", "krgo1p", "krog1p", "invBg1p", "invBo1p", "invug1p",
+                       "invuo1p", "Rs1p", "Rv1p"))
 
 
 def rock_compressibility(phi: float) -> float:
@@ -151,6 +176,99 @@ def dg3d_stencil_residual_reference(p0p, p1p, kxp, kzp, bgugp, invBg0, invBg1, d
     return dom, ibc, tde, -mbc_cell.sum(dim=(1, 2, 3))
 
 
+def gc_stencil_residual_reference(p0, p1p, kxp, Sg0, Sg1, krgo1p, krog1p,
+                                  invBg0, invBo0, Rs0, Rv0, dinvBg0, dinvBo0, dRs0, dRv0,
+                                  invBg1p, invBo1p, invug1p, invuo1p, Rs1p, Rv1p,
+                                  qfg, qdg, qfo, qvo, qwell, tsteps, cfg: GCStencilConfig):
+    """(dom_g, dom_o, ibc, trn_g, trn_o, mbc_g, mbc_o) with the operation
+    order of the reference's ``_residual_math_gc``: upstream relperm faces,
+    face-averaged property products, four 5-point divergences (gg, go, oo,
+    og) and the chord-slope accumulation. So = 1 − Swmin − Sg."""
+    C, D, phi = cfg.C, cfg.D, cfg.phi
+    dv = cfg.dx * cfg.dy * cfg.dz
+    t1 = tsteps[:, 0].reshape(-1, 1, 1)
+    t2 = tsteps[:, 1].reshape(-1, 1, 1)
+
+    kfaces = harmonic_faces(neighbors(kxp))
+    pn = neighbors(p1p)
+    p1 = pn.ij
+    invBg1, invBo1, Rs1, Rv1 = (f[:, 1:-1, 1:-1] for f in (invBg1p, invBo1p, Rs1p, Rv1p))
+    So0 = 1.0 - cfg.Swmin - Sg0
+    So1 = 1.0 - cfg.Swmin - Sg1
+
+    RsinvBo0, RvinvBg0 = Rs0 * invBo0, Rv0 * invBg0
+    RsinvBo1, RvinvBg1 = Rs1 * invBo1, Rv1 * invBg1
+    mg0 = phi * (invBg0 * Sg0 + RsinvBo0 * So0)
+    mo0 = phi * (invBo0 * So0 + RvinvBg0 * Sg0)
+    mg1 = phi * (invBg1 * Sg1 + RsinvBo1 * So1)
+    mo1 = phi * (invBo1 * So1 + RvinvBg1 * Sg1)
+    ratio = 1.0 + t2 / torch.clamp_min(t1, 1e-12)
+    mg2 = (mg1 - mg0) * ratio + mg0
+    mo2 = (mo1 - mo0) * ratio + mo0
+
+    rte = EPSILON * 0.25
+    denom_t = t1 * t2 + t2 * t2
+    trn_g = (dv / D) * (rte / t1 + (t2 * mg0 + t1 * mg2 - (t1 + t2) * mg1) / denom_t)
+    trn_o = (dv / D) * (rte / t1 + (t2 * mo0 + t1 * mo2 - (t1 + t2) * mo1) / denom_t)
+
+    kgo = upstream_faces(neighbors(krgo1p), pn)
+    kog = upstream_faces(neighbors(krog1p), pn)
+    bgug = average_faces(neighbors(invBg1p * invug1p))
+    bouo = average_faces(neighbors(invBo1p * invuo1p))
+    rvbgug = average_faces(neighbors(Rv1p * invBg1p * invug1p))
+    rsbouo = average_faces(neighbors(Rs1p * invBo1p * invuo1p))
+
+    # the chord slope keeps the reference's safe_dp form: a plain division
+    # by dp would give a NaN gradient where dp = 0 even though it is masked
+    dp = p1 - p0
+    moving = dp.abs() > 0
+    safe_dp = torch.where(moving, dp, torch.ones_like(dp))
+    d_Sg = torch.where(moving, (Sg1 - Sg0) / safe_dp, torch.zeros_like(dp))
+    d_So = torch.where(moving, (So1 - So0) / safe_dp, torch.zeros_like(dp))
+
+    d_RsinvBo = Rs0 * dinvBo0 + invBo0 * dRs0
+    d_RvinvBg = Rv0 * dinvBg0 + invBg0 * dRv0
+
+    cf = rock_compressibility(phi)
+    cprgg = phi * cf * invBg0
+    cprgo = phi * cf * RsinvBo0
+    cproo = phi * cf * invBo0
+    cprog = phi * cf * RvinvBg0
+
+    inv_d = (1.0 / (cfg.dx * cfg.dx),) * 2 + (1.0 / (cfg.dy * cfg.dy),) * 2
+
+    def trans(kr_faces, prop_faces):
+        return tuple(C * kf * kr * pr * iv
+                     for kf, kr, pr, iv in zip(kfaces, kr_faces, prop_faces, inv_d))
+
+    agg = trans(kgo, bgug)
+    ago = trans(kog, rsbouo)
+    aoo = trans(kog, bouo)
+    aog = trans(kgo, rvbgug)
+
+    inv_Dt = 1.0 / (D * t1)
+    cpgg = inv_Dt * (phi * invBg1 * d_Sg + Sg0 * (phi * dinvBg0 + cprgg)) * dp
+    cpgo = inv_Dt * (phi * RsinvBo1 * d_So + So0 * (phi * d_RsinvBo + cprgo)) * dp
+    cpoo = inv_Dt * (phi * invBo1 * d_So + So0 * (phi * dinvBo0 + cproo)) * dp
+    cpog = inv_Dt * (phi * RvinvBg1 * d_Sg + Sg0 * (phi * d_RvinvBg + cprog)) * dp
+
+    divq_gg = five_point_divergence(*agg, pn, qfg / dv, dv)
+    divq_go = five_point_divergence(*ago, pn, qdg / dv, dv)
+    divq_oo = five_point_divergence(*aoo, pn, qfo / dv, dv)
+    divq_og = five_point_divergence(*aog, pn, qvo / dv, dv)
+
+    dom_g = (divq_gg + dv * cpgg) + (divq_go + dv * cpgo)
+    dom_o = (divq_oo + dv * cpoo) + (divq_og + dv * cpog)
+    ibc = qwell * ((divq_gg + divq_go) + (divq_oo + divq_og))
+
+    mbc_g_cell = (qfg + qdg) + dv * inv_Dt * phi * (
+        (Sg1 * invBg1 - Sg0 * invBg0) + (So1 * RsinvBo1 - So0 * RsinvBo0))
+    mbc_o_cell = (qfo + qvo) + dv * inv_Dt * phi * (
+        (So1 * invBo1 - So0 * invBo0) + (Sg1 * RvinvBg1 - Sg0 * RvinvBg0))
+    return (dom_g, dom_o, ibc, trn_g, trn_o,
+            -mbc_g_cell.sum(dim=(1, 2)), -mbc_o_cell.sum(dim=(1, 2)))
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -180,6 +298,30 @@ class _Scalars3D(ctypes.Structure):
     _fields_ = [(name, ctypes.c_float) for name in _FIELDS_2D + ("inv_dzz",)]
 
 
+class _ScalarsGC(ctypes.Structure):
+    """``GCStencilScalars`` of csrc/gc_stencil.cu."""
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "C", "inv_dxx", "inv_dyy", "D", "dv", "dv_over_D", "phi", "phi_cf", "So_max", "rte")]
+
+
+class _PointersGC(ctypes.Structure):
+    """``GCStencilArgs`` of csrc/gc_stencil.cu: the device pointers of the
+    inputs (GC_ARGS, qwell, tsteps), the outputs and the mbc scratch."""
+    _fields_ = [(name, ctypes.c_void_p) for name in GC_ARGS + (
+        "qwell", "tsteps", "dom_g", "dom_o", "ibc", "trn_g", "trn_o", "partial_g",
+        "partial_o", "mbc_g", "mbc_o")]
+
+
+def _pack_gc(cfg: GCStencilConfig) -> _ScalarsGC:
+    """GCStencilConfig's products, folded in double as JAX folds them from
+    Python floats, then rounded to float in the kernel's struct."""
+    dv = cfg.dx * cfg.dy * cfg.dz
+    return _ScalarsGC(C=cfg.C, inv_dxx=1.0 / (cfg.dx * cfg.dx), inv_dyy=1.0 / (cfg.dy * cfg.dy),
+                      D=cfg.D, dv=dv, dv_over_D=dv / cfg.D, phi=cfg.phi,
+                      phi_cf=cfg.phi * rock_compressibility(cfg.phi), So_max=1.0 - cfg.Swmin,
+                      rte=EPSILON * 0.25)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("dg_stencil.cu")
@@ -199,6 +341,17 @@ def _library_3d() -> ctypes.CDLL:
     lib.dg3d_stencil_forward.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
                                          + [_Scalars3D, ctypes.c_void_p])
     lib.dg3d_stencil_forward.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_gc() -> ctypes.CDLL:
+    lib = load_library("gc_stencil.cu")
+    lib.gc_stencil_num_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.gc_stencil_num_blocks.restype = ctypes.c_int
+    lib.gc_stencil_forward.argtypes = ([ctypes.POINTER(_PointersGC)] + [ctypes.c_int] * 3
+                                       + [_ScalarsGC, ctypes.c_void_p])
+    lib.gc_stencil_forward.restype = ctypes.c_int
     return lib
 
 
@@ -238,6 +391,26 @@ def _cuda_forward_3d(*args):
                   (B, D, H, W), _pack(_Scalars3D, cfg))
     launches_3d += 1
     return out
+
+
+def _cuda_forward_gc(*args):
+    global launches_gc
+    *ins, cfg = args
+    lib = _library_gc()
+    p0 = ins[0]
+    B, H, W = p0.shape
+    n_blocks = lib.gc_stencil_num_blocks(H, W)
+    fields = [torch.empty_like(p0) for _ in range(5)]          # dom_g dom_o ibc trn_g trn_o
+    partial = [torch.empty((B, n_blocks), dtype=p0.dtype, device=p0.device) for _ in range(2)]
+    mbc = [torch.empty((B,), dtype=p0.dtype, device=p0.device) for _ in range(2)]
+    ptrs = _PointersGC(*(t.data_ptr() for t in tuple(ins) + tuple(fields + partial + mbc)))
+    with torch.cuda.device(p0.device):
+        stream = torch.cuda.current_stream(p0.device).cuda_stream
+        err = lib.gc_stencil_forward(ctypes.byref(ptrs), B, H, W, _pack_gc(cfg), stream)
+    if err != 0:
+        raise RuntimeError(f"gc_stencil_forward: CUDA error {err} at launch")
+    launches_gc += 1
+    return tuple(fields) + tuple(mbc)
 
 
 # ---------------------------------------------------------------------------
@@ -295,9 +468,27 @@ class DG3DStencilResidualFn(torch.autograd.Function):
         return _plain_backward(dg3d_stencil_residual_reference, ctx, grads)
 
 
+class GCStencilResidualFn(torch.autograd.Function):
+    """B3. Forward: the kernel (the plain version for CPU tensors).
+    Backward: autograd through the recomputed plain version."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        *tensors, cfg = args
+        ctx.save_for_backward(*tensors)
+        ctx.cfg = cfg
+        if tensors[0].is_cuda:
+            return _cuda_forward_gc(*args)
+        return gc_stencil_residual_reference(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _plain_backward(gc_stencil_residual_reference, ctx, grads)
+
+
 def _check(tensors: dict, want: dict):
     """float32, the expected shapes, contiguous, one device — or raise."""
-    device = tensors["q"].device
+    first, device = next((k, t.device) for k, t in tensors.items())
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -306,7 +497,7 @@ def _check(tensors: dict, want: dict):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, q on {device}")
+            raise ValueError(f"{name} is on {t.device}, {first} on {device}")
 
 
 def dg_stencil_residual(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps,
@@ -364,3 +555,28 @@ def dg3d_stencil_residual(p0p, p1p, kxp, kzp, bgugp, invBg0, invBg1, dinvBg0, q,
                 qwell=(D, H, W), tsteps=(B, 2)))
     return DG3DStencilResidualFn.apply(p0p, p1p, kxp, kzp, bgugp, invBg0, invBg1, dinvBg0,
                                        q, qwell, tsteps, cfg)
+
+
+def gc_stencil_residual(*args) -> Tuple[torch.Tensor, ...]:
+    """Fused gas-condensate two-phase residual (B3):
+    (dom_g, dom_o, ibc, trn_g, trn_o, mbc_g, mbc_o).
+
+    Args (B = batch, H/W = grid), all float32 and contiguous on one device:
+    the 25 fields of :data:`GC_ARGS` in that order — padded (B, H+2, W+2)
+    for the ten in :data:`GC_PADDED`, centred (B, H, W) for the others
+    (p0 is centred) — then qwell (H, W), the well-cell indicator, tsteps
+    (B, 2), the per-sample (Δt1, Δt2), and the :class:`GCStencilConfig`.
+    """
+    *tensors, cfg = args
+    names = GC_ARGS + ("qwell", "tsteps")
+    if len(tensors) != len(names) or not isinstance(cfg, GCStencilConfig):
+        raise TypeError(f"gc_stencil_residual takes the {len(names)} tensors "
+                        f"{', '.join(names)} and a GCStencilConfig")
+    p0 = tensors[0]
+    if p0.dim() != 3:
+        raise ValueError(f"p0 must be (B, H, W), got {tuple(p0.shape)}")
+    B, H, W = p0.shape
+    want = {n: (B, H + 2, W + 2) if n in GC_PADDED else (B, H, W) for n in GC_ARGS}
+    want.update(qwell=(H, W), tsteps=(B, 2))
+    _check(dict(zip(names, tensors)), want)
+    return GCStencilResidualFn.apply(*tensors, cfg)

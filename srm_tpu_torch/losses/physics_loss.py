@@ -1,19 +1,23 @@
 """PhysicsLoss: finite-volume PDE residual loss over the multi-model SRM.
 
-Port of ``srm_tpu/losses/physics_loss.py`` for dry gas in physics mode with
-a scalar porosity, in 2D (Nz = 1) and 3D (Nz > 1): ``_residuals_dg``
-(``:493-574``), ``_residuals_dg_3d`` (``:576-653``, its fused branch),
-``loss_and_metrics`` (``:971-1055``, physics branch) and
-``pinn_batch_sse_grad`` (``:1057-1074``). :meth:`PhysicsLoss.residuals`
-dispatches on ``Nz > 1``, as the reference does (``:473-477``).
+Port of ``srm_tpu/losses/physics_loss.py`` in physics mode with a scalar
+porosity: dry gas in 2D (Nz = 1) and 3D (Nz > 1), ``_residuals_dg``
+(``:493-574``) and ``_residuals_dg_3d`` (``:576-653``, its fused branch),
+and gas condensate in 2D, ``_residuals_gc`` (``:694-793``, its fused
+branch ``:743-771``); ``loss_and_metrics`` (``:971-1055``, physics branch)
+and ``pinn_batch_sse_grad`` (``:1057-1074``). :meth:`PhysicsLoss.residuals`
+dispatches on the fluid and on ``Nz > 1``, as the reference does
+(``:473-480``); the 3D gas-condensate residual is not ported yet.
 
 One evaluation: Model 2 gives the per-sample Δt1 on ``x`` and Δt2 on ``x1``
-(``x`` with its time channel shifted by the normalized Δt1); Model 1 and the
-PVT run once on the doubled batch ``[x; x1]``; the well model gives rates
-and BHP at n1; the fused DG stencil (``srm_tpu_torch.kernels.stencil``:
-B1 in 2D, B2 in 3D) gives dom, ibc, tde and mbc; the weighted SSE sums the
-terms. In 3D the vertical permeability is ``vertical_anisotropy · kx``,
-padded and passed to the stencil pre-scaled.
+(``x`` with its time channel shifted by the normalized Δt1); Model 1 (and,
+for gas condensate, Model 1S with its Sg clipped to [0, Sgi]) and the PVT
+run once on the doubled batch ``[x; x1]``; the well model gives rates and
+BHP at n1; the fused stencil (``srm_tpu_torch.kernels.stencil``: B1 for dry
+gas in 2D, B2 in 3D, B3 for gas condensate) gives the residual fields and
+tank balances; the weighted SSE sums the terms of each phase (gas, and oil
+for gas condensate). In 3D the vertical permeability is
+``vertical_anisotropy · kx``, padded and passed to the stencil pre-scaled.
 
 ``use_cuda_stencil`` mirrors the reference's ``use_pallas_stencil``. On (the
 default), the residual goes through the fused op, which launches the CUDA
@@ -33,7 +37,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from srm_tpu.config import (
+
+from srm_tpu_torch.config import (
     DEFAULT_GENERAL_CONFIG,
     DEFAULT_RESERVOIR_CONFIG,
     DEFAULT_SCAL_CONFIG,
@@ -41,12 +46,13 @@ from srm_tpu.config import (
     get_conversion_constants,
     get_optimizer_model_mapping,
 )
-
-from srm_tpu_torch.kernels.stencil import (StencilConfig, dg3d_stencil_residual,
+from srm_tpu_torch.kernels.stencil import (GCStencilConfig, StencilConfig,
+                                           dg3d_stencil_residual,
                                            dg3d_stencil_residual_reference,
-                                           dg_stencil_residual, dg_stencil_residual_reference)
+                                           dg_stencil_residual, dg_stencil_residual_reference,
+                                           gc_stencil_residual, gc_stencil_residual_reference)
 from srm_tpu_torch.ops.stencil import pad_symmetric, pad_symmetric_3d
-from srm_tpu_torch.physics.relperm import RelativePermeability
+from srm_tpu_torch.physics.relperm import RelativePermeability, clip
 from srm_tpu_torch.physics.wells import scatter_to_grid
 from srm_tpu_torch.utils.stats import denormalize, normalize_diff
 
@@ -59,7 +65,8 @@ _LOGICAL_NAMES = {"pressure": "pressure", "time_step": "time_step",
 
 
 class PhysicsLoss:
-    """Dry-gas PDE residual losses with per-model gradients."""
+    """Dry-gas and gas-condensate PDE residual losses with per-model
+    gradients."""
 
     def __init__(self, models: Dict[str, Any], data_summary,
                  optimizer_model_names_map: Optional[Dict[str, str]] = None,
@@ -77,10 +84,13 @@ class PhysicsLoss:
         g = self.general_config
         self.fluid_type = (fluid_type or g["fluid_type"]).upper()
         self.physics_mode_fraction = float(g["physics_mode_fraction"])
-        if self.fluid_type != "DG":
-            raise NotImplementedError("only the dry-gas residual is ported")
+        if self.fluid_type not in ("DG", "GC"):
+            raise ValueError(f"Unknown fluid type: {self.fluid_type}. Use 'DG' or 'GC'.")
         if self.physics_mode_fraction < 1.0:
             raise NotImplementedError("only physics mode (physics_mode_fraction >= 1) is ported")
+        if g.get("td_loss_normalization") or g.get("sg_td_focus"):
+            # both rescale the label terms, which physics mode weighs 0
+            raise NotImplementedError("td_loss_normalization and sg_td_focus are not ported yet")
         if g.get("remat_forwards") or int(g.get("dt_input_stride", 1) or 1) > 1:
             raise NotImplementedError("remat_forwards and dt_input_stride are not ported yet")
         if np.ndim(res["porosity"]) != 0:
@@ -97,13 +107,18 @@ class PhysicsLoss:
         self.dy = res["width"] / res["Ny"]
         self.dz = res["thickness"] / res["Nz"]
         self.phi0 = float(res["porosity"])
-        self.Sgi = 1.0 - self.scal_config["end_points"]["Swmin"]
-        relperm = RelativePermeability.from_config(
+        self.Swmin = self.scal_config["end_points"]["Swmin"]
+        self.Sgi = 1.0 - self.Swmin
+        self.relperm = RelativePermeability.from_config(
             self.scal_config["end_points"], self.scal_config["corey_exponents"])
-        krgo_sgi = float(relperm(torch.tensor(self.Sgi, dtype=torch.float32))[1])
-        self.stencil_cfg = StencilConfig(C=self.C, D=self.D, dx=self.dx, dy=self.dy,
-                                         dz=self.dz, Sgi=self.Sgi, krgo=krgo_sgi,
-                                         phi=self.phi0)
+        if self.fluid_type == "GC":
+            self.stencil_cfg = GCStencilConfig(C=self.C, D=self.D, dx=self.dx, dy=self.dy,
+                                               dz=self.dz, Swmin=self.Swmin, phi=self.phi0)
+        else:
+            krgo_sgi = float(self.relperm(torch.tensor(self.Sgi, dtype=torch.float32))[1])
+            self.stencil_cfg = StencilConfig(C=self.C, D=self.D, dx=self.dx, dy=self.dy,
+                                             dz=self.dz, Sgi=self.Sgi, krgo=krgo_sgi,
+                                             phi=self.phi0)
 
         # well-cell indicator: (H, W) in 2D, (D, H, W) in 3D (:356-365)
         conn = models["well_rate_bhp_model"].well_data["connection_index"]
@@ -121,13 +136,17 @@ class PhysicsLoss:
         self.k_row = torch.from_numpy(ds.row("permx")).to(self.device)
         self.k_is_log = ds.is_log("permx")
 
-        w = g["default_weights"]["gas"]
-        self.loss_keys = {"gas": [f"{t}_g" for t in LOSS_TERMS]}
-        self.weights = {"gas": {"dom": w["dom"], "dbc": w["obc"], "nbc": w["obc"],
-                                "ibc": w["ibc"], "ic": w["ic"], "mbc": w["mbc"],
-                                "cmbc": w["cmbc"], "tde": w["tde"], "td": w["td"]}}
+        # loss keys and weights per phase (:376-386)
+        self.phases = ("gas",) if self.fluid_type == "DG" else ("gas", "oil")
+        w = g["default_weights"]
+        self.loss_keys = {ph: [f"{t}_{ph[0]}" for t in LOSS_TERMS] for ph in self.phases}
+        self.weights = {ph: {"dom": w[ph]["dom"], "dbc": w[ph]["obc"], "nbc": w[ph]["obc"],
+                             "ibc": w[ph]["ibc"], "ic": w[ph]["ic"], "mbc": w[ph]["mbc"],
+                             "cmbc": w[ph]["cmbc"], "tde": w[ph]["tde"], "td": w[ph]["td"]}
+                        for ph in self.phases}
+        # the conv nets train; the spline PVT has no parameters (:395-400)
         self.trainable_models_keys = [k for k in self.optimizer_model_names_map
-                                      if k in ("pressure", "time_step")]
+                                      if k in ("pressure", "time_step", "saturation")]
 
     @staticmethod
     def logical_name(optimizer_key: str) -> str:
@@ -147,8 +166,9 @@ class PhysicsLoss:
 
     def stencil_inputs(self, x: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], Dict]:
         """The network forwards of one evaluation: the fused stencil's tensor
-        arguments (ten for B1, eleven for B2) and the model outputs
-        (srm_tpu/losses/physics_loss.py:496-552, :600-644)."""
+        arguments (ten for B1, eleven for B2, twenty-seven for B3) and the
+        model outputs (srm_tpu/losses/physics_loss.py:496-552, :600-644,
+        :706-759)."""
         m = self.models
         vol = self._stencil_fields
         kx_c = vol(self._denorm_permx(x[..., 4:5]))                 # (B, [D,] H, W)
@@ -159,18 +179,41 @@ class PhysicsLoss:
         x1 = torch.cat([x[..., :3], x[..., 3:4] + self._norm_dt(tstep), x[..., 4:]], dim=-1)
         dt1f = m["time_step"](x1)
         tstep2 = dt1f.mean(dim=tuple(range(1, dt1f.dim() - 1)), keepdim=True)
+        tsteps = torch.cat([tstep.reshape(-1, 1), tstep2.reshape(-1, 1)], dim=1)
 
-        # pressure and PVT at n0 and n1 as one doubled-batch forward
+        # pressure, saturation and PVT at n0 and n1 as one doubled-batch forward
         B = x.shape[0]
-        p01 = m["pressure"](torch.cat([x, x1], dim=0))
+        x01 = torch.cat([x, x1], dim=0)
+        p01 = m["pressure"](x01)
         pvt01 = m["pvt_model"](p01)
         p0f, p1f = p01[:B], p01[B:]
         pvt0, pvt1 = pvt01[:, :, :B], pvt01[:, :, B:]
-        q1, pwf1 = m["well_rate_bhp_model"].compute_rates_and_bhp(x1, p1f, m["pvt_model"])
+        outputs = {"p_n0": p0f, "p_n1": p1f, "tstep": tstep, "tstep2": tstep2}
+        well = m["well_rate_bhp_model"]
 
+        if self.fluid_type == "GC":
+            # Sg is pinned to Sgi at t0 by its HardLayer; clipped to the
+            # physical range with JAX's gradient at the bounds (:717-718)
+            Sg01 = clip(m["saturation_model"](x01), 0.0, self.Sgi)
+            Sg0f, Sg1f = Sg01[:B], Sg01[B:]
+            q1, pwf1 = well.compute_rates_and_bhp(x1, p1f, m["pvt_model"], Sg_n1=Sg1f)
+            # PVT rows (invBg, invBo, invug, invuo, Rs, Rv, Vro)
+            invBg0, invBo0, _, _, Rs0, Rv0 = (vol(pvt0[0, i]) for i in range(6))
+            invBg1, invBo1, invug1, invuo1, Rs1, Rv1 = (vol(pvt1[0, i]) for i in range(6))
+            dinvBg0, dinvBo0, dRs0, dRv0 = (vol(pvt0[1, i]) for i in (0, 1, 4, 5))
+            Sg0, Sg1 = vol(Sg0f), vol(Sg1f)
+            krog1, krgo1 = self.relperm(Sg1)
+            pad = pad_symmetric
+            args = (vol(p0f), pad(vol(p1f)), pad(kx_c), Sg0, Sg1, pad(krgo1), pad(krog1),
+                    invBg0, invBo0, Rs0, Rv0, dinvBg0, dinvBo0, dRs0, dRv0,
+                    pad(invBg1), pad(invBo1), pad(invug1), pad(invuo1), pad(Rs1), pad(Rv1),
+                    *(vol(q) for q in q1), self.q_well_idx, tsteps)
+            outputs.update(Sg_n0=Sg0f, Sg_n1=Sg1f, q=q1, pwf=pwf1)
+            return args, outputs
+
+        q1, pwf1 = well.compute_rates_and_bhp(x1, p1f, m["pvt_model"])
         invBg0, dinvBg0 = vol(pvt0[0, 0]), vol(pvt0[1, 0])
         invBg1, invug1 = vol(pvt1[0, 0]), vol(pvt1[0, 1])
-        tsteps = torch.cat([tstep.reshape(-1, 1), tstep2.reshape(-1, 1)], dim=1)
         if self.Nz > 1:
             pad = pad_symmetric_3d
             perm = (pad(kx_c), pad(self.kv_kh * kx_c))
@@ -179,15 +222,28 @@ class PhysicsLoss:
             perm = (pad(kx_c),)
         args = (pad(vol(p0f)), pad(vol(p1f))) + perm + (
             pad(invBg1 * invug1), invBg0, invBg1, dinvBg0, vol(q1), self.q_well_idx, tsteps)
-        outputs = {"p_n0": p0f, "p_n1": p1f, "tstep": tstep, "tstep2": tstep2,
-                   "q": q1, "pwf": pwf1}
+        outputs.update(q=q1, pwf=pwf1)
         return args, outputs
 
     def residuals(self, x: torch.Tensor) -> Dict[str, Any]:
-        """Dry-gas residual fields (srm_tpu/losses/physics_loss.py:473-477,
-        :493-574, :576-653). In 3D, dom, ibc and tde take the pressure
-        field's (B, 1, D, H, W) layout, as the reference returns them."""
+        """Residual fields per phase (srm_tpu/losses/physics_loss.py:473-480,
+        :493-574, :576-653, :694-793). In 3D, dom, ibc and tde take the
+        pressure field's (B, 1, D, H, W) layout, as the reference returns
+        them."""
+        if self.fluid_type == "GC" and self.Nz > 1:
+            raise NotImplementedError("the 3D gas-condensate residual is not ported yet")
         args, outputs = self.stencil_inputs(x)
+        if self.fluid_type == "GC":
+            fn = gc_stencil_residual if self.use_cuda_stencil else gc_stencil_residual_reference
+            dom_g, dom_o, ibc, trn_g, trn_o, mbc_g, mbc_o = fn(*args, self.stencil_cfg)
+            zeros = torch.zeros_like(dom_g)
+            return {
+                "gas": {"dom": dom_g, "dbc": zeros, "nbc": zeros, "ibc": ibc, "ic": zeros,
+                        "mbc": mbc_g, "cmbc": zeros, "tde": trn_g},
+                "oil": {"dom": dom_o, "dbc": zeros, "nbc": zeros, "ibc": ibc, "ic": zeros,
+                        "mbc": mbc_o, "cmbc": zeros, "tde": trn_o},
+                "outputs": outputs,
+            }
         if self.Nz > 1:
             fn = dg3d_stencil_residual if self.use_cuda_stencil else dg3d_stencil_residual_reference
         else:
@@ -204,20 +260,28 @@ class PhysicsLoss:
         }
 
     def loss_and_metrics(self, x: torch.Tensor, y) -> Tuple[torch.Tensor, Dict]:
-        """Total weighted SSE and the per-term weighted MSEs (physics mode:
-        the td term compares the n0 pressure with the labels at the td
-        weight, 0 by default)."""
+        """Total weighted SSE and the per-phase, per-term weighted MSEs
+        (physics mode: each phase's td term compares a model output at n0
+        with its label — the pressure for gas, Sg for oil — at the td
+        weight, 0 by default; :1005-1055)."""
         res = self.residuals(x)
-        p0 = res["outputs"]["p_n0"]
-        label = (y["PRESSURE"] if isinstance(y, dict) else y).reshape(p0.shape)
+        outs = res["outputs"]
+        keys = ["PRESSURE"] if self.fluid_type == "DG" else ["PRESSURE", "SGAS"]
+        labels = [y[k] for k in keys if k in y] if isinstance(y, dict) else [y]
+        model_out = [outs["p_n0"]] + ([outs["Sg_n0"]] if self.fluid_type == "GC" else [])
+        td = [out - lab.reshape(out.shape) for lab, out in zip(labels, model_out)]
         total = x.new_zeros(())
-        aux: Dict[str, Dict[str, torch.Tensor]] = {"gas": {}}
-        for t in LOSS_TERMS:
-            err = p0 - label if t == "td" else res["gas"][t]
-            wsse = self.weights["gas"][t] * torch.sum(torch.square(err))
-            total = total + wsse
-            aux["gas"][t] = wsse / max(float(err.numel()), 1.0)
-        aux["outputs"] = res["outputs"]
+        aux: Dict[str, Dict[str, torch.Tensor]] = {ph: {} for ph in self.phases}
+        for i, ph in enumerate(self.phases):
+            for t in LOSS_TERMS:
+                if t == "td":
+                    err = td[i] if i < len(td) else x.new_zeros(())
+                else:
+                    err = res[ph][t]
+                wsse = self.weights[ph][t] * torch.sum(torch.square(err))
+                total = total + wsse
+                aux[ph][t] = wsse / max(float(err.numel()), 1.0)
+        aux["outputs"] = outs
         return total, aux
 
     def pinn_batch_sse_grad(self, x: torch.Tensor, y):

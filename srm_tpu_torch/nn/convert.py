@@ -3,7 +3,8 @@
 :func:`load_flax_params` takes the reference's param tree — the dict that
 ``srm_tpu.nn.modules.build_model_map`` returns, with every leaf converted
 to a numpy array — and fills the port's ``pressure`` and ``time_step``
-modules so both packages compute the same function. The spline PVT has no
+modules, and the gas-condensate ``saturation_model``, so both packages
+compute the same function. The spline PVT has no
 params (both packages solve its weights on the host from the same table).
 
 Layouts, in 2D and 3D: a flax ``Conv`` kernel is (*spatial, in, out) →
@@ -72,16 +73,30 @@ def _load_residual(net, p: Mapping[str, Any]):
     _load(net.output_layer, p["output_layer"])
 
 
-def load_flax_params(models: Dict[str, Any], params_np: Mapping[str, Any]) -> None:
-    """Fill ``models['pressure']`` and ``models['time_step']`` from the
-    reference's ``params['pressure']`` / ``params['time_step']`` trees."""
-    pressure = params_np["pressure"]["params"]
-    _load_encoder_decoder(models["pressure"].network, pressure["network"])
-    kexp = np.asarray(pressure["hard_layer"]["kernel_exponent"], np.float32)
-    target = models["pressure"].hard_layer.kernel_exponent
+def _load_hard_trainable(module, p: Mapping[str, Any]):
+    """An encoder–decoder + HardLayer module (Model 1 or 1S)."""
+    _load_encoder_decoder(module.network, p["network"])
+    kexp = np.asarray(p["hard_layer"]["kernel_exponent"], np.float32)
+    target = module.hard_layer.kernel_exponent
     if kexp.shape != tuple(target.shape):
         raise ValueError(f"kernel_exponent {kexp.shape} does not fit {tuple(target.shape)}: "
                          "the models were built for another grid")
     with torch.no_grad():
         target.copy_(torch.tensor(kexp))
-    _load_residual(models["time_step"].network, params_np["time_step"]["params"]["network"])
+
+
+def _load_time_step(module, p: Mapping[str, Any]):
+    _load_residual(module.network, p["network"])
+
+
+_LOADERS = {"pressure": _load_hard_trainable, "time_step": _load_time_step,
+            "saturation_model": _load_hard_trainable}
+
+
+def load_flax_params(models: Dict[str, Any], params_np: Mapping[str, Any]) -> None:
+    """Fill each of ``models['pressure']``, ``models['time_step']`` and
+    ``models['saturation_model']`` whose tree the reference's ``params_np``
+    holds (the spline PVT and the well model have no params)."""
+    for name, load in _LOADERS.items():
+        if name in params_np:
+            load(models[name], params_np[name]["params"])

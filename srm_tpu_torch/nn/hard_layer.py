@@ -1,13 +1,15 @@
 """HardLayer: exact initial-condition enforcement.
 
 Port of ``srm_tpu/nn/hard_layer.py`` without the RBF modulation and the
-rectifier (neither is on the dry-gas path):
+rectifier (neither is on a ported path):
 
     alpha_t = (t_norm - a) / (b - a)          # normalized-time ramp in [0, 1]
     alpha   = alpha_t ** clip(kernel_exponent, min, max)
     output  = init_value - alpha * act(p_net)
 
-so the output equals ``init_value`` exactly at the normalized start time.
+so the output equals ``init_value`` exactly at the normalized start time:
+Pi for the pressure model, Sgi for the gas-condensate saturation model,
+whose ``act`` is softplus or abs.
 ``kernel_exponent`` is a trainable per-pixel field of shape
 ``(*spatial, 1)``, clipped in the forward pass with JAX's bound gradient.
 """

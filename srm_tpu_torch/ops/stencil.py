@@ -1,8 +1,8 @@
 """Finite-volume stencil primitives on (..., H, W) and (..., D, H, W) tensors.
 
 Port of ``srm_tpu/ops/stencil.py``: ghost-cell padding, the 5-point (2D)
-and 7-point (3D) neighbourhood of a padded field, harmonic and arithmetic
-face values and the 5- and 7-point divergences. Each keeps the
+and 7-point (3D) neighbourhood of a padded field, harmonic, arithmetic and
+upstream-weighted face values and the 5- and 7-point divergences. Each keeps the
 reference's operation order, so the plain stencils in
 ``srm_tpu_torch.kernels.stencil`` round as the reference does.
 
@@ -62,6 +62,17 @@ def average_faces(f: Neighbors) -> Tuple[torch.Tensor, ...]:
     """Arithmetic face averages: (f_ih, f_i_h, f_jh, f_j_h)."""
     return (0.5 * (f.i1 + f.ij), 0.5 * (f.ij + f.i_1),
             0.5 * (f.j1 + f.ij), 0.5 * (f.ij + f.j_1))
+
+
+def upstream_faces(kr: Neighbors, pot: Neighbors) -> Tuple[torch.Tensor, ...]:
+    """Upstream-weighted face values: (kr_ih, kr_i_h, kr_jh, kr_j_h). A face
+    takes the neighbour's value where the neighbour's potential is higher
+    and the centre's otherwise, ties included; a replicate pad makes every
+    boundary face a tie."""
+    return (torch.where(pot.i1 - pot.ij <= 0.0, kr.ij, kr.i1),
+            torch.where(pot.ij - pot.i_1 <= 0.0, kr.ij, kr.i_1),
+            torch.where(pot.j1 - pot.ij <= 0.0, kr.ij, kr.j1),
+            torch.where(pot.ij - pot.j_1 <= 0.0, kr.ij, kr.j_1))
 
 
 def five_point_divergence(a_ih, a_i_h, a_jh, a_j_h, p: Neighbors, q_over_dv, dv):

@@ -1,6 +1,8 @@
 """Spline PVT: fluid properties and their pressure derivatives.
 
-Port of the polyharmonic-spline backend of ``srm_tpu/physics/pvt.py``. The
+Port of the polyharmonic-spline backend of ``srm_tpu/physics/pvt.py``, for
+the dry-gas properties (invBg, invug) and the seven gas-condensate ones
+(invBg, invBo, invug, invuo, Rs, Rv, Vro). The
 interpolant ``f(x) = Σ w_i φ(|x − c_i|²) + v1·x + v0`` is solved once on the
 host in float64 (:func:`solve_spline_weights`, the reference's
 ``pvt.py:83-105``) and evaluated as one ``(m, n)`` matmul.
@@ -29,6 +31,17 @@ from torch import nn
 EPSILON = 1e-10
 
 DG_PROPERTIES: Tuple[str, ...] = ("invBg", "invug")
+GC_PROPERTIES: Tuple[str, ...] = ("invBg", "invBo", "invug", "invuo", "Rs", "Rv", "Vro")
+
+
+def properties_for(fluid_type: str) -> Tuple[str, ...]:
+    """The PVT model's output rows for a fluid (srm_tpu/physics/pvt.py:45-51)."""
+    ft = fluid_type.upper()
+    if ft == "DG":
+        return DG_PROPERTIES
+    if ft == "GC":
+        return GC_PROPERTIES
+    raise ValueError(f"Unknown fluid type: {fluid_type}. Use 'DG' or 'GC'.")
 
 
 def _phi_np(s: np.ndarray, order: int) -> np.ndarray:

@@ -1,8 +1,11 @@
 """Corey relative-permeability curves (gas/oil SCAL).
 
 Port of ``srm_tpu/physics/relperm.py``: the forward curves with endpoint
-scaling and clamps. The dry-gas path uses only ``krgo(Sgi)``; the inverse
-(Sg from a krg/kro ratio by bisection) waits for the gas-condensate slice.
+scaling and clamps. The dry-gas path uses only ``krgo(Sgi)``; the
+gas-condensate path differentiates the curves through a saturation field, so
+every bound is JAX's ``maximum``/``minimum`` form (at a tie the gradient
+splits 0.5/0.5, where ``torch.clamp`` would pass all of it). The inverse (Sg
+from a krg/kro ratio by bisection) is not on a ported path yet.
 """
 
 from __future__ import annotations
@@ -17,6 +20,13 @@ _DEFAULT_END_POINTS = {
     "Swmin": 0.22, "Sorg": 0.2, "Sgc": 0.05, "Socr": 0.2, "So_max": 0.28,
 }
 _DEFAULT_COREY = {"nog": 3.0, "ng": 6.0, "nw": 2.0}
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip`` with JAX's gradient at the bounds."""
+    lo = lo if isinstance(lo, torch.Tensor) else x.new_full((), lo)
+    hi = hi if isinstance(hi, torch.Tensor) else x.new_full((), hi)
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 @dataclass(frozen=True)
@@ -53,16 +63,17 @@ class RelativePermeability:
         """(krog, krgo) Corey curves (srm_tpu/physics/relperm.py:66-80)."""
         so = 1.0 - sg - self.swmin
         denom = 1.0 - self.swmin - self.sorg
-        krog = self.kro_somax * torch.pow(torch.clamp_min((so - self.sorg) / denom, 0.0), self.nog)
+        zero = sg.new_zeros(())
+        krog = self.kro_somax * torch.pow(torch.maximum((so - self.sorg) / denom, zero), self.nog)
         krgo = self.krg_sorg * torch.pow(
-            torch.clamp_min((sg - self.sgc) / (1.0 - self.sgc - self.swmin - self.sorg), 0.0),
+            torch.maximum((sg - self.sgc) / (1.0 - self.sgc - self.swmin - self.sorg), zero),
             self.ng)
         sorg_eff = max(self.sorg, self.socr)
         krog = torch.where(so <= (self.swmin + sorg_eff), torch.zeros_like(krog), krog)
         krgo = torch.where(sg > (1.0 - (self.swmin + self.sorg)),
                            torch.full_like(krgo, self.krg_swmin), krgo)
-        krog = torch.clamp(krog, 0.0, self.kro_somax)
-        krgo = torch.clamp(krgo, 0.0, self.krg_swmin)
+        krog = clip(krog, 0.0, self.kro_somax)
+        krgo = clip(krgo, 0.0, self.krg_swmin)
         return krog, krgo
 
     def __call__(self, sg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

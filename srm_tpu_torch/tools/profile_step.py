@@ -1,0 +1,150 @@
+"""Profile the port's training step and its stencil kernel on one GPU.
+
+    python -m srm_tpu_torch.tools.profile_step [--case dg2d|dg3d|gc2d ...]
+                                               [--steps 9] [--out DIR]
+
+For each case (the configurations ``chip_smoke.py`` trains: DG 39×39, DG
+39×39×10 with uncorrelated fields, GC 39×39; batch 32, float32 with TF32
+off, 20 realizations) it builds the case, trains one warm-up epoch, then
+measures on the card:
+
+* the step: steps/s over one timed epoch (host clock around work that ends
+  in a synchronise), the device-busy share and the device operations per
+  step from ``torch.profiler`` over ``--steps`` steps (the sum of the
+  device kernels' durations over the window's host-clock length), the
+  convolution and matmul FLOP of one step (``torch.utils.flop_counter``,
+  forward and backward) and the peak device memory of the epoch;
+* the case's stencil kernel and its plain version on the stencil inputs of
+  one main-path batch: device time per call from the profiler over 100
+  calls each, and the device launches each call makes.
+
+Prints one JSON object per case and writes it to ``DIR/profile_<case>.json``
+(default ``build/profile/``, listed in ``.gitignore``). It needs a CUDA device
+and fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+CASES = {
+    "dg2d": dict(fluid="DG", kernel="dg_stencil_residual"),
+    "dg3d": dict(fluid="DG", kernel="dg3d_stencil_residual", nz=10, kle_method="uncorrelated"),
+    "gc2d": dict(fluid="GC", kernel="gc_stencil_residual"),
+}
+
+
+def _device_events(prof):
+    """(kernel count, summed device µs) of the device events of a trace."""
+    import torch
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(events), sum(e.time_range.elapsed_us() for e in events)
+
+
+def _profile(fn, n: int):
+    """Run ``fn`` n times under the profiler; returns (device kernels per
+    call, device µs per call, host-clock ms of the window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    count, device_us = _device_events(prof)
+    return count / n, device_us / n, window_ms
+
+
+def profile_case(name: str, base_dir: str, steps: int) -> dict:
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from srm_tpu_torch.examples.common import setup_case
+    from srm_tpu_torch.kernels import stencil as st
+    from srm_tpu_torch.training.trainer import Trainer
+
+    spec = dict(CASES[name])
+    fluid, kernel = spec.pop("fluid"), spec.pop("kernel")
+    case = setup_case(fluid, base_dir=base_dir, n_realizations=20, device="cuda", **spec)
+    loss_fn = case["loss_fn"]
+    trainer = Trainer(loss_fn)
+    nb, _ = trainer.stage_dataset("train", case["train_groups"], 32)
+    trainer.train_epoch_resident("train")                       # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train_epoch_resident("train")
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+
+    x_all, y_all, _, bs = trainer._resident["train"]
+    batches = [(x_all[i * bs:(i + 1) * bs], {k: v[i * bs:(i + 1) * bs] for k, v in y_all.items()})
+               for i in range(nb)]
+    cycle = itertools.cycle(batches)
+
+    def step():
+        trainer.train_step(*next(cycle))
+
+    ops_per_step, busy_us, window_ms = _profile(step, steps)
+    with FlopCounterMode(display=False) as flops:
+        step()
+    torch.cuda.synchronize()
+
+    with torch.no_grad():
+        args, _ = loss_fn.stencil_inputs(batches[0][0])
+        fused, plain = getattr(st, kernel), getattr(st, f"{kernel}_reference")
+        k_launches, k_us, _ = _profile(lambda: fused(*args, loss_fn.stencil_cfg), 100)
+        p_launches, p_us, _ = _profile(lambda: plain(*args, loss_fn.stencil_cfg), 100)
+
+    return {
+        "case": name, "batch": bs, "features": list(x_all.shape), "steps_per_s": nb / epoch_s,
+        "samples_per_s": nb * bs / epoch_s, "profiled_steps": steps,
+        "device_ops_per_step": ops_per_step, "device_busy_ms_per_step": busy_us / 1e3,
+        "window_ms_per_step": window_ms / steps,
+        "device_busy_share": busy_us / 1e3 / (window_ms / steps),
+        "flop_per_step": flops.get_total_flops(), "peak_memory_mib": peak_mib,
+        "kernel": {"name": kernel, "device_us": k_us, "launches_per_call": k_launches,
+                   "plain_device_us": p_us, "plain_launches_per_call": p_launches},
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="srm_tpu_torch.tools.profile_step",
+                                     description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--case", action="append", choices=sorted(CASES))
+    parser.add_argument("--steps", type=int, default=9)
+    parser.add_argument("--out", default=os.path.join("build", "profile"))
+    args = parser.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device is available; it measures a GPU only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    os.makedirs(args.out, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="profile_data_") as tmp:
+        for name in args.case or sorted(CASES):
+            result = {"card": card, "torch": torch.__version__, **profile_case(name, tmp, args.steps)}
+            print(json.dumps(result), flush=True)
+            with open(os.path.join(args.out, f"profile_{name}.json"), "w") as f:
+                json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,8 +24,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
-from srm_tpu.config import DEFAULT_GENERAL_CONFIG, get_optimizer_config
 
+from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG, get_optimizer_config
 from srm_tpu_torch.data.batching import collapse_groups
 from srm_tpu_torch.training.optimizers import build_optimizer_from_config
 

@@ -158,3 +158,100 @@ def test_dg3d_stencil_refuses_a_mixed_device_call(cuda):
     args[9] = args[9].cpu()
     with pytest.raises(ValueError):
         st.dg3d_stencil_residual(*args, cfg)
+
+
+def gc_inputs(B, H, W, seed=0):
+    """Numpy inputs of B3 on the scales of the gas-condensate case (the PVT
+    table's values between 3500 and 5000 psia, two-phase saturations, rates
+    in the well cell only), in GC_ARGS order, then qwell and tsteps, and
+    the GCStencilConfig's fields. p1 equals p0 on the first row, where the
+    chord slope is masked to 0."""
+    rng = np.random.RandomState(seed)
+    shp = (B, H, W)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, shp).astype(np.float32)
+
+    pad = lambda a: np.pad(a, [(0, 0), (1, 1), (1, 1)], mode="symmetric")  # noqa: E731
+    p0 = u(4500.0, 5000.0)
+    p1 = p0 - u(0.0, 50.0)
+    p1[:, 0, :] = p0[:, 0, :]
+    Sg0 = u(0.6, 0.78)
+    Sg1 = Sg0 - u(0.0, 0.01)
+    q = {k: np.zeros(shp, np.float32) for k in ("qfg", "qdg", "qfo", "qvo")}
+    for k, v in zip(q, (1000.0, 500.0, 50.0, 300.0)):
+        q[k][:, H // 2, W // 2] = v
+    qwell = np.zeros((H, W), np.float32)
+    qwell[H // 2, W // 2] = 1.0
+    fields = dict(
+        p0=p0, p1p=pad(p1), kxp=pad(u(0.5, 10.0)), Sg0=Sg0, Sg1=Sg1,
+        krgo1p=pad(u(0.3, 0.9)), krog1p=pad(u(0.0, 0.05)),
+        invBg0=u(1.85, 1.95), invBo0=u(0.30, 0.43), Rs0=u(3.3, 6.1), Rv0=u(0.045, 0.095),
+        dinvBg0=u(0.5e-4, 1.5e-4), dinvBo0=u(-1e-4, 0.0), dRs0=u(2e-4, 6e-4),
+        dRv0=u(0.0, 2e-5), invBg1p=pad(u(1.85, 1.95)), invBo1p=pad(u(0.30, 0.43)),
+        invug1p=pad(u(14.0, 25.0)), invuo1p=pad(u(4.6, 9.1)), Rs1p=pad(u(3.3, 6.1)),
+        Rv1p=pad(u(0.045, 0.095)), **q)
+    tsteps = rng.uniform(1.0, 9.0, (B, 2)).astype(np.float32)
+    args = [fields[name] for name in st.GC_ARGS] + [qwell, tsteps]
+    cfg = dict(C=0.001127, D=5.6145833334, dx=2900.0 / 39, dy=2900.0 / 39, dz=80.0,
+               Swmin=0.22, phi=0.2)
+    return args, cfg
+
+
+def _gc_on(device, B, H, W):
+    args, cfg = gc_inputs(B, H, W)
+    return ([torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args],
+            st.GCStencilConfig(**cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 39, 39), (3, 13, 17), (1, 1, 300)])
+def test_gc_stencil_kernel_matches_plain_version(cuda, shape):
+    args, cfg = _gc_on(cuda, *shape)
+    before = (st.launches_gc, st.launches, st.launches_3d)
+    got = st.gc_stencil_residual(*args, cfg)
+    want = st.gc_stencil_residual_reference(*args, cfg)
+    torch.cuda.synchronize()
+    assert (st.launches_gc, st.launches, st.launches_3d) == (before[0] + 1,) + before[1:]
+    assert len(got) == 7
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 39, 39), (3, 13, 17)])
+def test_gc_stencil_kernel_gradient_matches_plain_autograd(cuda, shape):
+    args, cfg = _gc_on(cuda, *shape)
+    grads = []
+    for fn in (st.gc_stencil_residual, st.gc_stencil_residual_reference):
+        a = [t.clone().requires_grad_(i != 25) for i, t in enumerate(args)]
+        sum((o**2).sum() for o in fn(*a, cfg)).backward()
+        grads.append([t.grad for i, t in enumerate(a) if i != 25])
+    for g, w in zip(*grads):
+        _close(g, w)
+
+
+@pytest.mark.cuda
+def test_gc_stencil_kernel_is_deterministic(cuda):
+    """mbc_g and mbc_o (and every field) are bitwise the same run to run."""
+    args, cfg = _gc_on(cuda, 32, 39, 39)
+    first = st.gc_stencil_residual(*args, cfg)
+    for _ in range(3):
+        for a, b in zip(first, st.gc_stencil_residual(*args, cfg)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gc_stencil_refuses_rather_than_reroutes(cuda, monkeypatch):
+    """A CUDA call whose library does not load raises; it is not sent to the
+    plain version."""
+    args, cfg = _gc_on(cuda, 2, 5, 6)
+
+    def broken():
+        raise OSError("the kernel library failed to load")
+
+    monkeypatch.setattr(st, "_library_gc", broken)
+    before = st.launches_gc
+    with pytest.raises(OSError):
+        st.gc_stencil_residual(*args, cfg)
+    assert st.launches_gc == before

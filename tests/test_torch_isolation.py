@@ -1,6 +1,9 @@
-"""The port stands alone: it never imports JAX, and its chip check refuses to
-run, and prints no result, without a GPU or outside a checkout."""
+"""The port stands alone: it never imports JAX nor anything of the JAX
+package, its entry points run on the GPU unless the caller asks for the CPU,
+and its chip check imports nothing of the JAX package and refuses to run,
+and prints no result, without a GPU or outside a checkout."""
 
+import ast
 import os
 import shutil
 import subprocess
@@ -18,10 +21,11 @@ def _run(args, cwd, env_extra=None, timeout=300):
                           timeout=timeout)
 
 
-def _isolated_step(base_dir, case_kwargs: str) -> str:
+def _isolated_step(base_dir, case_kwargs: str, fluid: str = "DG") -> str:
     """A script that imports every module of the port, builds a case with
-    ``setup_case(..., <case_kwargs>)``, takes one CPU train step and fails
-    if JAX or any of the JAX package beyond ``srm_tpu.config`` was loaded."""
+    ``setup_case(fluid, ..., <case_kwargs>)``, takes one CPU train step and
+    fails if JAX or any module of the JAX package (``srm_tpu``,
+    ``srm_tpu.*``) was loaded."""
     return textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import torch
@@ -31,8 +35,8 @@ def _isolated_step(base_dir, case_kwargs: str) -> str:
             importlib.import_module(mod.name)
         from srm_tpu_torch.examples.common import setup_case
         from srm_tpu_torch.training.trainer import Trainer
-        case = setup_case("DG", base_dir={str(base_dir)!r}, n_realizations=6, device="cpu",
-                          {case_kwargs})
+        case = setup_case({fluid!r}, base_dir={str(base_dir)!r}, n_realizations=6,
+                          device="cpu", {case_kwargs})
         trainer = Trainer(case["loss_fn"])
         nb, n = trainer.stage_dataset("train", case["train_groups"], 8)
         x, y, _, bs = trainer._resident["train"]
@@ -40,9 +44,7 @@ def _isolated_step(base_dir, case_kwargs: str) -> str:
         assert torch.isfinite(metrics["total"]), metrics
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
         assert not loaded, loaded
-        # srm_tpu.config is pure Python and numpy; nothing else of srm_tpu
-        ref = sorted(m for m in sys.modules if m.startswith("srm_tpu.")
-                     and not m.startswith("srm_tpu.config"))
+        ref = sorted(m for m in sys.modules if m.split(".")[0] == "srm_tpu")
         assert not ref, ref
         print("isolated")
     """)
@@ -61,6 +63,56 @@ def test_port_3d_never_imports_jax(tmp_path):
     proc = _run([sys.executable, "-c", script], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "isolated" in proc.stdout
+
+
+def test_port_gc_never_imports_jax(tmp_path):
+    """The gas-condensate path (the saturation model, the seven-property
+    PVT, the two-phase stencil) stands alone as well."""
+    proc = _run([sys.executable, "-c", _isolated_step(tmp_path, "nx=9", fluid="GC")], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [m for m in names if m.split(".")[0] in ("srm_tpu", "jax", "jaxlib", "flax", "optax")]
+    assert not bad, bad
+    assert any(m.startswith("srm_tpu_torch") for m in names)
+
+
+_NO_CUDA = """
+import sys
+import torch
+assert not torch.cuda.is_available()
+{body}
+"""
+
+
+def test_setup_case_refuses_to_run_on_the_cpu_unasked(tmp_path):
+    body = (f"from srm_tpu_torch.examples.common import setup_case\n"
+            f"setup_case('DG', base_dir={str(tmp_path)!r}, nx=9, n_realizations=6)\n")
+    proc = _run([sys.executable, "-c", _NO_CUDA.format(body=body)], cwd=ROOT)
+    assert proc.returncode != 0
+    assert 'device="cpu"' in proc.stderr, proc.stderr[-2000:]
+    assert not list(tmp_path.iterdir())           # it stopped before building anything
+
+
+def test_cli_refuses_to_run_on_the_cpu_unasked(tmp_path):
+    proc = _run([sys.executable, "-m", "srm_tpu_torch", "train", "--fluid", "GC", "--nx", "9",
+                 "--realizations", "6", "--epochs", "1", "--base-dir", str(tmp_path)], cwd=ROOT)
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr, proc.stderr[-2000:]
+    assert "final total train loss" not in proc.stdout
+
+
+def test_cli_trains_gc_on_the_cpu_when_asked(tmp_path):
+    proc = _run([sys.executable, "-m", "srm_tpu_torch", "train", "--fluid", "gc", "--nx", "9",
+                 "--realizations", "6", "--epochs", "1", "--batch-size", "32", "--device",
+                 "cpu", "--base-dir", str(tmp_path)], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "device: cpu" in proc.stdout and "final total train loss" in proc.stdout
 
 
 def _assert_refused(proc):
