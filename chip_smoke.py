@@ -18,6 +18,15 @@ the process exits non-zero:
    (the larger of its bytes over the HBM rate and its operations over the
    float32 peak). B1 is the 2D 5-point DG residual, B2 the 3D 7-point one
    (fed kz ≠ kx), B3 the 2D two-phase gas-condensate one.
+   Then the backward kernels of B1 and B3, for the cotangents of a sum of
+   squares of the outputs, at the same two shapes: against their plain
+   version (the explicit adjoint, ``*_backward_reference``) and against
+   autograd through the plain forward, within the forward's tolerance
+   (B3's p0 gradient, a difference of large terms, within CANCELLING_TOL),
+   and bitwise the same over three runs; at the main path's shape the device time (profiler) and the
+   host-inclusive time (CUDA events) of the backward kernel, the explicit
+   adjoint and ``_plain_backward`` (autograd through the recomputed plain
+   version, what the backward was before), and the kernel's bound.
 4. main path DG 2D — the dry-gas 2D case at the full 39×39 grid and full
    model widths, trained for two epochs at batch 32 through the port's
    Trainer.
@@ -31,9 +40,12 @@ the process exits non-zero:
    × 51 times = 306 samples, 9 batches of 32); the launch counters are set
    to 0 just before training and read just after. Each checks that every
    loss is finite, that every loss evaluation launched its kernel and the
-   other kernels not at all, that every trainable model changed, and that
-   the kernel and its plain version agree on the stencil inputs the trained
-   models give for one batch.
+   other kernels not at all, that every training step's backward launched
+   its backward kernel once (DG 2D, GC 2D) with no autograd recompute of
+   the plain version (DG 3D: one recompute per step, B2 has no backward
+   kernel yet), that every trainable model changed, and that the kernel
+   and its plain version agree on the stencil inputs the trained models
+   give for one batch.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -43,7 +55,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -58,10 +69,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # reciprocal multiply, the order of the mbc sum): a few float32 ulps of the
 # largest value of each output.
 RTOL, ATOL_REL = 1e-4, 1e-5
-
-# the card's published peaks (H100 SXM, NVIDIA's data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
-HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+# backward kernel vs autograd of the plain forward, for B3's p0: its
+# gradient is a difference of large terms (the chord slopes and the
+# accumulation), which the kernel rounds in the explicit adjoint's order and
+# autograd in its own, each up to a few 1e-4 of the gradient's largest
+# magnitude from the float64 gradient (the phase prints both distances); the
+# bound is their sum with room
+CANCELLING_TOL = 1e-3
 
 DG_OUTPUTS = ("dom", "ibc", "tde", "mbc")
 GC_OUTPUTS = ("dom_g", "dom_o", "ibc", "trn_g", "trn_o", "mbc_g", "mbc_o")
@@ -86,6 +100,22 @@ KERNELS = {
         source="gc_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:495",
         counter="launches_gc", shapes=[(32, 39, 39), (3, 13, 17)], wrt=(1, 4, 26),
         outputs=GC_OUTPUTS, ops_per_cell=377),
+}
+
+
+# the backward kernels: the forward they differentiate, the reference's
+# custom-vjp backward they replace, their launch counter, qwell's index (no
+# gradient), the inputs whose gradient is a difference of large terms (held
+# to autograd within CANCELLING_TOL) and their floating-point operations per cell, counted from the
+# source as the header of the source states them (the recomputed forward,
+# the adjoint, the gather's adds and the Δt block sums)
+BACKWARD = {
+    "dg_stencil_residual_backward": dict(
+        forward="dg_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:568",
+        counter="launches_bwd", qwell=8, cancelling=(), ops_per_cell=257),
+    "gc_stencil_residual_backward": dict(
+        forward="gc_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:533",
+        counter="launches_gc_bwd", qwell=25, cancelling=(0,), ops_per_cell=1016),
 }
 
 
@@ -180,25 +210,6 @@ def make_stencil_inputs(name: str, B: int, *grid: int, seed: int = 0):
     return args, cfg
 
 
-def time_ms(fn, repeats: int = 5, calls: int = 100) -> float:
-    """Median over ``repeats`` of the CUDA-event time per call of ``calls``
-    back-to-back calls (launch overhead included, as the loop pays it)."""
-    import torch
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -241,6 +252,7 @@ def phase_kernels(name: str) -> dict:
     at the main path's shape."""
     import torch
     from srm_tpu_torch.kernels import stencil as st
+    from srm_tpu_torch.tools.profile_step import FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms
     spec = KERNELS[name]
     fused, plain = getattr(st, name), getattr(st, f"{name}_reference")
     max_err = 0.0
@@ -286,10 +298,100 @@ def phase_kernels(name: str) -> dict:
             "bound_ms": bounds[bound_by], "bound_by": bound_by}
 
 
-def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs) -> int:
+def phase_backward(name: str) -> dict:
+    """One backward kernel vs its explicit adjoint and vs autograd through
+    the plain forward, at its forward's two shapes, and bitwise run to run;
+    returns its measured numbers and bound at the main path's shape."""
+    import torch
+    from srm_tpu_torch.kernels import stencil as st
+    from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, backward_bytes,
+                                                  backward_calls, profile_calls, time_ms)
+    spec = BACKWARD[name]
+    fwd = KERNELS[spec["forward"]]
+    qwell = spec["qwell"]
+    max_err = 0.0
+    plain = getattr(st, f"{spec['forward']}_reference")
+    adjoint = getattr(st, f"{spec['forward']}_backward_reference")
+    for shape in fwd["shapes"]:
+        args, cfg = make_stencil_inputs(spec["forward"], *shape)
+        calls = backward_calls(spec["forward"], args, cfg)
+        got = calls["kernel"]()
+        want = calls["adjoint"]()
+        torch.cuda.synchronize()
+        grads = calls["autograd"]()[:-1]
+        # the same cotangents, and the explicit adjoint in float64: the
+        # gradient both float32 versions round
+        with torch.no_grad():
+            cots = [2.0 * o.double() for o in plain(*args, cfg)]
+            exact = adjoint(*(a.double() for a in args), *cots, cfg)
+        worst = 0.0
+        for i in range(len(args)):
+            if i == qwell:
+                if got[i] is not None:
+                    raise AssertionError(f"{name} gave a gradient for qwell")
+                continue
+            max_err = max(max_err, check_close(f"{name} d/d(arg {i}) {shape}", got[i], want[i]))
+            scale = float(grads[i].abs().max())
+            err = float((got[i] - grads[i]).abs().max())
+            if i in spec["cancelling"]:
+                exact_scale = float(exact[i].abs().max())
+                log(f"{name} d/d(arg {i}) {shape}: kernel {err / scale:.3e} of its scale from "
+                    f"autograd; from the float64 gradient kernel "
+                    f"{float((got[i].double() - exact[i]).abs().max()) / exact_scale:.3e}, "
+                    f"autograd {float((grads[i].double() - exact[i]).abs().max()) / exact_scale:.3e}")
+                if not torch.isfinite(got[i]).all() or err > CANCELLING_TOL * scale:
+                    raise AssertionError(f"{name} d/d(arg {i}) {shape}: {err:.3e} from autograd "
+                                         f"(scale {scale:.3e})")
+            else:
+                check_close(f"{name} d/d(arg {i}) {shape} vs autograd", got[i], grads[i])
+            worst = max(worst, err / scale)
+        for _ in range(3):
+            again = calls["kernel"]()
+            if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} {shape}: not the same bit for bit run to run")
+        log(f"{name} {shape}: agrees with the explicit adjoint (max abs err so far "
+            f"{max_err:.3e}) and with autograd of the plain forward (largest difference "
+            f"{worst:.3e} of a gradient's scale), "
+            f"bitwise the same over three runs")
+
+    args, cfg = make_stencil_inputs(spec["forward"], *fwd["shapes"][0])
+    calls = backward_calls(spec["forward"], args, cfg)
+    host = {k: time_ms(calls[k], calls=20) for k in ("adjoint", "kernel", "autograd")}
+    host2 = {k: time_ms(calls[k], calls=20) for k in ("autograd", "kernel", "adjoint")}
+    device = {k: profile_calls(calls[k], 20) for k in ("kernel", "adjoint", "autograd")}
+    # the least time: each input that the backward needs read once (not the
+    # well rates; p0p's interior only), each cotangent read once, each
+    # gradient (all but qwell's) written once; or its operations at the
+    # float32 peak
+    got = calls["kernel"]()
+    with torch.no_grad():
+        outs = plain(*args, cfg)
+    nbytes = backward_bytes(spec["forward"], args, outs, [g for g in got if g is not None])
+    ops = spec["ops_per_cell"] * outs[0].numel()
+    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    ms = {k: min(host[k], host2[k]) for k in host}
+    log(f"{name} at {fwd['shapes'][0]}: host-inclusive ms per call (adjoint, kernel, autograd; "
+        f"autograd, kernel, adjoint): {host['adjoint']:.4f} {host['kernel']:.4f} "
+        f"{host['autograd']:.4f}; {host2['autograd']:.4f} {host2['kernel']:.4f} "
+        f"{host2['adjoint']:.4f}")
+    log(f"{name} device us per call and launches: " + ", ".join(
+        f"{k} {device[k][1]:.2f} us / {device[k][0]:.0f}" for k in device)
+        + f"; {nbytes} bytes, {ops} operations: bound {bounds[bound_by]:.6f} ms by {bound_by}")
+    return {"max_abs_err": max_err, "ms": ms["kernel"], "plain_ms": ms["adjoint"],
+            "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "device_us": device["kernel"][1], "launches_per_call": device["kernel"][0],
+            "plain_device_us": device["adjoint"][1],
+            "plain_launches_per_call": device["adjoint"][0],
+            "autograd_ms": ms["autograd"], "autograd_device_us": device["autograd"][1],
+            "autograd_launches_per_call": device["autograd"][0]}
+
+
+def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs) -> dict:
     """Two epochs at batch 32 of the case ``setup_case(fluid, **case_kwargs)``;
-    returns the launch count of ``kernel`` during training, and checks that
-    no other kernel launched."""
+    returns the launch counts during training, and checks that no other
+    kernel launched and that each training step's backward went through
+    ``kernel``'s backward kernel, where it has one, and nothing else."""
     import numpy as np
     import torch
     from srm_tpu_torch.examples.common import setup_case
@@ -309,14 +411,24 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
     before = {k: [p.detach().clone() for p in models[k].parameters()] for k in trained}
 
     torch.cuda.reset_peak_memory_stats()
-    counters = [k["counter"] for k in KERNELS.values()]
-    for c in counters:
-        setattr(st, c, 0)
-    trainer, history = train_combined_models_unified(
-        case["train_groups"], case["val_groups"], loss_fn, training_batch_size=32,
-        epochs=2, general_config=case["general_config"])
-    torch.cuda.synchronize()
-    counts = {c: getattr(st, c) for c in counters}
+    counters = [k["counter"] for k in KERNELS.values()] + [k["counter"] for k in BACKWARD.values()]
+    plain_backward, recomputes = st._plain_backward, []
+
+    def counted(*a):
+        recomputes.append(1)
+        return plain_backward(*a)
+
+    st._plain_backward = counted
+    try:
+        for c in counters:
+            setattr(st, c, 0)
+        trainer, history = train_combined_models_unified(
+            case["train_groups"], case["val_groups"], loss_fn, training_batch_size=32,
+            epochs=2, general_config=case["general_config"])
+        torch.cuda.synchronize()
+        counts = {c: getattr(st, c) for c in counters}
+    finally:
+        st._plain_backward = plain_backward
 
     steps = history["step_total_loss"]
     n_train = trainer._resident["train"][2]
@@ -326,15 +438,21 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
     if len(steps) != 2 * n_train or not np.all(np.isfinite(steps)):
         raise AssertionError(f"expected {2 * n_train} finite step losses, got {steps}")
     mine = KERNELS[kernel]["counter"]
-    want = {c: 2 * (n_train + n_val) if c == mine else 0 for c in counters}
-    if counts != want:
-        raise AssertionError(f"kernel launches {counts}, expected {want} for "
-                             f"{2 * (n_train + n_val)} loss evaluations")
+    bwd = next((b["counter"] for b in BACKWARD.values() if b["forward"] == kernel), None)
+    want = {c: 2 * (n_train + n_val) if c == mine else 2 * n_train if c == bwd else 0
+            for c in counters}
+    want_recomputes = 0 if bwd else 2 * n_train
+    if counts != want or len(recomputes) != want_recomputes:
+        raise AssertionError(
+            f"kernel launches {counts} and {len(recomputes)} plain recomputes, expected {want} "
+            f"and {want_recomputes} for {2 * (n_train + n_val)} loss evaluations, "
+            f"{2 * n_train} of them with a backward")
     for k, ps in before.items():
         if all(torch.equal(a, b) for a, b in zip(ps, models[k].parameters())):
             raise AssertionError(f"the {k} model did not change in training")
     steps_per_s = n_train / (history["epoch_times"][1] / 1000.0)
     log(f"main path {fluid} {grid}: {len(steps)} steps, launches {counts}, "
+        f"{len(recomputes)} plain recomputes, "
         f"{steps_per_s:.2f} steps/s in epoch 2, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
@@ -356,7 +474,7 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
         raise AssertionError(f"non-finite loss {float(total)} after training")
     log(f"trained models: {kernel} and its plain version agree on the main path's "
         f"stencil inputs; total loss {float(total):.6e}")
-    return counts[mine]
+    return counts
 
 
 def main() -> int:
@@ -367,24 +485,34 @@ def main() -> int:
     phase_device()
     phase_build()
     measured = {name: phase_kernels(name) for name in KERNELS}
+    measured.update({name: phase_backward(name) for name in BACKWARD})
     # the cases' datasets go under the checkout's build/ (listed in .gitignore)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    launches = {}
+    counts = {}
     with tempfile.TemporaryDirectory(prefix="smoke_data_", dir=os.path.join(ROOT, "build")) as tmp:
-        launches["dg_stencil_residual"] = phase_main_path(tmp, "dg_stencil_residual")
-        launches["dg3d_stencil_residual"] = phase_main_path(
+        counts["dg_stencil_residual"] = phase_main_path(tmp, "dg_stencil_residual")
+        counts["dg3d_stencil_residual"] = phase_main_path(
             tmp, "dg3d_stencil_residual", nz=10, kle_method="uncorrelated")
-        launches["gc_stencil_residual"] = phase_main_path(tmp, "gc_stencil_residual",
-                                                          fluid="GC")
+        counts["gc_stencil_residual"] = phase_main_path(tmp, "gc_stencil_residual",
+                                                        fluid="GC")
+    # each kernel's launches on its own main path (a backward kernel's on
+    # its forward's)
+    launches = {name: counts[name][spec["counter"]] for name, spec in KERNELS.items()}
+    launches.update({name: counts[spec["forward"]][spec["counter"]]
+                     for name, spec in BACKWARD.items()})
+    sources = {name: KERNELS[spec["forward"]]["source"] for name, spec in BACKWARD.items()}
+    sources.update({name: spec["source"] for name, spec in KERNELS.items()})
+    replaces = {name: spec["replaces"] for name, spec in {**KERNELS, **BACKWARD}.items()}
 
     import torch
     log(f"all phases passed in {time.time() - t_start:.1f} s")
-    # library_ms: no single PyTorch call computes any of these stencils
+    # library_ms: no single PyTorch call computes any of these stencils or
+    # their gradients
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"srm_tpu_torch/kernels/csrc/{spec['source']}",
-        "replaces": spec["replaces"], "launches": launches[name], **measured[name],
-        "library_ms": None} for name, spec in KERNELS.items()]}))
+        "source": f"srm_tpu_torch/kernels/csrc/{sources[name]}",
+        "replaces": replaces[name], "launches": launches[name], **measured[name],
+        "library_ms": None} for name in measured]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

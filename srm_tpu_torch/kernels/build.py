@@ -3,10 +3,11 @@
 Each ``csrc/*.cu`` file has a plain C interface. :func:`build_library`
 compiles one with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/srm_tpu_torch/`` at the repository root, named after a hash of
-the source and the flags, so an edited source builds anew and an unchanged
-one is reused. :func:`load_library` loads the result. Nothing is compiled
-when a module is imported; a machine without ``nvcc`` fails here, when a
-kernel is first called on a CUDA tensor.
+the source, the ``csrc/*.cuh`` headers and the flags, so an edited source or
+header builds anew and an unchanged one is reused. :func:`load_library`
+loads the result. Nothing is compiled when a module is imported; a machine
+without ``nvcc`` fails here, when a kernel is first called on a CUDA
+tensor.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ def build_library(source: str) -> Tuple[Path, str]:
     """Compile ``csrc/<source>`` if needed; returns (library path, compiler
     log — empty when the library was already built)."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}_{key}.so"
     if out.exists():
         return out, ""

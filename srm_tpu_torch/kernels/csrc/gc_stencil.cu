@@ -42,8 +42,36 @@
 // EPSILON * 0.25, the |dp| > 0 chord-slope mask). Built with -fmad=false so
 // that no multiply-add is contracted, which keeps the kernel's rounding next
 // to the plain version's.
+//
+// Backward (gc_stencil_backward). Replaces the reference's custom-vjp
+// backward srm_tpu/kernels/stencil_pallas.py::_gc_bwd (:533), which lets XLA
+// differentiate the jnp twin; before it the port differentiated its plain
+// version with autograd, ~1,170 small launches per call (the recompute
+// included). Its plain version is srm_tpu_torch/kernels/stencil.py::
+// gc_stencil_residual_backward_reference, the adjoint derived by hand, whose
+// operation order it keeps: the upstream faces pass their cotangent to the
+// side they took their value from (ties to the centre), the chord slopes pass
+// none where dp = 0, max(t1, 1e-12) none below its bound. Two launches, no
+// atomics (stencil_adjoint.cuh): one thread per cell recomputes the cell's
+// forward intermediates in registers, applies the adjoint, writes the fifteen
+// centred inputs' gradients and its contributions to the ten padded inputs'
+// gradients at the cell and its four neighbours into a (B, 5, H, W) scratch
+// per padded input, and its block's dL/dt1, dL/dt2; the gather sums them.
+// Bound at the main path's shape (B=32, 39x39): it must read what the
+// gradient needs of the inputs (~4.30 MB: not the four well rates, whose
+// gradients are images of the cotangents alone) and the cotangents
+// (~0.97 MB), and write the gradients (~5.07 MB): 10,345,540 B, 3.09 us at
+// 3.35 TB/s. It does 1,016 floating-point operations per cell (counted from
+// this source: the recomputed forward, the adjoint, the gather's adds and
+// the dL/dt block sums), 49.5 MFLOP, 0.74 us at the float32 peak, so bytes
+// set the bound. The design also writes and reads back ~9.7 MB of scratch,
+// and its two launches, not bytes, set its time.
 
 #include <cuda_runtime.h>
+
+#include "stencil_adjoint.cuh"
+
+namespace sa = stencil_adjoint;
 
 // Scalars of GCStencilConfig, folded on the host in double as JAX folds them.
 // Outside the unnamed namespace: the exported C function takes it by value,
@@ -103,6 +131,36 @@ struct GCStencilArgs {
   float* partial_o;
   float* mbc_g;
   float* mbc_o;
+};
+
+// The backward's device pointers: the forward's inputs, the cotangents of
+// its seven outputs and the gradients of the fifteen centred inputs, in
+// GC_ARGS order (null: not asked for). The ten padded inputs' gradients, the
+// scratch and dL/dtsteps are in sa::Gather, in GC_ARGS order.
+struct GCStencilBwdArgs {
+  GCStencilArgs x;         // only its inputs are read
+  const float* g_dom_g;
+  const float* g_dom_o;
+  const float* g_ibc;
+  const float* g_trn_g;
+  const float* g_trn_o;
+  const float* g_mbc_g;
+  const float* g_mbc_o;
+  float* grad_p0;
+  float* grad_Sg0;
+  float* grad_Sg1;
+  float* grad_invBg0;
+  float* grad_invBo0;
+  float* grad_Rs0;
+  float* grad_Rv0;
+  float* grad_dinvBg0;
+  float* grad_dinvBo0;
+  float* grad_dRs0;
+  float* grad_dRv0;
+  float* grad_qfg;
+  float* grad_qdg;
+  float* grad_qfo;
+  float* grad_qvo;
 };
 
 namespace {
@@ -281,6 +339,347 @@ __global__ void gc_stencil_mbc(const float* __restrict__ partial_g,
   mbc_o[b] = -sum_o;
 }
 
+// ---- backward: the adjoint of gc_stencil_residual_backward_reference ----
+
+__device__ __forceinline__ Point5 average_adjoint(const Faces& g) {
+  return {0.5f * (((g.ih + g.i_h) + g.jh) + g.j_h), 0.5f * g.ih, 0.5f * g.i_h, 0.5f * g.jh,
+          0.5f * g.j_h};
+}
+
+// each face's cotangent goes to the side its value came from (ties: centre)
+__device__ __forceinline__ Point5 upstream_adjoint(const Point5& p, const Faces& g) {
+  const bool u_ih = p.i1 - p.ij <= 0.0f, u_i_h = p.ij - p.i_1 <= 0.0f;
+  const bool u_jh = p.j1 - p.ij <= 0.0f, u_j_h = p.ij - p.j_1 <= 0.0f;
+  return {(((u_ih ? g.ih : 0.0f) + (u_i_h ? g.i_h : 0.0f)) + (u_jh ? g.jh : 0.0f)) +
+              (u_j_h ? g.j_h : 0.0f),
+          u_ih ? 0.0f : g.ih, u_i_h ? 0.0f : g.i_h, u_jh ? 0.0f : g.jh, u_j_h ? 0.0f : g.j_h};
+}
+
+__device__ __forceinline__ Point5 harmonic_adjoint(const Point5& k, const Faces& g) {
+  float dc_ih, dn_ih, dc_i_h, dn_i_h, dc_jh, dn_jh, dc_j_h, dn_j_h;
+  sa::harmonic_parts(k.ij, k.i1, dc_ih, dn_ih);
+  sa::harmonic_parts(k.ij, k.i_1, dc_i_h, dn_i_h);
+  sa::harmonic_parts(k.ij, k.j1, dc_jh, dn_jh);
+  sa::harmonic_parts(k.ij, k.j_1, dc_j_h, dn_j_h);
+  return {((g.ih * dc_ih + g.i_h * dc_i_h) + g.jh * dc_jh) + g.j_h * dc_j_h, g.ih * dn_ih,
+          g.i_h * dn_i_h, g.jh * dn_jh, g.j_h * dn_j_h};
+}
+
+__device__ __forceinline__ Point5 add(const Point5& a, const Point5& b) {
+  return {a.ij + b.ij, a.i1 + b.i1, a.i_1 + b.i_1, a.j1 + b.j1, a.j_1 + b.j_1};
+}
+
+// the pressure contributions of a 5-point divergence whose inner sum has
+// cotangent G
+__device__ __forceinline__ Point5 divergence_adjoint(float G, const Faces& a, float total) {
+  return {G * total, -(G * a.ih), -(G * a.i_h), -(G * a.jh), -(G * a.j_h)};
+}
+
+__device__ __forceinline__ float total(const Faces& a) { return a.i_h + a.j_h + a.ih + a.jh; }
+
+__device__ __forceinline__ void put(const sa::Gather& g, int f, int b, int j, int i, int B, int H,
+                                    int W, const Point5& c) {
+  sa::put5(g, f, b, j, i, B, H, W, c.ij, c.i1, c.i_1, c.j1, c.j_1);
+}
+
+__device__ __forceinline__ void store(float* grad, long o, float v) {
+  if (grad != nullptr) grad[o] = v;
+}
+
+__global__ void __launch_bounds__(kBlock)
+gc_stencil_bwd_cells(GCStencilBwdArgs a, sa::Gather g, int B, int H, int W, GCStencilScalars s) {
+  const int b = blockIdx.y;
+  const int cell = blockIdx.x * kBlock + threadIdx.x;
+  const int HW = H * W;
+  float gt1 = 0.0f, gt2 = 0.0f;
+
+  if (cell < HW) {
+    const GCStencilArgs& x = a.x;
+    const int i = cell % W;
+    const int j = cell / W;
+    const int Wp = W + 2;
+    const long c = (long)b * (H + 2) * Wp + (long)(j + 1) * Wp + (i + 1);
+    const long o = (long)b * HW + cell;
+    const float t1 = x.tsteps[2 * b];
+    const float t2 = x.tsteps[2 * b + 1];
+
+    // the forward's intermediates, as gc_stencil_cells has them
+    const Point5 k = load5(x.kxp, c, Wp);
+    const Faces kf = harmonic(k);
+    const Point5 p = load5(x.p1p, c, Wp);
+    const Point5 bg = load5(x.invBg1p, c, Wp), bo = load5(x.invBo1p, c, Wp);
+    const Point5 ug = load5(x.invug1p, c, Wp), uo = load5(x.invuo1p, c, Wp);
+    const Point5 rs = load5(x.Rs1p, c, Wp), rv = load5(x.Rv1p, c, Wp);
+    const float p0 = x.p0[o];
+    const float Sg0 = x.Sg0[o], Sg1 = x.Sg1[o];
+    const float So0 = s.So_max - Sg0, So1 = s.So_max - Sg1;
+    const float invBg0 = x.invBg0[o], invBo0 = x.invBo0[o];
+    const float Rs0 = x.Rs0[o], Rv0 = x.Rv0[o];
+    const float dinvBg0 = x.dinvBg0[o], dinvBo0 = x.dinvBo0[o];
+    const float dRs0 = x.dRs0[o], dRv0 = x.dRv0[o];
+    const float invBg1 = bg.ij, invBo1 = bo.ij, Rs1 = rs.ij, Rv1 = rv.ij;
+    const float RsinvBo0 = Rs0 * invBo0, RvinvBg0 = Rv0 * invBg0;
+    const float RsinvBo1 = Rs1 * invBo1, RvinvBg1 = Rv1 * invBg1;
+    const float mg0 = s.phi * (invBg0 * Sg0 + RsinvBo0 * So0);
+    const float mo0 = s.phi * (invBo0 * So0 + RvinvBg0 * Sg0);
+    const float mg1 = s.phi * (invBg1 * Sg1 + RsinvBo1 * So1);
+    const float mo1 = s.phi * (invBo1 * So1 + RvinvBg1 * Sg1);
+    const float m = fmaxf(t1, 1e-12f);
+    const float ratio = 1.0f + t2 / m;
+    const float mg2 = (mg1 - mg0) * ratio + mg0;
+    const float mo2 = (mo1 - mo0) * ratio + mo0;
+    const float den = t1 * t2 + t2 * t2;
+    const float num_g = t2 * mg0 + t1 * mg2 - (t1 + t2) * mg1;
+    const float num_o = t2 * mo0 + t1 * mo2 - (t1 + t2) * mo1;
+
+    const Faces kgo = upstream(load5(x.krgo1p, c, Wp), p);
+    const Faces kog = upstream(load5(x.krog1p, c, Wp), p);
+    const Point5 rvbg = mul(rv, bg), rsbo = mul(rs, bo);
+    const Faces bgug = average(mul(bg, ug));
+    const Faces bouo = average(mul(bo, uo));
+    const Faces rvbgug = average(mul(rvbg, ug));
+    const Faces rsbouo = average(mul(rsbo, uo));
+
+    const float dp = p.ij - p0;
+    const bool moving = fabsf(dp) > 0.0f;
+    const float dSg = Sg1 - Sg0, dSo = So1 - So0;
+    const float d_Sg = moving ? dSg / dp : 0.0f;
+    const float d_So = moving ? dSo / dp : 0.0f;
+    const float d_RsinvBo = Rs0 * dinvBo0 + invBo0 * dRs0;
+    const float d_RvinvBg = Rv0 * dinvBg0 + invBg0 * dRv0;
+    const Faces agg = trans(s, kf, kgo, bgug);
+    const Faces ago = trans(s, kf, kog, rsbouo);
+    const Faces aoo = trans(s, kf, kog, bouo);
+    const Faces aog = trans(s, kf, kgo, rvbgug);
+    const float inv_Dt = 1.0f / (s.D * t1);
+    const float A_gg = s.phi * invBg1 * d_Sg + Sg0 * (s.phi * dinvBg0 + s.phi_cf * invBg0);
+    const float A_go = s.phi * RsinvBo1 * d_So + So0 * (s.phi * d_RsinvBo + s.phi_cf * RsinvBo0);
+    const float A_oo = s.phi * invBo1 * d_So + So0 * (s.phi * dinvBo0 + s.phi_cf * invBo0);
+    const float A_og = s.phi * RvinvBg1 * d_Sg + Sg0 * (s.phi * d_RvinvBg + s.phi_cf * RvinvBg0);
+    const float K = s.dv * inv_Dt * s.phi;
+    const float E_g = (Sg1 * invBg1 - Sg0 * invBg0) + (So1 * RsinvBo1 - So0 * RsinvBo0);
+    const float E_o = (So1 * invBo1 - So0 * invBo0) + (Sg1 * RvinvBg1 - Sg0 * RvinvBg0);
+
+    // the four divergences dv*(sum + q/dv): the gas pair read by dom_g, the
+    // oil pair by dom_o, all four by ibc
+    const float g_ibc_cell = x.qwell[cell] * a.g_ibc[o];
+    const float g_dom_g = a.g_dom_g[o], g_dom_o = a.g_dom_o[o];
+    const float G_g = (g_dom_g + g_ibc_cell) * s.dv;
+    const float G_o = (g_dom_o + g_ibc_cell) * s.dv;
+    Point5 c_p = add(add(add(divergence_adjoint(G_g, agg, total(agg)),
+                             divergence_adjoint(G_g, ago, total(ago))),
+                         divergence_adjoint(G_o, aoo, total(aoo))),
+                     divergence_adjoint(G_o, aog, total(aog)));
+    // a = (((C*kf)*kr)*pr)*inv_d, per divergence and face
+    const float drop[4] = {p.ij - p.i1, p.ij - p.i_1, p.ij - p.j1, p.ij - p.j_1};
+    const float inv_d[4] = {s.inv_dxx, s.inv_dxx, s.inv_dyy, s.inv_dyy};
+    const float kfa[4] = {kf.ih, kf.i_h, kf.jh, kf.j_h};
+    const float kgoa[4] = {kgo.ih, kgo.i_h, kgo.jh, kgo.j_h};
+    const float koga[4] = {kog.ih, kog.i_h, kog.jh, kog.j_h};
+    const float pra[4][4] = {{bgug.ih, bgug.i_h, bgug.jh, bgug.j_h},
+                             {rsbouo.ih, rsbouo.i_h, rsbouo.jh, rsbouo.j_h},
+                             {bouo.ih, bouo.i_h, bouo.jh, bouo.j_h},
+                             {rvbgug.ih, rvbgug.i_h, rvbgug.jh, rvbgug.j_h}};
+    float gpr[4][4], gkf[4], gkgo[4], gkog[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float ck = s.C * kfa[f];
+      const float w_g = (G_g * drop[f]) * inv_d[f], w_o = (G_o * drop[f]) * inv_d[f];
+      const float wp0 = w_g * pra[0][f], wp1 = w_g * pra[1][f];
+      const float wp2 = w_o * pra[2][f], wp3 = w_o * pra[3][f];
+      gpr[0][f] = w_g * (ck * kgoa[f]);
+      gpr[1][f] = w_g * (ck * koga[f]);
+      gpr[2][f] = w_o * (ck * koga[f]);
+      gpr[3][f] = w_o * (ck * kgoa[f]);
+      gkf[f] = ((((wp0 * kgoa[f]) + wp1 * koga[f]) + wp2 * koga[f]) + wp3 * kgoa[f]) * s.C;
+      gkgo[f] = (wp0 + wp3) * ck;
+      gkog[f] = (wp1 + wp2) * ck;
+    }
+
+    // cp = (inv_Dt*A)*dp, read by dom (not ibc) as dv*cp
+    const float Gc_g = g_dom_g * s.dv, Gc_o = g_dom_o * s.dv;
+    float g_dp = Gc_g * (inv_Dt * A_gg);
+    g_dp = g_dp + Gc_g * (inv_Dt * A_go);
+    g_dp = g_dp + Gc_o * (inv_Dt * A_oo);
+    g_dp = g_dp + Gc_o * (inv_Dt * A_og);
+    float g_invDt = (Gc_g * dp) * A_gg;
+    g_invDt = g_invDt + (Gc_g * dp) * A_go;
+    g_invDt = g_invDt + (Gc_o * dp) * A_oo;
+    g_invDt = g_invDt + (Gc_o * dp) * A_og;
+    const float gA0 = (Gc_g * dp) * inv_Dt, gA1 = (Gc_g * dp) * inv_Dt;
+    const float gA2 = (Gc_o * dp) * inv_Dt, gA3 = (Gc_o * dp) * inv_Dt;
+    float g_invBg1 = (gA0 * d_Sg) * s.phi;
+    float g_d_Sg = gA0 * (s.phi * invBg1);
+    float g_Sg0 = gA0 * (s.phi * dinvBg0 + s.phi_cf * invBg0);
+    float g_in = gA0 * Sg0;
+    float g_dinvBg0 = g_in * s.phi;
+    float g_invBg0 = g_in * s.phi_cf;
+    float g_RsinvBo1 = (gA1 * d_So) * s.phi;
+    float g_d_So = gA1 * (s.phi * RsinvBo1);
+    float g_So0 = gA1 * (s.phi * d_RsinvBo + s.phi_cf * RsinvBo0);
+    g_in = gA1 * So0;
+    const float g_dRsinvBo = g_in * s.phi;
+    float g_RsinvBo0 = g_in * s.phi_cf;
+    float g_invBo1 = (gA2 * d_So) * s.phi;
+    g_d_So = g_d_So + gA2 * (s.phi * invBo1);
+    g_So0 = g_So0 + gA2 * (s.phi * dinvBo0 + s.phi_cf * invBo0);
+    g_in = gA2 * So0;
+    float g_dinvBo0 = g_in * s.phi;
+    float g_invBo0 = g_in * s.phi_cf;
+    float g_RvinvBg1 = (gA3 * d_Sg) * s.phi;
+    g_d_Sg = g_d_Sg + gA3 * (s.phi * RvinvBg1);
+    g_Sg0 = g_Sg0 + gA3 * (s.phi * d_RvinvBg + s.phi_cf * RvinvBg0);
+    g_in = gA3 * Sg0;
+    const float g_dRvinvBg = g_in * s.phi;
+    float g_RvinvBg0 = g_in * s.phi_cf;
+    float g_Rs0 = g_dRsinvBo * dinvBo0;
+    g_dinvBo0 = g_dinvBo0 + g_dRsinvBo * Rs0;
+    g_invBo0 = g_invBo0 + g_dRsinvBo * dRs0;
+    const float g_dRs0 = g_dRsinvBo * invBo0;
+    float g_Rv0 = g_dRvinvBg * dinvBg0;
+    g_dinvBg0 = g_dinvBg0 + g_dRvinvBg * Rv0;
+    g_invBg0 = g_invBg0 + g_dRvinvBg * dRv0;
+    const float g_dRv0 = g_dRvinvBg * invBg0;
+    // the chord slopes: no cotangent where dp = 0
+    const float q_Sg = moving ? g_d_Sg / dp : 0.0f;
+    const float q_So = moving ? g_d_So / dp : 0.0f;
+    float g_Sg1 = q_Sg;
+    g_Sg0 = g_Sg0 - q_Sg;
+    float g_So1 = q_So;
+    g_So0 = g_So0 - q_So;
+    g_dp = g_dp - (moving ? (q_Sg * dSg) / dp + (q_So * dSo) / dp : 0.0f);
+
+    // mbc = -sum((q + q') + K*E), K = (dv*inv_Dt)*phi
+    const float g_mg = -a.g_mbc_g[b], g_mo = -a.g_mbc_o[b];
+    float g_E = g_mg * K;
+    g_Sg1 = g_Sg1 + g_E * invBg1;
+    g_invBg1 = g_invBg1 + g_E * Sg1;
+    g_Sg0 = g_Sg0 - g_E * invBg0;
+    g_invBg0 = g_invBg0 - g_E * Sg0;
+    g_So1 = g_So1 + g_E * RsinvBo1;
+    g_RsinvBo1 = g_RsinvBo1 + g_E * So1;
+    g_So0 = g_So0 - g_E * RsinvBo0;
+    g_RsinvBo0 = g_RsinvBo0 - g_E * So0;
+    g_E = g_mo * K;
+    g_So1 = g_So1 + g_E * invBo1;
+    g_invBo1 = g_invBo1 + g_E * So1;
+    g_So0 = g_So0 - g_E * invBo0;
+    g_invBo0 = g_invBo0 - g_E * So0;
+    g_Sg1 = g_Sg1 + g_E * RvinvBg1;
+    g_RvinvBg1 = g_RvinvBg1 + g_E * Sg1;
+    g_Sg0 = g_Sg0 - g_E * RvinvBg0;
+    g_RvinvBg0 = g_RvinvBg0 - g_E * Sg0;
+    g_invDt = g_invDt + ((g_mg * E_g + g_mo * E_o) * s.phi) * s.dv;
+    gt1 = -((g_invDt * inv_Dt) * inv_Dt) * s.D;
+
+    // trn = S*(rte/t1 + num/den), num = t2*m0 + t1*m2 - (t1+t2)*m1,
+    // m2 = (m1 - m0)*ratio + m0
+    float g_ratio = 0.0f;
+    float g_mg0, g_mg1, g_mo0, g_mo1;
+    {
+      const float gS = a.g_trn_g[o] * s.dv_over_D;
+      const float g_num = gS / den;
+      const float g_den = -(gS * num_g) / (den * den);
+      gt1 = gt1 - (gS * s.rte) / (t1 * t1) + g_num * mg2 - g_num * mg1 + g_den * t2;
+      gt2 = gt2 + g_num * mg0 - g_num * mg1 + ((g_den * t1 + g_den * t2) + g_den * t2);
+      const float g_m2 = g_num * t1;
+      g_ratio = g_ratio + g_m2 * (mg1 - mg0);
+      g_mg0 = g_num * t2 - g_m2 * ratio + g_m2;
+      g_mg1 = -(g_num * (t1 + t2)) + g_m2 * ratio;
+    }
+    {
+      const float gS = a.g_trn_o[o] * s.dv_over_D;
+      const float g_num = gS / den;
+      const float g_den = -(gS * num_o) / (den * den);
+      gt1 = gt1 - (gS * s.rte) / (t1 * t1) + g_num * mo2 - g_num * mo1 + g_den * t2;
+      gt2 = gt2 + g_num * mo0 - g_num * mo1 + ((g_den * t1 + g_den * t2) + g_den * t2);
+      const float g_m2 = g_num * t1;
+      g_ratio = g_ratio + g_m2 * (mo1 - mo0);
+      g_mo0 = g_num * t2 - g_m2 * ratio + g_m2;
+      g_mo1 = -(g_num * (t1 + t2)) + g_m2 * ratio;
+    }
+    // ratio = 1 + t2/max(t1, 1e-12): no cotangent below the bound
+    const float g_m = -(g_ratio * t2) / (m * m);
+    gt1 = gt1 + ((t1 >= 1e-12f) ? g_m : 0.0f);
+    gt2 = gt2 + g_ratio / m;
+    // m = phi*(...)
+    g_in = g_mg0 * s.phi;
+    g_invBg0 = g_invBg0 + g_in * Sg0;
+    g_Sg0 = g_Sg0 + g_in * invBg0;
+    g_RsinvBo0 = g_RsinvBo0 + g_in * So0;
+    g_So0 = g_So0 + g_in * RsinvBo0;
+    g_in = g_mo0 * s.phi;
+    g_invBo0 = g_invBo0 + g_in * So0;
+    g_So0 = g_So0 + g_in * invBo0;
+    g_RvinvBg0 = g_RvinvBg0 + g_in * Sg0;
+    g_Sg0 = g_Sg0 + g_in * RvinvBg0;
+    g_in = g_mg1 * s.phi;
+    g_invBg1 = g_invBg1 + g_in * Sg1;
+    g_Sg1 = g_Sg1 + g_in * invBg1;
+    g_RsinvBo1 = g_RsinvBo1 + g_in * So1;
+    g_So1 = g_So1 + g_in * RsinvBo1;
+    g_in = g_mo1 * s.phi;
+    g_invBo1 = g_invBo1 + g_in * So1;
+    g_So1 = g_So1 + g_in * invBo1;
+    g_RvinvBg1 = g_RvinvBg1 + g_in * Sg1;
+    g_Sg1 = g_Sg1 + g_in * RvinvBg1;
+    // the products, and So = So_max - Sg
+    g_Rs0 = g_Rs0 + g_RsinvBo0 * invBo0;
+    g_invBo0 = g_invBo0 + g_RsinvBo0 * Rs0;
+    g_Rv0 = g_Rv0 + g_RvinvBg0 * invBg0;
+    g_invBg0 = g_invBg0 + g_RvinvBg0 * Rv0;
+    const float g_Rs1 = g_RsinvBo1 * invBo1;
+    g_invBo1 = g_invBo1 + g_RsinvBo1 * Rs1;
+    const float g_Rv1 = g_RvinvBg1 * invBg1;
+    g_invBg1 = g_invBg1 + g_RvinvBg1 * Rv1;
+    g_Sg0 = g_Sg0 - g_So0;
+    g_Sg1 = g_Sg1 - g_So1;
+
+    store(a.grad_p0, o, -g_dp);
+    store(a.grad_Sg0, o, g_Sg0);
+    store(a.grad_Sg1, o, g_Sg1);
+    store(a.grad_invBg0, o, g_invBg0);
+    store(a.grad_invBo0, o, g_invBo0);
+    store(a.grad_Rs0, o, g_Rs0);
+    store(a.grad_Rv0, o, g_Rv0);
+    store(a.grad_dinvBg0, o, g_dinvBg0);
+    store(a.grad_dinvBo0, o, g_dinvBo0);
+    store(a.grad_dRs0, o, g_dRs0);
+    store(a.grad_dRv0, o, g_dRv0);
+    store(a.grad_qfg, o, G_g / s.dv + g_mg);
+    store(a.grad_qdg, o, G_g / s.dv + g_mg);
+    store(a.grad_qfo, o, G_o / s.dv + g_mo);
+    store(a.grad_qvo, o, G_o / s.dv + g_mo);
+
+    // the padded inputs, in GC_ARGS order: the face products at each point,
+    // then the terms read at the centre only
+    const Point5 pg0 = average_adjoint({gpr[0][0], gpr[0][1], gpr[0][2], gpr[0][3]});
+    const Point5 pg1 = average_adjoint({gpr[1][0], gpr[1][1], gpr[1][2], gpr[1][3]});
+    const Point5 pg2 = average_adjoint({gpr[2][0], gpr[2][1], gpr[2][2], gpr[2][3]});
+    const Point5 pg3 = average_adjoint({gpr[3][0], gpr[3][1], gpr[3][2], gpr[3][3]});
+    c_p.ij = c_p.ij + g_dp;
+    put(g, 0, b, j, i, B, H, W, c_p);
+    put(g, 1, b, j, i, B, H, W, harmonic_adjoint(k, {gkf[0], gkf[1], gkf[2], gkf[3]}));
+    put(g, 2, b, j, i, B, H, W, upstream_adjoint(p, {gkgo[0], gkgo[1], gkgo[2], gkgo[3]}));
+    put(g, 3, b, j, i, B, H, W, upstream_adjoint(p, {gkog[0], gkog[1], gkog[2], gkog[3]}));
+    Point5 g_bg = add(mul(pg0, ug), mul(mul(pg3, ug), rv));
+    g_bg.ij = g_bg.ij + g_invBg1;
+    put(g, 4, b, j, i, B, H, W, g_bg);
+    Point5 g_bo = add(mul(pg2, uo), mul(mul(pg1, uo), rs));
+    g_bo.ij = g_bo.ij + g_invBo1;
+    put(g, 5, b, j, i, B, H, W, g_bo);
+    put(g, 6, b, j, i, B, H, W, add(mul(pg0, bg), mul(pg3, rvbg)));
+    put(g, 7, b, j, i, B, H, W, add(mul(pg2, bo), mul(pg1, rsbo)));
+    Point5 g_rs = mul(mul(pg1, uo), bo);
+    g_rs.ij = g_rs.ij + g_Rs1;
+    put(g, 8, b, j, i, B, H, W, g_rs);
+    Point5 g_rv = mul(mul(pg3, ug), bg);
+    g_rv.ij = g_rv.ij + g_Rv1;
+    put(g, 9, b, j, i, B, H, W, g_rv);
+  }
+  sa::block_partials<kBlock>(g, b, gt1, gt2);
+}
+
 }  // namespace
 
 extern "C" {
@@ -303,6 +702,23 @@ int gc_stencil_forward(const GCStencilArgs* args, int B, int H, int W, GCStencil
   gc_stencil_mbc<<<(B + 127) / 128, 128, 0, st>>>(args->partial_g, args->partial_o, B, n_blocks,
                                                   args->mbc_g, args->mbc_o);
   return (int)cudaGetLastError();
+}
+
+// Launches the backward's two kernels on `stream`; returns
+// cudaGetLastError() (0 = success). `g` holds the ten padded inputs'
+// gradients (n_padded = 10), a (10, B, 5, H, W) scratch, a
+// (B, gc_stencil_num_blocks(H, W), 2) partial scratch and dL/dtsteps. Both
+// structs are read on the host before the launch.
+int gc_stencil_backward(const GCStencilBwdArgs* args, const sa::Gather* g, int B, int H, int W,
+                        GCStencilScalars s, void* stream) {
+  if (args == nullptr || g == nullptr || B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
+      g->n_padded != 10 || g->n_blocks != gc_stencil_num_blocks(H, W))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gc_stencil_bwd_cells<<<dim3(g->n_blocks, B), kBlock, 0, st>>>(*args, *g, B, H, W, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return sa::launch_gather(*g, B, H, W, st);
 }
 
 }  // extern "C"

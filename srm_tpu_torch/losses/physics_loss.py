@@ -19,12 +19,17 @@ tank balances; the weighted SSE sums the terms of each phase (gas, and oil
 for gas condensate). In 3D the vertical permeability is
 ``vertical_anisotropy · kx``, padded and passed to the stencil pre-scaled.
 
-``use_cuda_stencil`` mirrors the reference's ``use_pallas_stencil``. On (the
-default), the residual goes through the fused op, which launches the CUDA
-kernel for tensors on a GPU and takes its plain version for tensors on the
-CPU; off, it goes straight to the plain PyTorch version on any device and
-dtype. Per-cell porosity, which the reference computes on its unfused path,
-raises ``NotImplementedError`` until that path is ported.
+``use_cuda_stencil`` mirrors the reference's ``use_pallas_stencil``
+(``:269-275``): it is on where the models live on a GPU and off on the CPU,
+as the reference's is on a TPU only. On, the residual goes through the
+fused op, which launches the CUDA kernel. Off, gas condensate
+runs :func:`gc_residual_from_fields`, the port of the reference's unfused
+residual (``:128-249``), which sums the well rates and the accumulation of
+each tank balance apart; dry gas runs the fused op's plain version, which
+agrees with the reference's unfused DG path (its parity tests pass; the
+port of ``dg_residual_from_fields`` is ROADMAP A2). Per-cell porosity, which
+the reference computes on its unfused path, raises ``NotImplementedError``
+until that path is ported.
 
 Feature layout: ``x`` is the woven normalized tensor, ``(B, 1, H, W, 5)``
 in 2D and ``(B, 1, D, H, W, 5)`` in 3D, with channels
@@ -46,18 +51,117 @@ from srm_tpu_torch.config import (
     get_conversion_constants,
     get_optimizer_model_mapping,
 )
-from srm_tpu_torch.kernels.stencil import (GCStencilConfig, StencilConfig,
-                                           dg3d_stencil_residual,
+from srm_tpu_torch.kernels.stencil import (EPSILON, GC_ARGS, GC_PADDED, GCStencilConfig,
+                                           StencilConfig, dg3d_stencil_residual,
                                            dg3d_stencil_residual_reference,
                                            dg_stencil_residual, dg_stencil_residual_reference,
-                                           gc_stencil_residual, gc_stencil_residual_reference)
-from srm_tpu_torch.ops.stencil import pad_symmetric, pad_symmetric_3d
+                                           gc_stencil_residual)
+from srm_tpu_torch.ops.stencil import (average_faces, five_point_divergence, harmonic_faces,
+                                       neighbors, pad_symmetric, pad_symmetric_3d,
+                                       upstream_faces)
 from srm_tpu_torch.physics.relperm import RelativePermeability, clip
 from srm_tpu_torch.physics.wells import scatter_to_grid
 from srm_tpu_torch.utils.stats import denormalize, normalize_diff
 
 # loss-term order (the reference's LOSS_TERMS)
 LOSS_TERMS = ("dom", "dbc", "nbc", "ibc", "ic", "mbc", "cmbc", "tde", "td")
+
+
+def gc_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1, invug1,
+                            invuo1, Rs1, Rv1, dinvBg0, dinvBo0, dRs0, dRv0, krgo1, krog1,
+                            qfg1c, qdg1c, qfo1c, qvo1c, q_well, kx_c, phi_c, t1, t2,
+                            C: float, D: float, dx: float, dy: float, dz: float, Swmin: float):
+    """Gas-condensate two-phase residual from centred (B, H, W) fields, the
+    reference's unfused ``gc_residual_from_fields`` (``:128-249``) with its
+    operation order: (dom_g, dom_o, ibc, mbc_g, mbc_o, trn_g, trn_o).
+    ``phi_c`` is a porosity field, ``t1`` and ``t2`` are (B, 1, 1). Unlike the
+    fused op, each tank balance sums the well rates and the accumulation
+    apart, so the small accumulation is not rounded into the large well
+    rate cell by cell."""
+    dv = dx * dy * dz
+    kx_ih, kx_i_h, ky_jh, ky_j_h = harmonic_faces(neighbors(pad_symmetric(kx_c)))
+    cf = 97.32e-6 / (1.0 + 55.8721 * phi_c**1.428586)
+    So0 = 1.0 - Swmin - Sg0
+    So1 = 1.0 - Swmin - Sg1
+
+    RsinvBo0, RvinvBg0 = Rs0 * invBo0, Rv0 * invBg0
+    RsinvBo1, RvinvBg1 = Rs1 * invBo1, Rv1 * invBg1
+    mg0 = phi_c * (invBg0 * Sg0 + RsinvBo0 * So0)
+    mo0 = phi_c * (invBo0 * So0 + RvinvBg0 * Sg0)
+    mg1 = phi_c * (invBg1 * Sg1 + RsinvBo1 * So1)
+    mo1 = phi_c * (invBo1 * So1 + RvinvBg1 * Sg1)
+    ratio = 1.0 + t2 / torch.clamp_min(t1, 1e-12)
+    mg2 = (mg1 - mg0) * ratio + mg0
+    mo2 = (mo1 - mo0) * ratio + mo0
+
+    rte = EPSILON * 0.25
+    denom_t = t1 * t2 + t2**2
+    trn_g = (dv / D) * (rte / t1 + (t2 * mg0 + t1 * mg2 - (t1 + t2) * mg1) / denom_t)
+    trn_o = (dv / D) * (rte / t1 + (t2 * mo0 + t1 * mo2 - (t1 + t2) * mo1) / denom_t)
+
+    pn = neighbors(pad_symmetric(p1))
+    kr_g = upstream_faces(neighbors(pad_symmetric(krgo1)), pn)
+    kr_o = upstream_faces(neighbors(pad_symmetric(krog1)), pn)
+
+    def favg(f):
+        return average_faces(neighbors(pad_symmetric(f)))
+
+    bgug_faces = favg(invBg1 * invug1)
+    bouo_faces = favg(invBo1 * invuo1)
+    rvbgug_faces = favg(Rv1 * invBg1 * invug1)
+    rsbouo_faces = favg(Rs1 * invBo1 * invuo1)
+
+    # the chord slope's safe_dp form: no NaN gradient where dp = 0
+    dp = p1 - p0
+    moving = dp.abs() > 0
+    safe_dp = torch.where(moving, dp, torch.ones_like(dp))
+    d_Sg = torch.where(moving, (Sg1 - Sg0) / safe_dp, torch.zeros_like(dp))
+    d_So = torch.where(moving, (So1 - So0) / safe_dp, torch.zeros_like(dp))
+
+    d_RsinvBo = Rs0 * dinvBo0 + invBo0 * dRs0
+    d_RvinvBg = Rv0 * dinvBg0 + invBg0 * dRv0
+
+    cprgg = phi_c * cf * invBg0
+    cprgo = phi_c * cf * RsinvBo0
+    cproo = phi_c * cf * invBo0
+    cprog = phi_c * cf * RvinvBg0
+
+    inv_dxx = 1.0 / (dx * dx)
+    inv_dyy = 1.0 / (dy * dy)
+
+    def trans(kr_faces, prop_faces):
+        kr_ih, kr_i_h, kr_jh, kr_j_h = kr_faces
+        pr_ih, pr_i_h, pr_jh, pr_j_h = prop_faces
+        return (C * kx_ih * kr_ih * pr_ih * inv_dxx, C * kx_i_h * kr_i_h * pr_i_h * inv_dxx,
+                C * ky_jh * kr_jh * pr_jh * inv_dyy, C * ky_j_h * kr_j_h * pr_j_h * inv_dyy)
+
+    agg = trans(kr_g, bgug_faces)
+    ago = trans(kr_o, rsbouo_faces)
+    aoo = trans(kr_o, bouo_faces)
+    aog = trans(kr_g, rvbgug_faces)
+
+    inv_Dt = 1.0 / (D * t1)
+    cpgg = inv_Dt * (phi_c * invBg1 * d_Sg + Sg0 * (phi_c * dinvBg0 + cprgg)) * dp
+    cpgo = inv_Dt * (phi_c * RsinvBo1 * d_So + So0 * (phi_c * d_RsinvBo + cprgo)) * dp
+    cpoo = inv_Dt * (phi_c * invBo1 * d_So + So0 * (phi_c * dinvBo0 + cproo)) * dp
+    cpog = inv_Dt * (phi_c * RvinvBg1 * d_Sg + Sg0 * (phi_c * d_RvinvBg + cprog)) * dp
+
+    divq_gg = five_point_divergence(*agg, pn, qfg1c / dv, dv)
+    divq_go = five_point_divergence(*ago, pn, qdg1c / dv, dv)
+    divq_oo = five_point_divergence(*aoo, pn, qfo1c / dv, dv)
+    divq_og = five_point_divergence(*aog, pn, qvo1c / dv, dv)
+
+    dom_g = (divq_gg + dv * cpgg) + (divq_go + dv * cpgo)
+    dom_o = (divq_oo + dv * cpoo) + (divq_og + dv * cpog)
+    ibc = q_well * ((divq_gg + divq_go) + (divq_oo + divq_og))
+
+    mbc_gg = dv * inv_Dt * phi_c * (Sg1 * invBg1 - Sg0 * invBg0)
+    mbc_go = dv * inv_Dt * phi_c * (So1 * RsinvBo1 - So0 * RsinvBo0)
+    mbc_oo = dv * inv_Dt * phi_c * (So1 * invBo1 - So0 * invBo0)
+    mbc_og = dv * inv_Dt * phi_c * (Sg1 * RvinvBg1 - Sg0 * RvinvBg0)
+    mbc_g = -(qfg1c + qdg1c).sum(dim=(1, 2)) - (mbc_gg + mbc_go).sum(dim=(1, 2))
+    mbc_o = -(qfo1c + qvo1c).sum(dim=(1, 2)) - (mbc_oo + mbc_og).sum(dim=(1, 2))
+    return dom_g, dom_o, ibc, mbc_g, mbc_o, trn_g, trn_o
 
 _LOGICAL_NAMES = {"pressure": "pressure", "time_step": "time_step",
                   "fluid_property": "pvt_model", "well_rate_bhp": "well_rate_bhp_model",
@@ -74,8 +178,7 @@ class PhysicsLoss:
                  reservoir_config: Optional[Dict] = None,
                  wells_config: Optional[Dict] = None,
                  scal_config: Optional[Dict] = None,
-                 fluid_type: Optional[str] = None,
-                 use_cuda_stencil: bool = True):
+                 fluid_type: Optional[str] = None):
         self.models = models
         self.general_config = general_config or DEFAULT_GENERAL_CONFIG
         self.reservoir_config = res = reservoir_config or DEFAULT_RESERVOIR_CONFIG
@@ -99,7 +202,7 @@ class PhysicsLoss:
                                           or get_optimizer_model_mapping(self.fluid_type))
 
         self.device = next(models["pressure"].parameters()).device
-        self.use_cuda_stencil = use_cuda_stencil
+        self.use_cuda_stencil = self.device.type == "cuda"
 
         units = get_conversion_constants(g["srm_units"])
         self.C, self.D = units["C"], units["D"]
@@ -225,6 +328,20 @@ class PhysicsLoss:
         outputs.update(q=q1, pwf=pwf1)
         return args, outputs
 
+    def _gc_unfused(self, *args):
+        """:func:`gc_residual_from_fields` on the fused op's arguments, whose
+        padded fields it takes back to their centres (it pads them itself)."""
+        f = {n: a[:, 1:-1, 1:-1] if n in GC_PADDED else a for n, a in zip(GC_ARGS, args)}
+        qwell, tsteps = args[len(GC_ARGS):]
+        cfg = self.stencil_cfg
+        return gc_residual_from_fields(
+            *(f[n] for n in ("p0", "p1p", "Sg0", "Sg1", "invBg0", "invBo0", "Rs0", "Rv0",
+                             "invBg1p", "invBo1p", "invug1p", "invuo1p", "Rs1p", "Rv1p",
+                             "dinvBg0", "dinvBo0", "dRs0", "dRv0", "krgo1p", "krog1p",
+                             "qfg", "qdg", "qfo", "qvo")),
+            qwell, f["kxp"], torch.full_like(f["p0"], cfg.phi), tsteps[:, 0].reshape(-1, 1, 1),
+            tsteps[:, 1].reshape(-1, 1, 1), cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz, cfg.Swmin)
+
     def residuals(self, x: torch.Tensor) -> Dict[str, Any]:
         """Residual fields per phase (srm_tpu/losses/physics_loss.py:473-480,
         :493-574, :576-653, :694-793). In 3D, dom, ibc and tde take the
@@ -234,8 +351,11 @@ class PhysicsLoss:
             raise NotImplementedError("the 3D gas-condensate residual is not ported yet")
         args, outputs = self.stencil_inputs(x)
         if self.fluid_type == "GC":
-            fn = gc_stencil_residual if self.use_cuda_stencil else gc_stencil_residual_reference
-            dom_g, dom_o, ibc, trn_g, trn_o, mbc_g, mbc_o = fn(*args, self.stencil_cfg)
+            if self.use_cuda_stencil:
+                dom_g, dom_o, ibc, trn_g, trn_o, mbc_g, mbc_o = gc_stencil_residual(
+                    *args, self.stencil_cfg)
+            else:
+                dom_g, dom_o, ibc, mbc_g, mbc_o, trn_g, trn_o = self._gc_unfused(*args)
             zeros = torch.zeros_like(dom_g)
             return {
                 "gas": {"dom": dom_g, "dbc": zeros, "nbc": zeros, "ibc": ibc, "ic": zeros,

@@ -16,7 +16,13 @@ measures on the card:
   forward and backward) and the peak device memory of the epoch;
 * the case's stencil kernel and its plain version on the stencil inputs of
   one main-path batch: device time per call from the profiler over 100
-  calls each, and the device launches each call makes.
+  calls each, and the device launches each call makes; the same for its
+  backward, for the cotangents of a sum of squares of its outputs: the
+  backward kernel (B1, B3), its plain version (the explicit adjoint) and
+  autograd through the recomputed plain version (``_plain_backward``,
+  still B2's backward), with each one's host-inclusive time per call
+  (CUDA events around back-to-back calls) and the backward's bound (the
+  bytes it must move at the HBM rate, ``backward_bytes``).
 
 Prints one JSON object per case and writes it to ``DIR/profile_<case>.json``
 (default ``build/profile/``, listed in ``.gitignore``). It needs a CUDA device
@@ -29,6 +35,7 @@ import argparse
 import itertools
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -48,7 +55,78 @@ def _device_events(prof):
     return len(events), sum(e.time_range.elapsed_us() for e in events)
 
 
-def _profile(fn, n: int):
+# the card's published peaks (H100 SXM, NVIDIA's data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+
+
+# what a stencil's backward must read of its inputs: not the well rates
+# (their gradients are images of the cotangents alone), and of a padded
+# input that the stencil reads at the centre only, its interior
+BACKWARD_UNREAD = {"dg_stencil_residual": ("q",), "dg3d_stencil_residual": ("q",),
+                   "gc_stencil_residual": ("qfg", "qdg", "qfo", "qvo")}
+BACKWARD_CENTRE_ONLY = {"dg_stencil_residual": ("p0p",), "dg3d_stencil_residual": ("p0p",),
+                        "gc_stencil_residual": ()}
+
+
+def backward_bytes(kernel: str, args, outs, grads) -> int:
+    """The bytes that ``kernel``'s backward must move: each input that it
+    reads once (``BACKWARD_UNREAD``, ``BACKWARD_CENTRE_ONLY``), the
+    cotangents of the outputs ``outs`` once, each gradient in ``grads``
+    written once."""
+    from srm_tpu_torch.kernels.stencil import DG3D_ARGS, DG_ARGS, GC_ARGS
+    names = {"dg_stencil_residual": DG_ARGS, "dg3d_stencil_residual": DG3D_ARGS,
+             "gc_stencil_residual": GC_ARGS + ("qwell", "tsteps")}[kernel]
+    cells = outs[0].numel()
+    read = sum((cells if n in BACKWARD_CENTRE_ONLY[kernel] else t.numel()) * t.element_size()
+               for n, t in zip(names, args, strict=True) if n not in BACKWARD_UNREAD[kernel])
+    return read + sum(t.numel() * t.element_size() for t in list(outs) + list(grads))
+
+
+def time_ms(fn, repeats: int = 5, calls: int = 100) -> float:
+    """Median over ``repeats`` of the CUDA-event time per call of ``calls``
+    back-to-back calls (launch overhead included, as the loop pays it)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def backward_calls(kernel: str, args, cfg) -> dict:
+    """Callables computing the kernel's backward on ``args`` for the
+    cotangents of a sum of squares of its outputs, every input's gradient
+    but qwell's: "kernel" (its backward kernel, where it has one), "adjoint"
+    (the kernel's plain version) and "autograd" (autograd through the
+    recomputed plain version, as ``_plain_backward`` does it)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from srm_tpu_torch.kernels import stencil as st
+    with torch.no_grad():
+        cots = [2.0 * o for o in getattr(st, f"{kernel}_reference")(*args, cfg)]
+    qwell = len(args) - 2
+    ctx = SimpleNamespace(saved_tensors=tuple(args), cfg=cfg,
+                          needs_input_grad=tuple(i != qwell for i in range(len(args))) + (False,))
+    calls = {"autograd": lambda: st._plain_backward(getattr(st, f"{kernel}_reference"), ctx,
+                                                    cots)}
+    if hasattr(st, f"{kernel}_backward"):
+        calls["kernel"] = lambda: getattr(st, f"{kernel}_backward")(*args, *cots, cfg)
+        calls["adjoint"] = lambda: getattr(st, f"{kernel}_backward_reference")(*args, *cots, cfg)
+    return calls
+
+
+def profile_calls(fn, n: int):
     """Run ``fn`` n times under the profiler; returns (device kernels per
     call, device µs per call, host-clock ms of the window)."""
     import torch
@@ -97,7 +175,7 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
     def step():
         trainer.train_step(*next(cycle))
 
-    ops_per_step, busy_us, window_ms = _profile(step, steps)
+    ops_per_step, busy_us, window_ms = profile_calls(step, steps)
     with FlopCounterMode(display=False) as flops:
         step()
     torch.cuda.synchronize()
@@ -105,8 +183,18 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
     with torch.no_grad():
         args, _ = loss_fn.stencil_inputs(batches[0][0])
         fused, plain = getattr(st, kernel), getattr(st, f"{kernel}_reference")
-        k_launches, k_us, _ = _profile(lambda: fused(*args, loss_fn.stencil_cfg), 100)
-        p_launches, p_us, _ = _profile(lambda: plain(*args, loss_fn.stencil_cfg), 100)
+        k_launches, k_us, _ = profile_calls(lambda: fused(*args, loss_fn.stencil_cfg), 100)
+        p_launches, p_us, _ = profile_calls(lambda: plain(*args, loss_fn.stencil_cfg), 100)
+    calls = backward_calls(kernel, args, loss_fn.stencil_cfg)
+    grads = [g for g in calls["autograd"]() if g is not None]
+    with torch.no_grad():
+        outs = plain(*args, loss_fn.stencil_cfg)
+    nbytes = backward_bytes(kernel, args, outs, grads)
+    backward = {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    for which, fn in calls.items():
+        launches, us, _ = profile_calls(fn, 100)
+        backward[which] = {"device_us": us, "launches_per_call": launches,
+                           "host_ms": time_ms(fn, repeats=3, calls=20)}
 
     return {
         "case": name, "batch": bs, "features": list(x_all.shape), "steps_per_s": nb / epoch_s,
@@ -116,7 +204,8 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
         "device_busy_share": busy_us / 1e3 / (window_ms / steps),
         "flop_per_step": flops.get_total_flops(), "peak_memory_mib": peak_mib,
         "kernel": {"name": kernel, "device_us": k_us, "launches_per_call": k_launches,
-                   "plain_device_us": p_us, "plain_launches_per_call": p_launches},
+                   "plain_device_us": p_us, "plain_launches_per_call": p_launches,
+                   "backward": backward},
     }
 
 

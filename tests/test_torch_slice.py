@@ -82,8 +82,11 @@ def _field(res, name):
 
 
 def test_slice_selects_the_fused_op_and_the_same_data(cases):
+    """Each package's stencil switch is off on the CPU; the port's DG path
+    then runs the fused residual through its plain version, not the CUDA
+    kernel (on a GPU the switch is on, which chip_smoke.py checks)."""
     jcase, tcase = cases["jcase"], cases["tcase"]
-    assert tcase["loss_fn"].use_cuda_stencil and not jcase["loss_fn"].use_pallas_stencil
+    assert not tcase["loss_fn"].use_cuda_stencil and not jcase["loss_fn"].use_pallas_stencil
     x_j, _ = collapse_groups(jcase["train_groups"])
     x_t, _ = collapse_groups(tcase["train_groups"])
     np.testing.assert_allclose(x_t, x_j, rtol=1e-6, atol=1e-6)
@@ -172,8 +175,7 @@ def test_pressure_gradient_within_reference_rounding(cases):
     than the reference's is, plus 1e-3, and as close to the reference's."""
     grads_t, grads_j = _grads(cases, 1)
     tcase = cases["tcase"]
-    lf64 = copy.copy(tcase["loss_fn"])
-    lf64.use_cuda_stencil = False         # the fused op takes float32 only; same math
+    lf64 = copy.copy(tcase["loss_fn"])     # on the CPU: the fused op's plain version
     lf64.models = {**tcase["models"], **{k: copy.deepcopy(tcase["models"][k]).double()
                                          for k in ("pressure", "time_step", "pvt_model")}}
     x, y = _t(cases["batches"][1])

@@ -4,11 +4,10 @@ fixed batches: the residual fields of both phases, Sg at n0 and n1, the four
 well rates and the BHP, every loss term, per-model gradients (pressure,
 time step, saturation) and three optimizer steps.
 
-The JAX side runs as the reference's own CPU tests run it (its unfused
-``gc_residual_from_fields``); the port runs its fused-stencil op, which on
-the CPU is kernel B3's plain version with the autograd.Function backward.
-The two agree up to the order of the tank-balance sums
-(``test_torch_kernels_gc``).
+Both packages run their unfused ``gc_residual_from_fields`` here: the
+stencil switch (``use_pallas_stencil``, ``use_cuda_stencil``) is off
+anywhere but on its accelerator. The fused op (kernel B3 on a GPU) agrees with
+it up to the order of the tank-balance sums (``test_torch_kernels_gc``).
 
 As in the dry-gas slice (``test_torch_slice``), the truncation errors
 ``tde`` of both phases are float32 rounding noise around a known value, so
@@ -27,9 +26,11 @@ import torch
 
 from srm_tpu.config import DEFAULT_GENERAL_CONFIG, get_optimizer_config
 from srm_tpu.examples.common import setup_case as jax_setup_case
+from srm_tpu.losses import physics_loss as physics_loss_ref
 from srm_tpu.training.optimizers import build_optimizer_from_config
 from srm_tpu_torch.data.batching import collapse_groups
 from srm_tpu_torch.examples.common import setup_case
+from srm_tpu_torch.losses import physics_loss
 from srm_tpu_torch.nn.convert import load_flax_params
 from srm_tpu_torch.training.optimizers import AdamDecay
 from srm_tpu_torch.training.optimizers import build_optimizer_from_config as build_port_optimizer
@@ -75,8 +76,10 @@ def _field(res, name):
 
 
 def test_slice_selects_the_fused_op_and_the_same_data(cases):
+    """Each package's stencil switch is off on the CPU, so both run their
+    unfused residual; on a GPU the port's is on (chip_smoke.py checks it)."""
     jcase, tcase = cases["jcase"], cases["tcase"]
-    assert tcase["loss_fn"].use_cuda_stencil and not jcase["loss_fn"].use_pallas_stencil
+    assert not tcase["loss_fn"].use_cuda_stencil and not jcase["loss_fn"].use_pallas_stencil
     assert tcase["loss_fn"].trainable_models_keys == jcase["loss_fn"].trainable_models_keys \
         == ["pressure", "time_step", "saturation"]
     assert tcase["loss_fn"].loss_keys == jcase["loss_fn"].loss_keys
@@ -161,11 +164,10 @@ def test_per_model_gradients_match(cases, key):
 
 @pytest.fixture(scope="module")
 def grads_64(cases):
-    """The port's gradients in float64 on the second and third batches (the
-    plain stencil; the fused op takes float32 only, same math)."""
+    """The port's gradients in float64 on the second and third batches (its
+    unfused residual, as in float32)."""
     tcase = cases["tcase"]
     lf64 = copy.copy(tcase["loss_fn"])
-    lf64.use_cuda_stencil = False
     lf64.models = {**tcase["models"], **{k: copy.deepcopy(tcase["models"][k]).double()
                                          for k in ("pressure", "time_step", "pvt_model",
                                                    "saturation_model")}}
@@ -199,13 +201,100 @@ def test_time_step_gradient_within_float32_reach(cases, grads_64, b):
     (ROADMAP C2): without the mbc term it is ~100% from float64 in both
     packages on these batches, and with it the two packages sit at
     different distances from float64 (port 0.13 and 0.007, reference 0.007
-    and 0.001 on batches 1 and 2, ROADMAP C4). Both are held to 0.2 of the
-    float64 gradient, which a wrong formula for the time step's part would
-    not meet; the first batch holds them to 1e-3 of each other."""
+    and 0.001 on batches 1 and 2, ROADMAP C4), with both on their unfused
+    residual. Both are held to 0.2 of the float64 gradient, which a wrong
+    formula for the time step's part would not meet; the first batch holds
+    them to 1e-3 of each other. Where the gap comes from:
+    ``test_time_step_gap_is_born_upstream_of_the_residual``."""
     grads_t, grads_j = _grads(cases, b)
     for name, grads in (("port", grads_t), ("reference", grads_j)):
         err = _rel(grads["time_step"], grads_64[b]["time_step"])
         assert err <= 0.2, f"{name}: {err:.2e} from the float64 gradient"
+
+
+def _residual_call(monkeypatch, module, run):
+    """The arguments and outputs of the one call of
+    ``module.gc_residual_from_fields`` that ``run()`` makes."""
+    seen = []
+    orig = module.gc_residual_from_fields
+
+    def probe(*args):
+        out = orig(*args)
+        seen.append((args, out))
+        return out
+
+    monkeypatch.setattr(module, "gc_residual_from_fields", probe)
+    run()
+    monkeypatch.setattr(module, "gc_residual_from_fields", orig)
+    assert len(seen) == 1
+    return seen[0]
+
+
+RESIDUAL_INPUTS = ("p0", "p1", "Sg0", "Sg1", "invBg0", "invBo0", "Rs0", "Rv0", "invBg1", "invBo1",
+                   "invug1", "invuo1", "Rs1", "Rv1", "dinvBg0", "dinvBo0", "dRs0", "dRv0",
+                   "krgo1", "krog1", "qfg", "qdg", "qfo", "qvo", "q_well", "kx_c", "phi_c", "t1")
+# the fields that enter the tank balances, and the balances among the outputs
+BALANCE_INPUTS = ("Sg0", "Sg1", "invBg0", "invBo0", "Rs0", "Rv0", "invBg1", "invBo1", "Rs1", "Rv1",
+                  "qfg", "qdg", "qfo", "qvo")
+RESIDUAL_OUTPUTS = ("dom_g", "dom_o", "ibc", "mbc_g", "mbc_o")      # trn: noise, weight 0
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_time_step_gap_is_born_upstream_of_the_residual(cases, monkeypatch, b):
+    """Where the two packages' float32 time-step gradients part (ROADMAP C4):
+
+    1. not in the residual: the port's ``gc_residual_from_fields``, fed the
+       reference's own float32 fields, gives the reference's outputs (the
+       balances up to the order of their sums);
+    2. in the fields, magnified by the tank balances: the fields that the two
+       packages' networks, PVT and wells give differ by float32 rounding,
+       and each balance's accumulation, a difference of the surface masses
+       at n1 and n0 over Δt1, magnifies that relative difference at least a
+       hundredfold;
+    3. then by the time step's two paths: the loss's direct dependence on
+       Δt1 (the 1/Δt1 of the accumulation) and its dependence through the
+       shifted time channel of x1 cancel, so dL/dΔt1 is under 1/50 of its
+       direct part, and the balances' rounding of (2) decides much of it.
+    """
+    jl, params = cases["jcase"]["loss_fn"], cases["jcase"]["params"]
+    lf = cases["tcase"]["loss_fn"]
+    x, y = _t(cases["batches"][b])
+    ref_in, ref_out = _residual_call(monkeypatch, physics_loss_ref,
+                                     lambda: jl.residuals(params, jnp.asarray(x.numpy())))
+    ref_in = [torch.from_numpy(np.array(a)) if hasattr(a, "shape") else a for a in ref_in]
+    ref_out = [torch.from_numpy(np.array(a)) for a in ref_out]
+
+    for name, g, w in zip(RESIDUAL_OUTPUTS, physics_loss.gc_residual_from_fields(*ref_in), ref_out):
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        assert err <= 1e-5 * scale, f"{name}: {err:.3e} on the reference's own fields"
+
+    caps = {}
+    hook = lf.models["time_step"].register_forward_hook(
+        lambda m, i, out: caps.setdefault("dt0f", out).retain_grad())
+
+    def evaluate():
+        caps["total"], _ = lf.loss_and_metrics(x, y)
+
+    try:
+        port_in, port_out = _residual_call(monkeypatch, physics_loss, evaluate)
+        t1 = port_in[RESIDUAL_INPUTS.index("t1")]
+        t1.retain_grad()
+        caps["total"].backward()
+    finally:
+        hook.remove()
+        for name in MODELS.values():
+            lf.models[name].zero_grad(set_to_none=True)
+
+    def rel(a, b):
+        return float(((a.detach() - b).abs() / b.abs().max()).max())
+
+    field_rel = max(rel(port_in[RESIDUAL_INPUTS.index(n)], ref_in[RESIDUAL_INPUTS.index(n)])
+                    for n in BALANCE_INPUTS)
+    balance_rel = max(float(((port_out[k].detach() - ref_out[k]).abs() / ref_out[k].abs()).max())
+                      for k in (3, 4))
+    assert 0 < field_rel and balance_rel >= 100 * field_rel, (field_rel, balance_rel)
+    dL_dtstep = caps["dt0f"].grad.reshape(x.shape[0], -1).sum(1)
+    assert float(t1.grad.norm()) >= 50 * float(dL_dtstep.norm()), (t1.grad, dL_dtstep)
 
 
 def test_trainer_builds_the_saturation_adamw():
