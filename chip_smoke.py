@@ -16,9 +16,11 @@ the process exits non-zero:
    its main path's shape and at a ragged one, forward and backward; CUDA
    event times of both at the main path's shape, and the kernel's bound
    (the larger of its bytes over the HBM rate and its operations over the
-   float32 peak). B1 is the 2D 5-point DG residual, B2 the 3D 7-point one
-   (fed kz ≠ kx), B3 the 2D two-phase gas-condensate one.
-   Then the backward kernels of B1 and B3, for the cotangents of a sum of
+   float32 peak), and the card's time for one kernel call on a warm L2 and
+   on a cold one (after writing 256 MiB, over 2x the L2). B1 is the 2D
+   5-point DG residual, B2 the 3D 7-point one (fed kz ≠ kx), B3 the 2D
+   two-phase gas-condensate one.
+   Then the backward kernels of B1, B2 and B3, for the cotangents of a sum of
    squares of the outputs, at the same two shapes: against their plain
    version (the explicit adjoint, ``*_backward_reference``) and against
    autograd through the plain forward, within the forward's tolerance
@@ -26,7 +28,8 @@ the process exits non-zero:
    and bitwise the same over three runs; at the main path's shape the device time (profiler) and the
    host-inclusive time (CUDA events) of the backward kernel, the explicit
    adjoint and ``_plain_backward`` (autograd through the recomputed plain
-   version, what the backward was before), and the kernel's bound.
+   version, what the backward was before), warm and cold L2 as above, and
+   the kernel's bound.
 4. main path DG 2D — the dry-gas 2D case at the full 39×39 grid and full
    model widths, trained for two epochs at batch 32 through the port's
    Trainer.
@@ -41,9 +44,8 @@ the process exits non-zero:
    to 0 just before training and read just after. Each checks that every
    loss is finite, that every loss evaluation launched its kernel and the
    other kernels not at all, that every training step's backward launched
-   its backward kernel once (DG 2D, GC 2D) with no autograd recompute of
-   the plain version (DG 3D: one recompute per step, B2 has no backward
-   kernel yet), that every trainable model changed, and that the kernel
+   its backward kernel once with no autograd recompute of the plain
+   version, that every trainable model changed, and that the kernel
    and its plain version agree on the stencil inputs the trained models
    give for one batch.
 
@@ -113,6 +115,9 @@ BACKWARD = {
     "dg_stencil_residual_backward": dict(
         forward="dg_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:568",
         counter="launches_bwd", qwell=8, cancelling=(), ops_per_cell=257),
+    "dg3d_stencil_residual_backward": dict(
+        forward="dg3d_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:313",
+        counter="launches_3d_bwd", qwell=9, cancelling=(), ops_per_cell=291),
     "gc_stencil_residual_backward": dict(
         forward="gc_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:533",
         counter="launches_gc_bwd", qwell=25, cancelling=(0,), ops_per_cell=1016),
@@ -252,7 +257,8 @@ def phase_kernels(name: str) -> dict:
     at the main path's shape."""
     import torch
     from srm_tpu_torch.kernels import stencil as st
-    from srm_tpu_torch.tools.profile_step import FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms
+    from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms,
+                                                  warm_cold_ms)
     spec = KERNELS[name]
     fused, plain = getattr(st, name), getattr(st, f"{name}_reference")
     max_err = 0.0
@@ -285,6 +291,7 @@ def phase_kernels(name: str) -> dict:
         ms2 = time_ms(lambda: fused(*args, cfg))
         plain_ms2 = time_ms(lambda: plain(*args, cfg))
         outs = fused(*args, cfg)
+        events = warm_cold_ms(lambda: fused(*args, cfg))
     # the least time for this call: each input read once, each output
     # written once, at the HBM rate; or its operations at the float32 peak
     nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(outs))
@@ -293,9 +300,11 @@ def phase_kernels(name: str) -> dict:
     bound_by = max(bounds, key=bounds.get)
     log(f"{name} time per call at {spec['shapes'][0]} (plain, kernel, kernel, plain): "
         f"{plain_ms:.4f} {ms:.4f} {ms2:.4f} {plain_ms2:.4f} ms; {nbytes} bytes, {ops} "
-        f"operations: bound {bounds[bound_by]:.6f} ms by {bound_by}")
+        f"operations: bound {bounds[bound_by]:.6f} ms by {bound_by}; one call on the card "
+        f"(warm, cold, cold, warm L2): {events['warm_ms'][0]:.4f} {events['cold_ms'][0]:.4f} "
+        f"{events['cold_ms'][1]:.4f} {events['warm_ms'][1]:.4f} ms")
     return {"max_abs_err": max_err, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
-            "bound_ms": bounds[bound_by], "bound_by": bound_by}
+            "bound_ms": bounds[bound_by], "bound_by": bound_by, **events}
 
 
 def phase_backward(name: str) -> dict:
@@ -305,7 +314,8 @@ def phase_backward(name: str) -> dict:
     import torch
     from srm_tpu_torch.kernels import stencil as st
     from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, backward_bytes,
-                                                  backward_calls, profile_calls, time_ms)
+                                                  backward_calls, profile_calls, time_ms,
+                                                  warm_cold_ms)
     spec = BACKWARD[name]
     fwd = KERNELS[spec["forward"]]
     qwell = spec["qwell"]
@@ -359,6 +369,7 @@ def phase_backward(name: str) -> dict:
     host = {k: time_ms(calls[k], calls=20) for k in ("adjoint", "kernel", "autograd")}
     host2 = {k: time_ms(calls[k], calls=20) for k in ("autograd", "kernel", "adjoint")}
     device = {k: profile_calls(calls[k], 20) for k in ("kernel", "adjoint", "autograd")}
+    events = warm_cold_ms(calls["kernel"])
     # the least time: each input that the backward needs read once (not the
     # well rates; p0p's interior only), each cotangent read once, each
     # gradient (all but qwell's) written once; or its operations at the
@@ -377,14 +388,16 @@ def phase_backward(name: str) -> dict:
         f"{host2['adjoint']:.4f}")
     log(f"{name} device us per call and launches: " + ", ".join(
         f"{k} {device[k][1]:.2f} us / {device[k][0]:.0f}" for k in device)
-        + f"; {nbytes} bytes, {ops} operations: bound {bounds[bound_by]:.6f} ms by {bound_by}")
+        + f"; {nbytes} bytes, {ops} operations: bound {bounds[bound_by]:.6f} ms by {bound_by}; "
+        f"one kernel call on the card (warm, cold, cold, warm L2): {events['warm_ms'][0]:.4f} "
+        f"{events['cold_ms'][0]:.4f} {events['cold_ms'][1]:.4f} {events['warm_ms'][1]:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms["kernel"], "plain_ms": ms["adjoint"],
             "bound_ms": bounds[bound_by], "bound_by": bound_by,
             "device_us": device["kernel"][1], "launches_per_call": device["kernel"][0],
             "plain_device_us": device["adjoint"][1],
             "plain_launches_per_call": device["adjoint"][0],
             "autograd_ms": ms["autograd"], "autograd_device_us": device["autograd"][1],
-            "autograd_launches_per_call": device["autograd"][0]}
+            "autograd_launches_per_call": device["autograd"][0], **events}
 
 
 def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs) -> dict:

@@ -23,18 +23,20 @@ has three pieces, as in the reference:
   through the kernel (or, for tensors on the CPU, the plain version). The
   reference's ``jax.custom_vjp`` differentiates its jnp twin (``:568-571``,
   ``:313-316``, ``:529-540``); so does the backward here for CPU tensors,
-  and for B2 on any device, through the recomputed plain version. For CUDA
-  tensors B1 and B3 have a backward kernel (in the same ``.cu`` files;
-  ``launches_bwd``, ``launches_gc_bwd``), whose plain version is an
+  through the recomputed plain version. For CUDA tensors each has a
+  backward kernel (in the same ``.cu`` files; ``launches_bwd``,
+  ``launches_3d_bwd``, ``launches_gc_bwd``), whose plain version is an
   explicit adjoint derived by hand
   (:func:`dg_stencil_residual_backward_reference`,
+  :func:`dg3d_stencil_residual_backward_reference`,
   :func:`gc_stencil_residual_backward_reference`).
 
 :func:`dg_stencil_residual`, :func:`dg3d_stencil_residual` and
 :func:`gc_stencil_residual` are the public ops, and
-:func:`dg_stencil_residual_backward`, :func:`gc_stencil_residual_backward`
-the backward kernels on their own. A CUDA tensor goes to the kernel, or the
-call raises: there is no fallback to the plain version.
+:func:`dg_stencil_residual_backward`, :func:`dg3d_stencil_residual_backward`
+and :func:`gc_stencil_residual_backward` the backward kernels on their own.
+A CUDA tensor goes to the kernel, or the call raises: there is no fallback
+to the plain version.
 """
 
 from __future__ import annotations
@@ -59,8 +61,9 @@ launches = 0
 launches_3d = 0
 #: launches of the B3 (gas-condensate) kernel; the plain version never counts
 launches_gc = 0
-#: launches of B1's and B3's backward kernels; the plain versions never count
+#: launches of B1's, B2's and B3's backward kernels; the plain versions never count
 launches_bwd = 0
+launches_3d_bwd = 0
 launches_gc_bwd = 0
 
 
@@ -84,6 +87,10 @@ class GCStencilConfig(NamedTuple):
     Swmin: float
     phi: float           # constant porosity
 
+
+DG_ARGS = ("p0p", "p1p", "kxp", "bgugp", "invBg0", "invBg1", "dinvBg0", "q", "qwell", "tsteps")
+DG3D_ARGS = ("p0p", "p1p", "kxp", "kzp", "bgugp", "invBg0", "invBg1", "dinvBg0", "q", "qwell",
+             "tsteps")
 
 #: B3's 25 fields, in the reference's ``_GC_ARGS`` order (``:456-459``):
 #: padded (B, H+2, W+2) where the name ends in "p", centred (B, H, W) else
@@ -370,6 +377,60 @@ def _ratio_adjoint(g_ratio, t1, t2):
     return torch.where(t1 >= 1e-12, g_m, torch.zeros_like(g_m)), g_ratio / m
 
 
+def _cell_adjoint(p0, p_ij, invBg0, invBg1, dinvBg0, g_dom, g_tde, g_mbc, t1, t2, a_acc, cfg):
+    """The cell-local part of the DG adjoint (accumulation, tde, mbc; B1's
+    statements with a_acc in place of a5): (g_pij, g_p0, g_invBg0,
+    g_invBg1, g_dinvBg0, g_cell, g_t1, g_t2)."""
+    D = cfg.D
+    dv = cfg.dx * cfg.dy * cfg.dz
+    phi_cf = cfg.phi * rock_compressibility(cfg.phi)
+    cp1 = cfg.Sgi * (cfg.phi * dinvBg0 + phi_cf * invBg0)
+    ratio = 1.0 + t2 / torch.clamp_min(t1, 1e-12)
+    dp = p_ij - p0
+    p2 = dp * ratio + p0
+    num = t2 * p0 + t1 * p2 - (t1 + t2) * p_ij
+    den = t1 * t2 + t2 * t2
+    X = 2.0 * EPSILON / t1 + num / den
+    dB = invBg1 - invBg0
+    Dt = D * t1
+    K = dv * cfg.Sgi * cfg.phi
+
+    # acc = (dv·a_acc)·dp, a_acc = (1/D)·(cp1/t1)
+    g_dp = g_dom * (dv * a_acc)
+    g_q5 = ((g_dom * dp) * dv) * (1.0 / D)
+    g_cp1 = g_q5 / t1
+    g_t1 = -(g_q5 * cp1) / (t1 * t1)
+    # tde = ((dv/D)·cp1)·X, X = 2ε/t1 + num/den
+    g_X = g_tde * ((dv / D) * cp1)
+    g_cp1 = g_cp1 + (g_tde * X) * (dv / D)
+    g_t1 = g_t1 - (g_X * (2.0 * EPSILON)) / (t1 * t1)
+    g_num = g_X / den
+    g_den = -(g_X * num) / (den * den)
+    g_t1 = g_t1 + g_num * p2 - g_num * p_ij + g_den * t2
+    g_t2 = g_num * p0 - g_num * p_ij + ((g_den * t1 + g_den * t2) + g_den * t2)
+    g_p0 = g_num * t2
+    g_p2 = g_num * t1
+    g_pij = -(g_num * (t1 + t2))
+    # p2 = dp·ratio + p0
+    g_dp = g_dp + g_p2 * ratio
+    g_p0 = g_p0 + g_p2
+    r1, r2 = _ratio_adjoint(g_p2 * dp, t1, t2)
+    g_t1, g_t2 = g_t1 + r1, g_t2 + r2
+    g_pij = g_pij + g_dp
+    g_p0 = g_p0 - g_dp
+    # cp1 = Sgi·(phi·dinvBg0 + phi_cf·invBg0)
+    g_in = g_cp1 * cfg.Sgi
+    g_dinvBg0 = g_in * cfg.phi
+    g_invBg0 = g_in * phi_cf
+    # mbc = −Σ (q + K·dB/(D·t1))
+    g_cell = (-g_mbc).reshape((-1,) + (1,) * (p0.dim() - 1)).expand_as(p0)
+    g_KdB = g_cell / Dt
+    g_invBg1 = g_KdB * K
+    g_invBg0 = g_invBg0 - g_KdB * K
+    g_t1 = g_t1 - ((g_cell * (K * dB)) / (Dt * Dt)) * D
+    return g_pij, g_p0, g_invBg0, g_invBg1, g_dinvBg0, g_cell, g_t1, g_t2
+
+
 def dg_stencil_residual_backward_reference(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q,
                                            qwell, tsteps, g_dom, g_ibc, g_tde, g_mbc,
                                            cfg: StencilConfig):
@@ -390,23 +451,13 @@ def dg_stencil_residual_backward_reference(p0p, p1p, kxp, bgugp, invBg0, invBg1,
     b = neighbors(bgugp)
     bf = average_faces(b)
     p = neighbors(p1p)
-    p0 = p0p[:, 1:-1, 1:-1]
     cp1 = cfg.Sgi * (cfg.phi * dinvBg0 + phi_cf * invBg0)
     # a1..a4 in the face order (ih, i_h, jh, j_h): a3, a1, a4, a2
     a = [C * kx * cfg.krgo * bx * iv for kx, bx, iv in zip(kf, bf, inv_d)]
     total = ((a[1] + a[3]) + a[0]) + a[2]
     a5 = (1.0 / D) * (cp1 / t1)
-    ratio = 1.0 + t2 / torch.clamp_min(t1, 1e-12)
-    dp = p.ij - p0
-    p2 = dp * ratio + p0
-    num = t2 * p0 + t1 * p2 - (t1 + t2) * p.ij
-    den = t1 * t2 + t2 * t2
-    X = 2.0 * EPSILON / t1 + num / den
     divq = dv * ((-a[1] * p.i_1) + (-a[3] * p.j_1) + (total * p.ij) + (-a[0] * p.i1)
                  + (-a[2] * p.j1) + q / dv)
-    dB = invBg1 - invBg0
-    Dt = D * t1
-    K = dv * cfg.Sgi * cfg.phi
 
     # divq = dv·(Σ ... + q/dv), read by dom and ibc
     G = (g_dom + qwell * g_ibc) * dv
@@ -417,49 +468,95 @@ def dg_stencil_residual_backward_reference(p0p, p1p, kxp, bgugp, invBg0, invBg1,
     g_kf = [((wf * bx) * cfg.krgo) * C for wf, bx in zip(w, bf)]
     g_bf = [wf * ((C * kx) * cfg.krgo) for wf, kx in zip(w, kf)]
 
-    # acc = (dv·a5)·dp, a5 = (1/D)·(cp1/t1)
-    g_dp = g_dom * (dv * a5)
-    g_q5 = ((g_dom * dp) * dv) * (1.0 / D)
-    g_cp1 = g_q5 / t1
-    g_t1 = -(g_q5 * cp1) / (t1 * t1)
-
-    # tde = ((dv/D)·cp1)·X, X = 2ε/t1 + num/den
-    g_X = g_tde * ((dv / D) * cp1)
-    g_cp1 = g_cp1 + (g_tde * X) * (dv / D)
-    g_t1 = g_t1 - (g_X * (2.0 * EPSILON)) / (t1 * t1)
-    g_num = g_X / den
-    g_den = -(g_X * num) / (den * den)
-    g_t1 = g_t1 + g_num * p2 - g_num * p.ij + g_den * t2
-    g_t2 = g_num * p0 - g_num * p.ij + ((g_den * t1 + g_den * t2) + g_den * t2)
-    g_p0 = g_num * t2
-    g_p2 = g_num * t1
-    g_pij = -(g_num * (t1 + t2))
-    # p2 = dp·ratio + p0
-    g_dp = g_dp + g_p2 * ratio
-    g_p0 = g_p0 + g_p2
-    r1, r2 = _ratio_adjoint(g_p2 * dp, t1, t2)
-    g_t1, g_t2 = g_t1 + r1, g_t2 + r2
-    g_pij = g_pij + g_dp
-    g_p0 = g_p0 - g_dp
-
-    # cp1 = Sgi·(phi·dinvBg0 + phi_cf·invBg0)
-    g_in = g_cp1 * cfg.Sgi
-    g_dinvBg0 = g_in * cfg.phi
-    g_invBg0 = g_in * phi_cf
-
-    # mbc = −Σ (q + K·dB/(D·t1))
-    g_cell = (-g_mbc).reshape(-1, 1, 1).expand_as(q)
+    (g_pij, g_p0, g_invBg0, g_invBg1, g_dinvBg0, g_cell, g_t1, g_t2) = _cell_adjoint(
+        p0p[:, 1:-1, 1:-1], p.ij, invBg0, invBg1, dinvBg0, g_dom, g_tde, g_mbc, t1, t2, a5, cfg)
     g_q = G / dv + g_cell
-    g_KdB = g_cell / Dt
-    g_invBg1 = g_KdB * K
-    g_invBg0 = g_invBg0 - g_KdB * K
-    g_t1 = g_t1 - ((g_cell * (K * dB)) / (Dt * Dt)) * D
 
     c_p = Neighbors(c_p[0] + g_pij, *c_p[1:])
     return (_centre(g_p0), _gather5(c_p), _gather5(_harmonic_adjoint(k, g_kf)),
             _gather5(_average_adjoint(g_bf)), g_invBg0, g_invBg1, g_dinvBg0, g_q,
             (g_ibc * divq).sum(dim=0),
             torch.stack([g_t1.sum(dim=(1, 2)), g_t2.sum(dim=(1, 2))], dim=1))
+
+
+def dg3d_stencil_residual_backward_reference(p0p, p1p, kxp, kzp, bgugp, invBg0, invBg1,
+                                             dinvBg0, q, qwell, tsteps, g_dom, g_ibc, g_tde,
+                                             g_mbc, cfg: StencilConfig):
+    """The gradients of :func:`dg3d_stencil_residual_reference`'s inputs
+    (DG3D_ARGS) for the output cotangents (g_dom, g_ibc, g_tde, g_mbc),
+    derived by hand: the plain version of B2's backward kernel.
+
+    The divergence's part is written face by face (the pull form the kernel
+    computes): a face between padded positions m and m+1 along one axis
+    has the transmissibility a = C·kf·krgo·bf/d², kf = 2·k₊·k₋/(k₊+k₋) and
+    bf = 0.5·(b₊+b₋) (₊ the position m+1, ₋ the position m), which both
+    cells beside it compute alike; with G = (g_dom + qwell·g_ibc)·dv at the
+    cells and 0 on the halo, its cotangent is (p₊ − p₋)·(G₊ − G₋), and it
+    gives p1p a·(G₊ − G₋) at ₊ and the negation at ₋. A face counts only
+    where a cell lies on one side of it. Each padded position sums its faces
+    in the order i−1, i+1, j−1, j+1, k−1, k+1 (p1p then adds its cell's
+    own terms), so the edge and corner halo lines, which no face with a
+    cell reaches, get exact zeros."""
+    C = cfg.C
+    dv = cfg.dx * cfg.dy * cfg.dz
+    t1 = tsteps[:, 0].reshape(-1, 1, 1, 1)
+    t2 = tsteps[:, 1].reshape(-1, 1, 1, 1)
+    centre = (slice(None), slice(1, -1), slice(1, -1), slice(1, -1))
+
+    kfaces = harmonic_faces_3d(neighbors_3d(kxp), neighbors_3d(kzp))
+    bfaces = average_faces_3d(neighbors_3d(bgugp))
+    inv = (1.0 / (cfg.dx * cfg.dx), 1.0 / (cfg.dy * cfg.dy), 1.0 / (cfg.dz * cfg.dz))
+    # a1..a6 as the forward has them (faces i-1/2, j-1/2, i+1/2, j+1/2, k-1/2, k+1/2)
+    a1, a2, a3, a4, a5, a6 = (C * kf * cfg.krgo * bf * iv for kf, bf, iv in zip(
+        (kfaces[1], kfaces[3], kfaces[0], kfaces[2], kfaces[5], kfaces[4]),
+        (bfaces[1], bfaces[3], bfaces[0], bfaces[2], bfaces[5], bfaces[4]),
+        (inv[0], inv[1], inv[0], inv[1], inv[2], inv[2])))
+    p = neighbors_3d(p1p)
+    divq = dv * ((-a1 * p.i_1) + (-a2 * p.j_1) + (-a5 * p.k_1)
+                 + ((a1 + a2 + a3 + a4 + a5 + a6) * p.ij)
+                 + (-a3 * p.i1) + (-a4 * p.j1) + (-a6 * p.k1) + q / dv)
+    cp1 = cfg.Sgi * (cfg.phi * dinvBg0 + cfg.phi * rock_compressibility(cfg.phi) * invBg0)
+    a_acc = (1.0 / cfg.D) * (cp1 / t1)
+    (g_pij, g_p0, g_invBg0, g_invBg1, g_dinvBg0, g_cell, g_t1, g_t2) = _cell_adjoint(
+        p0p[centre], p.ij, invBg0, invBg1, dinvBg0, g_dom, g_tde, g_mbc, t1, t2, a_acc, cfg)
+
+    G = torch.zeros_like(p1p)
+    G[centre] = (g_dom + qwell * g_ibc) * dv
+    cell = torch.zeros_like(p1p, dtype=torch.bool)
+    cell[centre] = True
+    g_p1p, g_kxp, g_kzp, g_bgugp = (torch.zeros_like(p1p) for _ in range(4))
+    for axis, kp, g_k, iv in ((3, kxp, g_kxp, inv[0]), (2, kxp, g_kxp, inv[1]),
+                              (1, kzp, g_kzp, inv[2])):
+        n = p1p.shape[axis]
+        lo, hi = (lambda t: t.narrow(axis, 0, n - 1)), (lambda t: t.narrow(axis, 1, n - 1))
+        k_p, k_m, b_p, b_m = hi(kp), lo(kp), hi(bgugp), lo(bgugp)
+        valid = hi(cell) | lo(cell)
+        kf = 2.0 * k_p * k_m / (k_p + k_m)
+        bf = 0.5 * (b_p + b_m)
+        a = C * kf * cfg.krgo * bf * iv
+        dG = hi(G) - lo(G)
+        w = ((hi(p1p) - lo(p1p)) * dG) * iv
+        g_kf = ((w * bf) * cfg.krgo) * C
+        g_bf = w * ((C * kf) * cfg.krgo)
+        s = k_p + k_m
+        r_p, r_m = k_m / s, k_p / s
+        zero = torch.zeros_like(a)
+
+        def put(g, plus, minus):
+            # the face below each position (it is the face's + side), then the one above
+            hi(g).add_(torch.where(valid, plus, zero))
+            lo(g).add_(torch.where(valid, minus, zero))
+
+        ad = a * dG
+        put(g_p1p, ad, -ad)
+        put(g_k, g_kf * (2.0 * r_p * r_p), g_kf * (2.0 * r_m * r_m))
+        put(g_bgugp, 0.5 * g_bf, 0.5 * g_bf)
+    g_p1p[centre] += g_pij
+    g_p0p = torch.zeros_like(p0p)
+    g_p0p[centre] = g_p0
+    return (g_p0p, g_p1p, g_kxp, g_kzp, g_bgugp, g_invBg0, g_invBg1, g_dinvBg0,
+            G[centre] / dv + g_cell, (g_ibc * divq).sum(dim=0),
+            torch.stack([g_t1.sum(dim=(1, 2, 3)), g_t2.sum(dim=(1, 2, 3))], dim=1))
 
 
 def gc_stencil_residual_backward_reference(p0, p1p, kxp, Sg0, Sg1, krgo1p, krog1p,
@@ -767,6 +864,13 @@ class _BwdArgs(ctypes.Structure):
         "grad_dinvBg0", "grad_q")]
 
 
+class _BwdArgs3D(ctypes.Structure):
+    """``DG3DStencilBwdArgs`` of csrc/dg3d_stencil.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in DG3D_ARGS + (
+        "g_dom", "g_ibc", "g_tde", "g_mbc") + tuple(f"grad_{n}" for n in DG3D_ARGS if n != "qwell")
+        + ("partial", "tickets")]
+
+
 class _BwdArgsGC(ctypes.Structure):
     """``GCStencilBwdArgs`` of csrc/gc_stencil.cu: the inputs (in a
     ``GCStencilArgs`` whose outputs stay null), the output cotangents, the
@@ -812,12 +916,28 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _library_3d() -> ctypes.CDLL:
     lib = load_library("dg3d_stencil.cu")
-    lib.dg3d_stencil_num_blocks.argtypes = [ctypes.c_int] * 3
+    lib.dg3d_stencil_num_blocks.argtypes = [ctypes.c_int] * 5
     lib.dg3d_stencil_num_blocks.restype = ctypes.c_int
-    lib.dg3d_stencil_forward.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
+    lib.dg3d_stencil_forward.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
                                          + [_Scalars3D, ctypes.c_void_p])
     lib.dg3d_stencil_forward.restype = ctypes.c_int
+    lib.dg3d_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgs3D)] + [ctypes.c_int] * 4
+                                          + [_Scalars3D, ctypes.c_void_p])
+    lib.dg3d_stencil_backward.restype = ctypes.c_int
     return lib
+
+
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, B: int) -> torch.Tensor:
+    """B2's per-sample tickets on ``device``: zero between launches (each
+    launch's last block of a sample resets its own), so one buffer per
+    device serves every launch of both kernels in stream order."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < B:
+        t = _TICKETS[device] = torch.zeros(max(B, 64), dtype=torch.int32, device=device)
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -856,36 +976,36 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(fn, q, n_blocks, ins, dims, scalars):
-    """The outputs (dom, ibc, tde, mbc) and the (B, n_blocks) mbc scratch in
-    one allocation, then the C launcher."""
-    B = q.shape[0]
-    dom, ibc, tde, mbc, partial = _alloc(q, (q.shape,) * 3 + ((B,), (B, n_blocks)))
-    _call(fn, q.device, *(t.data_ptr() for t in tuple(ins) + (dom, ibc, tde, partial, mbc)),
-          *dims, scalars)
-    return dom, ibc, tde, mbc
-
-
 def _cuda_forward(*args):
     global launches
     *ins, cfg = args
     lib = _library()
-    B, H, W = ins[7].shape
-    out = _launch(lib.dg_stencil_forward, ins[7], lib.dg_stencil_num_blocks(H, W), ins,
-                  (B, H, W), _pack(_Scalars, cfg))
+    q = ins[7]
+    B, H, W = q.shape
+    # the outputs (dom, ibc, tde, mbc) and the (B, n_blocks) mbc scratch in one allocation
+    n_blocks = lib.dg_stencil_num_blocks(H, W)
+    dom, ibc, tde, mbc, partial = _alloc(q, (q.shape,) * 3 + ((B,), (B, n_blocks)))
+    _call(lib.dg_stencil_forward, q.device,
+          *(t.data_ptr() for t in tuple(ins) + (dom, ibc, tde, partial, mbc)), B, H, W,
+          _pack(_Scalars, cfg))
     launches += 1
-    return out
+    return dom, ibc, tde, mbc
 
 
 def _cuda_forward_3d(*args):
     global launches_3d
     *ins, cfg = args
     lib = _library_3d()
-    B, D, H, W = ins[8].shape
-    out = _launch(lib.dg3d_stencil_forward, ins[8], lib.dg3d_stencil_num_blocks(D, H, W), ins,
-                  (B, D, H, W), _pack(_Scalars3D, cfg))
+    q = ins[8]
+    B, D, H, W = q.shape
+    n_blocks = lib.dg3d_stencil_num_blocks(1, B, D, H, W)
+    dom, ibc, tde, mbc, partial = _alloc(q, (q.shape,) * 3 + ((B,), (B, n_blocks)))
+    _call(lib.dg3d_stencil_forward, q.device,
+          *(t.data_ptr() for t in tuple(ins) + (dom, ibc, tde, partial, mbc,
+                                                _tickets(q.device, B))),
+          B, D, H, W, _pack(_Scalars3D, cfg))
     launches_3d += 1
-    return out
+    return dom, ibc, tde, mbc
 
 
 def _cuda_forward_gc(*args):
@@ -957,6 +1077,32 @@ def _cuda_backward(saved, grads, cfg, need):
     return tuple(out.get(i) for i in range(9)) + (g_t,)
 
 
+def _cuda_backward_3d(saved, grads, cfg, need):
+    """B2's backward kernel, one launch: the gradients of the inputs in
+    ``need`` (a flag per input), None for the others."""
+    global launches_3d_bwd
+    _refuse_qwell(need, 9)
+    lib = _library_3d()
+    q = saved[8]
+    B, D, H, W = q.shape
+    n_blocks = lib.dg3d_stencil_num_blocks(0, B, D, H, W)
+    padded, centred = (B, D + 2, H + 2, W + 2), (B, D, H, W)
+    # one allocation per gradient, so that autograd frees each once it is
+    # consumed (one allocation for all would keep all alive as long as any)
+    out = {i: torch.empty(padded if i < 5 else centred if i < 9 else (B, 2),
+                          dtype=torch.float32, device=q.device)
+           for i in range(len(DG3D_ARGS)) if need[i]}
+    partial = torch.empty((B, n_blocks, 2), dtype=torch.float32, device=q.device)
+    cots = [g.contiguous() for g in grads]
+    args = _BwdArgs3D(*(t.data_ptr() for t in tuple(saved) + tuple(cots)),
+                      *(_ptr(out.get(i)) for i in range(len(DG3D_ARGS)) if i != 9),
+                      partial.data_ptr(), _tickets(q.device, B).data_ptr())
+    _call(lib.dg3d_stencil_backward, q.device, ctypes.byref(args), B, D, H, W,
+          _pack(_Scalars3D, cfg))
+    launches_3d_bwd += 1
+    return tuple(out.get(i) for i in range(len(DG3D_ARGS)))
+
+
 def _cuda_backward_gc(saved, grads, cfg, need):
     """B3's backward kernel: the gradients of the inputs in ``need`` (a
     flag per input), None for the others."""
@@ -1025,7 +1171,8 @@ class DGStencilResidualFn(torch.autograd.Function):
 
 class DG3DStencilResidualFn(torch.autograd.Function):
     """B2. Forward: the kernel (the plain version for CPU tensors).
-    Backward: autograd through the recomputed plain version."""
+    Backward: the backward kernel (autograd through the recomputed plain
+    version for CPU tensors)."""
 
     @staticmethod
     def forward(ctx, *args):
@@ -1038,6 +1185,9 @@ class DG3DStencilResidualFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        if saved[0].is_cuda:
+            return _cuda_backward_3d(saved, grads, ctx.cfg, ctx.needs_input_grad) + (None,)
         return _plain_backward(dg3d_stencil_residual_reference, ctx, grads)
 
 
@@ -1092,11 +1242,6 @@ def _check(names, tensors, shapes):
             raise ValueError(f"{name} must be contiguous")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, {names[0]} on {device}")
-
-
-DG_ARGS = ("p0p", "p1p", "kxp", "bgugp", "invBg0", "invBg1", "dinvBg0", "q", "qwell", "tsteps")
-DG3D_ARGS = ("p0p", "p1p", "kxp", "kzp", "bgugp", "invBg0", "invBg1", "dinvBg0", "q", "qwell",
-             "tsteps")
 
 
 def dg_stencil_residual(p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps,
@@ -1184,6 +1329,19 @@ def dg_stencil_residual_backward(*args):
     if not tensors[0].is_cuda:
         return dg_stencil_residual_backward_reference(*args)
     return _cuda_backward(tensors[:10], tensors[10:], cfg, (True,) * 8 + (False, True))
+
+
+def dg3d_stencil_residual_backward(*args):
+    """B2's backward on its own: the gradients of the eleven inputs of
+    :func:`dg3d_stencil_residual` for the cotangents (g_dom, g_ibc, g_tde,
+    g_mbc), from ``(*inputs, *cotangents, cfg)``. On CUDA tensors the
+    backward kernel computes every gradient but qwell's (None); on CPU
+    tensors its plain version,
+    :func:`dg3d_stencil_residual_backward_reference`, computes all eleven."""
+    *tensors, cfg = args
+    if not tensors[0].is_cuda:
+        return dg3d_stencil_residual_backward_reference(*args)
+    return _cuda_backward_3d(tensors[:11], tensors[11:], cfg, (True,) * 9 + (False, True))
 
 
 def gc_stencil_residual_backward(*args):

@@ -22,14 +22,13 @@ for gas condensate). In 3D the vertical permeability is
 ``use_cuda_stencil`` mirrors the reference's ``use_pallas_stencil``
 (``:269-275``): it is on where the models live on a GPU and off on the CPU,
 as the reference's is on a TPU only. On, the residual goes through the
-fused op, which launches the CUDA kernel. Off, gas condensate
-runs :func:`gc_residual_from_fields`, the port of the reference's unfused
-residual (``:128-249``), which sums the well rates and the accumulation of
-each tank balance apart; dry gas runs the fused op's plain version, which
-agrees with the reference's unfused DG path (its parity tests pass; the
-port of ``dg_residual_from_fields`` is ROADMAP A2). Per-cell porosity, which
-the reference computes on its unfused path, raises ``NotImplementedError``
-until that path is ported.
+fused op, which launches the CUDA kernel. Off, each fluid runs the port
+of the reference's unfused residual, which sums the well rates and the
+accumulation of each tank balance apart: :func:`dg_residual_from_fields`
+(``:73-125``) for dry gas in 2D, :func:`dg3d_residual_from_fields` (the
+inline branch ``:655-685``) in 3D and :func:`gc_residual_from_fields`
+(``:128-249``) for gas condensate. These take a porosity field, but
+per-cell porosity still raises ``NotImplementedError`` (ROADMAP A2).
 
 Feature layout: ``x`` is the woven normalized tensor, ``(B, 1, H, W, 5)``
 in 2D and ``(B, 1, D, H, W, 5)`` in 3D, with channels
@@ -53,18 +52,90 @@ from srm_tpu_torch.config import (
 )
 from srm_tpu_torch.kernels.stencil import (EPSILON, GC_ARGS, GC_PADDED, GCStencilConfig,
                                            StencilConfig, dg3d_stencil_residual,
-                                           dg3d_stencil_residual_reference,
-                                           dg_stencil_residual, dg_stencil_residual_reference,
-                                           gc_stencil_residual)
-from srm_tpu_torch.ops.stencil import (average_faces, five_point_divergence, harmonic_faces,
-                                       neighbors, pad_symmetric, pad_symmetric_3d,
-                                       upstream_faces)
+                                           dg_stencil_residual, gc_stencil_residual)
+from srm_tpu_torch.ops.stencil import (average_faces, average_faces_3d, five_point_divergence,
+                                       harmonic_faces, harmonic_faces_3d, neighbors,
+                                       neighbors_3d, pad_symmetric, pad_symmetric_3d,
+                                       seven_point_divergence, upstream_faces)
 from srm_tpu_torch.physics.relperm import RelativePermeability, clip
 from srm_tpu_torch.physics.wells import scatter_to_grid
 from srm_tpu_torch.utils.stats import denormalize, normalize_diff
 
 # loss-term order (the reference's LOSS_TERMS)
 LOSS_TERMS = ("dom", "dbc", "nbc", "ibc", "ic", "mbc", "cmbc", "tde", "td")
+
+
+def dg_residual_from_fields(p0, p1, invBg0, invBg1, bgug1, dinvBg0, q1c, q_well, kx_c, phi_c,
+                            t1, t2, krgo, C: float, D: float, dx: float, dy: float, dz: float,
+                            Sgi: float):
+    """Dry-gas 5-point residual from centred (B, H, W) fields, the
+    reference's unfused ``dg_residual_from_fields`` (``:73-125``) with its
+    operation order: (dom, ibc, mbc, tde). ``bgug1`` is invBg1·invug1 (the
+    reference forms that product inside), ``phi_c`` a porosity field, ``t1``
+    and ``t2`` are (B, 1, 1) and ``krgo`` the relperm at Sgi. Unlike the
+    fused op, the tank balance sums the well rates and the accumulation
+    apart."""
+    dv = dx * dy * dz
+    kx_ih, kx_i_h, ky_jh, ky_j_h = harmonic_faces(neighbors(pad_symmetric(kx_c)))
+    cf = 97.32e-6 / (1.0 + 55.8721 * phi_c**1.428586)
+    pn = neighbors(pad_symmetric(p1))
+    b_ih, b_i_h, b_jh, b_j_h = average_faces(neighbors(pad_symmetric(bgug1)))
+    cr0 = phi_c * cf * invBg0
+    cp1 = Sgi * (phi_c * dinvBg0 + cr0)
+    inv_dxx = 1.0 / (dx * dx)
+    inv_dyy = 1.0 / (dy * dy)
+    a1 = C * kx_i_h * krgo * b_i_h * inv_dxx
+    a2 = C * ky_j_h * krgo * b_j_h * inv_dyy
+    a3 = C * kx_ih * krgo * b_ih * inv_dxx
+    a4 = C * ky_jh * krgo * b_jh * inv_dyy
+    a5 = (1.0 / D) * (cp1 / t1)
+    p2 = (p1 - p0) * (1.0 + t2 / torch.clamp_min(t1, 1e-12)) + p0
+    tde = (dv / D) * cp1 * (2.0 * EPSILON / t1
+                            + (t2 * p0 + t1 * p2 - (t1 + t2) * p1) / (t1 * t2 + t2**2))
+    divq = five_point_divergence(a3, a1, a4, a2, pn, q1c / dv, dv)
+    dom = divq + dv * a5 * (p1 - p0)
+    ibc = q_well * divq
+    mbc = (-q1c.sum(dim=(1, 2))
+           - (dv * Sgi * phi_c * (invBg1 - invBg0) / (D * t1)).sum(dim=(1, 2)))
+    return dom, ibc, mbc, tde
+
+
+def dg3d_residual_from_fields(p0, p1, invBg0, invBg1, bgug1, dinvBg0, q1c, q_well, kx_c, kz_c,
+                              phi_c, t1, t2, krgo, C: float, D: float, dx: float, dy: float,
+                              dz: float, Sgi: float):
+    """Dry-gas 7-point residual from centred (B, D, H, W) fields, the
+    reference's unfused 3D branch (``_residuals_dg_3d``, ``:655-685``) with
+    its operation order: (dom, ibc, mbc, tde). As
+    :func:`dg_residual_from_fields`, with ``kz_c`` the vertical permeability
+    (vertical_anisotropy·kx) and ``t1``, ``t2`` (B, 1, 1, 1)."""
+    dv = dx * dy * dz
+    kx_ih, kx_i_h, ky_jh, ky_j_h, kz_kh, kz_k_h = harmonic_faces_3d(
+        neighbors_3d(pad_symmetric_3d(kx_c)), neighbors_3d(pad_symmetric_3d(kz_c)))
+    cf = 97.32e-6 / (1.0 + 55.8721 * phi_c**1.428586)
+    pn = neighbors_3d(pad_symmetric_3d(p1))
+    b_ih, b_i_h, b_jh, b_j_h, b_kh, b_k_h = average_faces_3d(
+        neighbors_3d(pad_symmetric_3d(bgug1)))
+    cr0 = phi_c * cf * invBg0
+    cp1 = Sgi * (phi_c * dinvBg0 + cr0)
+    inv_dxx = 1.0 / (dx * dx)
+    inv_dyy = 1.0 / (dy * dy)
+    inv_dzz = 1.0 / (dz * dz)
+    a1 = C * kx_i_h * krgo * b_i_h * inv_dxx
+    a2 = C * ky_j_h * krgo * b_j_h * inv_dyy
+    a3 = C * kx_ih * krgo * b_ih * inv_dxx
+    a4 = C * ky_jh * krgo * b_jh * inv_dyy
+    a5 = C * kz_k_h * krgo * b_k_h * inv_dzz
+    a6 = C * kz_kh * krgo * b_kh * inv_dzz
+    a_acc = (1.0 / D) * (cp1 / t1)
+    p2 = (p1 - p0) * (1.0 + t2 / torch.clamp_min(t1, 1e-12)) + p0
+    tde = (dv / D) * cp1 * (2.0 * EPSILON / t1
+                            + (t2 * p0 + t1 * p2 - (t1 + t2) * p1) / (t1 * t2 + t2**2))
+    divq = seven_point_divergence(a3, a1, a4, a2, a6, a5, pn, q1c / dv, dv)
+    dom = divq + dv * a_acc * (p1 - p0)
+    ibc = q_well * divq
+    axes = tuple(range(1, q1c.dim()))
+    mbc = -q1c.sum(dim=axes) - (dv * Sgi * phi_c * (invBg1 - invBg0) / (D * t1)).sum(dim=axes)
+    return dom, ibc, mbc, tde
 
 
 def gc_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1, invug1,
@@ -342,6 +413,23 @@ class PhysicsLoss:
             qwell, f["kxp"], torch.full_like(f["p0"], cfg.phi), tsteps[:, 0].reshape(-1, 1, 1),
             tsteps[:, 1].reshape(-1, 1, 1), cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz, cfg.Swmin)
 
+    def _dg_unfused(self, *args):
+        """:func:`dg_residual_from_fields` (2D) or
+        :func:`dg3d_residual_from_fields` (3D) on the fused op's arguments,
+        whose padded fields they take back to their centres (they pad them
+        themselves), with the reference's krgo from the relperm at Sgi."""
+        cfg = self.stencil_cfg
+        *padded, invBg0, invBg1, dinvBg0, q, qwell, tsteps = args
+        inner = (slice(None),) + (slice(1, -1),) * (q.dim() - 1)
+        p0, p1, kx, *kz, bgug1 = (f[inner] for f in padded)
+        shape = (-1,) + (1,) * (q.dim() - 1)
+        krgo = self.relperm(torch.tensor(self.Sgi, dtype=torch.float32, device=q.device))[1]
+        fn = dg3d_residual_from_fields if kz else dg_residual_from_fields
+        return fn(p0, p1, invBg0, invBg1, bgug1, dinvBg0, q, qwell, kx, *kz,
+                  torch.full_like(p0, cfg.phi), tsteps[:, 0].reshape(shape),
+                  tsteps[:, 1].reshape(shape), krgo, cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz,
+                  cfg.Sgi)
+
     def residuals(self, x: torch.Tensor) -> Dict[str, Any]:
         """Residual fields per phase (srm_tpu/losses/physics_loss.py:473-480,
         :493-574, :576-653, :694-793). In 3D, dom, ibc and tde take the
@@ -364,11 +452,11 @@ class PhysicsLoss:
                         "mbc": mbc_o, "cmbc": zeros, "tde": trn_o},
                 "outputs": outputs,
             }
-        if self.Nz > 1:
-            fn = dg3d_stencil_residual if self.use_cuda_stencil else dg3d_stencil_residual_reference
+        if self.use_cuda_stencil:
+            fn = dg3d_stencil_residual if self.Nz > 1 else dg_stencil_residual
+            dom, ibc, tde, mbc = fn(*args, self.stencil_cfg)
         else:
-            fn = dg_stencil_residual if self.use_cuda_stencil else dg_stencil_residual_reference
-        dom, ibc, tde, mbc = fn(*args, self.stencil_cfg)
+            dom, ibc, mbc, tde = self._dg_unfused(*args)
         if self.Nz > 1:
             shape = tuple(outputs["p_n0"].shape[:-1])
             dom, ibc, tde = (f.reshape(shape) for f in (dom, ibc, tde))

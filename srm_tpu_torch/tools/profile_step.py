@@ -18,11 +18,18 @@ measures on the card:
   one main-path batch: device time per call from the profiler over 100
   calls each, and the device launches each call makes; the same for its
   backward, for the cotangents of a sum of squares of its outputs: the
-  backward kernel (B1, B3), its plain version (the explicit adjoint) and
-  autograd through the recomputed plain version (``_plain_backward``,
-  still B2's backward), with each one's host-inclusive time per call
-  (CUDA events around back-to-back calls) and the backward's bound (the
-  bytes it must move at the HBM rate, ``backward_bytes``).
+  backward kernel, its plain version (the explicit adjoint) and autograd
+  through the recomputed plain version (``_plain_backward``, what runs on
+  the CPU), with each one's host-inclusive time per call (CUDA events
+  around back-to-back calls) and the backward's bound (the bytes it must
+  move at the HBM rate, ``backward_bytes``); and the kernel's and its
+  backward kernel's time on a warm and on a cold L2 (``event_ms``).
+
+Run against another checkout's package (the parent commit, unpacked into a
+directory that ``.gitignore`` lists), it measures that checkout's step and
+kernels with this file's code, for an A/B in one call::
+
+    PYTHONPATH=build/parent python srm_tpu_torch/tools/profile_step.py --case dg3d
 
 Prints one JSON object per case and writes it to ``DIR/profile_<case>.json``
 (default ``build/profile/``, listed in ``.gitignore``). It needs a CUDA device
@@ -100,6 +107,37 @@ def time_ms(fn, repeats: int = 5, calls: int = 100) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def event_ms(fn, cold: bool, reps: int = 20) -> float:
+    """Median CUDA-event time of one call of ``fn``, on a warm L2 (right
+    after the previous call) or, with ``cold``, right after writing a
+    256 MiB buffer (over 2x the H100's 50 MB L2). Before each call a spin
+    kernel holds the card for ~1 ms, so the host has enqueued the call by
+    the time the card reaches it: the events, recorded after the flush and
+    the spin, time the card's work and not the host's."""
+    import torch
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        if cold:
+            flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def warm_cold_ms(fn) -> dict:
+    """``event_ms`` warm and cold, alternated: warm, cold, cold, warm."""
+    w1, c1, c2, w2 = (event_ms(fn, cold) for cold in (False, True, True, False))
+    return {"warm_ms": [w1, w2], "cold_ms": [c1, c2]}
 
 
 def backward_calls(kernel: str, args, cfg) -> dict:
@@ -185,6 +223,7 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
         fused, plain = getattr(st, kernel), getattr(st, f"{kernel}_reference")
         k_launches, k_us, _ = profile_calls(lambda: fused(*args, loss_fn.stencil_cfg), 100)
         p_launches, p_us, _ = profile_calls(lambda: plain(*args, loss_fn.stencil_cfg), 100)
+        k_events = warm_cold_ms(lambda: fused(*args, loss_fn.stencil_cfg))
     calls = backward_calls(kernel, args, loss_fn.stencil_cfg)
     grads = [g for g in calls["autograd"]() if g is not None]
     with torch.no_grad():
@@ -195,6 +234,8 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
         launches, us, _ = profile_calls(fn, 100)
         backward[which] = {"device_us": us, "launches_per_call": launches,
                            "host_ms": time_ms(fn, repeats=3, calls=20)}
+    if "kernel" in calls:
+        backward["kernel"].update(warm_cold_ms(calls["kernel"]))
 
     return {
         "case": name, "batch": bs, "features": list(x_all.shape), "steps_per_s": nb / epoch_s,
@@ -204,7 +245,7 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
         "device_busy_share": busy_us / 1e3 / (window_ms / steps),
         "flop_per_step": flops.get_total_flops(), "peak_memory_mib": peak_mib,
         "kernel": {"name": kernel, "device_us": k_us, "launches_per_call": k_launches,
-                   "plain_device_us": p_us, "plain_launches_per_call": p_launches,
+                   **k_events, "plain_device_us": p_us, "plain_launches_per_call": p_launches,
                    "backward": backward},
     }
 

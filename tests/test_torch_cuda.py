@@ -284,9 +284,18 @@ def _cotangents(outs, seed=1):
             * o.abs().max() for o in outs]
 
 
+def _as_3d(shape):
+    """The 3D case of a 2D test shape: the main path's depth of 10 for
+    (32, 39, 39), else a few layers (one for a single row)."""
+    B, H, W = shape
+    return (B, 10 if shape == (32, 39, 39) else 1 if H == 1 else 3, H, W)
+
+
 BACKWARD = {
     "dg": (lambda shape, dev: _inputs(*shape, dev), "dg_stencil_residual", 8, "launches_bwd"),
     "gc": (lambda shape, dev: _gc_on(dev, *shape), "gc_stencil_residual", 25, "launches_gc_bwd"),
+    "dg3d": (lambda shape, dev: _inputs_3d(*_as_3d(shape), dev), "dg3d_stencil_residual", 9,
+             "launches_3d_bwd"),
 }
 
 
@@ -350,3 +359,41 @@ def test_backward_kernel_refuses_qwell(cuda, kind):
     with pytest.raises(NotImplementedError):
         sum((o**2).sum() for o in outs).backward()
     assert getattr(st, counter) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrt", [0, 1, 2, 3, 4, 5, 6, 7, 8, 10],
+                         ids=[n for n in st.DG3D_ARGS if n != "qwell"])
+def test_dg3d_backward_kernel_one_input(cuda, wrt):
+    """B2's backward kernel asked for one input's gradient alone: one launch,
+    that gradient as the explicit adjoint gives it, no other."""
+    args, cfg = _inputs_3d(3, 5, 13, 17, cuda)
+    a = [t.clone().requires_grad_(i == wrt) for i, t in enumerate(args)]
+    outs = st.dg3d_stencil_residual(*a, cfg)
+    cots = _cotangents([o.detach() for o in outs])
+    before = st.launches_3d_bwd
+    (got,) = torch.autograd.grad(outs, [a[wrt]], cots)
+    torch.cuda.synchronize()
+    assert st.launches_3d_bwd == before + 1
+    _close(got, st.dg3d_stencil_residual_backward_reference(*args, *cots, cfg)[wrt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 10, 39, 39), (3, 1, 4, 6), (2, 2, 9, 9)])
+def test_dg3d_backward_kernel_writes_zero_off_the_stencil(cuda, shape):
+    """Every position of every padded gradient is written (the buffers come
+    from torch.empty): exact zeros on the edge and corner halo lines, which
+    the 7-point stencil never reads, and on p0p's whole halo."""
+    args, cfg = _inputs_3d(*shape, cuda)
+    with torch.no_grad():
+        cots = _cotangents(st.dg3d_stencil_residual_reference(*args, cfg))
+    got = st.dg3d_stencil_residual_backward(*args, *cots, cfg)
+    B, D, H, W = shape
+    halo = [torch.zeros(n + 2, dtype=torch.int64, device=cuda) for n in (D, H, W)]
+    for h in halo:
+        h[0] = h[-1] = 1
+    count = halo[0][:, None, None] + halo[1][None, :, None] + halo[2][None, None, :]
+    for g in got[:5]:
+        assert torch.isfinite(g).all()
+        assert torch.all(g[:, count >= 2] == 0)
+    assert torch.all(got[0][:, count >= 1] == 0)
