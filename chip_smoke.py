@@ -41,13 +41,21 @@ the process exits non-zero:
    saturation networks at full widths), two epochs at batch 32.
    In each, only the realization count is cut, to 20 (6 train realizations
    × 51 times = 306 samples, 9 batches of 32); the launch counters are set
-   to 0 just before training and read just after. Each checks that every
-   loss is finite, that every loss evaluation launched its kernel and the
-   other kernels not at all, that every training step's backward launched
-   its backward kernel once with no autograd recompute of the plain
-   version, that every trainable model changed, and that the kernel
-   and its plain version agree on the stencil inputs the trained models
-   give for one batch.
+   to 0 just before training and read just after. The trainer runs each
+   step as a CUDA graph replay after 3 eager warm-up steps (its counters
+   count launches per replay). Each checks that every loss is finite, that
+   every step after the warm-up was one graph replay, that every loss
+   evaluation launched its kernel and the other kernels not at all, that
+   every training step's backward launched its backward kernel once with
+   no autograd recompute of the plain version, that every trainable model
+   changed, and that the kernel and its plain version agree on the stencil
+   inputs the trained models give for one batch. Then, on the graphed
+   trainer (``phase_graph``): a profiler window over 3 replayed steps shows
+   the forward and backward kernels once per step by their device names;
+   from the same weights and batches the replayed and the eager step
+   (``cuda_graph=False``, cuDNN deterministic) agree within
+   GRAPH_LOSS_RTOL and GRAPH_WEIGHT_REL; and after a best-epoch restore
+   the replayed eval step computes with the restored weights.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -71,6 +79,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # reciprocal multiply, the order of the mbc sum): a few float32 ulps of the
 # largest value of each output.
 RTOL, ATOL_REL = 1e-4, 1e-5
+# a replayed training step against the eager step from the same weights, with
+# cuDNN deterministic: the replay launches the eager step's kernels on the
+# same values, so the two agree where the kernels are deterministic (DG 2D:
+# bitwise) and otherwise as two eager runs do, float32 rounding that Adam
+# magnifies where a gradient is near zero (measured on the card, replay vs
+# eager and eager vs eager: step losses up to the first replayed step up to
+# 3.4e-5 relative, Model 1's update after 9 steps up to 9.3e-4 of its size,
+# Model 2's after the first replayed step up to 3.7e-4, in DG 3D and GC 2D;
+# Model 2's float32 gradient is rounding noise once the weights move, C2).
+# A replay on stale weights or another batch is 6e-2 to 1.3 off (the restore
+# check's "before" numbers).
+GRAPH_LOSS_RTOL, GRAPH_WEIGHT_REL, GRAPH_MODEL2_REL = 1e-3, 1e-2, 1e-2
 # backward kernel vs autograd of the plain forward, for B3's p0: its
 # gradient is a difference of large terms (the chord slopes and the
 # accumulation), which the kernel rounds in the explicit adjoint's order and
@@ -93,15 +113,15 @@ KERNELS = {
     "dg_stencil_residual": dict(
         source="dg_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:132",
         counter="launches", shapes=[(32, 39, 39), (3, 13, 17)], wrt=(1, 9),
-        outputs=DG_OUTPUTS, ops_per_cell=96),
+        outputs=DG_OUTPUTS, ops_per_cell=96, device_name="dg_stencil_cells"),
     "dg3d_stencil_residual": dict(
         source="dg3d_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:265",
         counter="launches_3d", shapes=[(32, 10, 39, 39), (3, 5, 13, 17)], wrt=(1, 3, 10),
-        outputs=DG_OUTPUTS, ops_per_cell=124),
+        outputs=DG_OUTPUTS, ops_per_cell=124, device_name="dg3d_stencil_cells"),
     "gc_stencil_residual": dict(
         source="gc_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:495",
         counter="launches_gc", shapes=[(32, 39, 39), (3, 13, 17)], wrt=(1, 4, 26),
-        outputs=GC_OUTPUTS, ops_per_cell=377),
+        outputs=GC_OUTPUTS, ops_per_cell=377, device_name="gc_stencil_cells"),
 }
 
 
@@ -114,13 +134,16 @@ KERNELS = {
 BACKWARD = {
     "dg_stencil_residual_backward": dict(
         forward="dg_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:568",
-        counter="launches_bwd", qwell=8, cancelling=(), ops_per_cell=257),
+        counter="launches_bwd", qwell=8, cancelling=(), ops_per_cell=257,
+        device_name="dg_stencil_bwd_cells"),
     "dg3d_stencil_residual_backward": dict(
         forward="dg3d_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:313",
-        counter="launches_3d_bwd", qwell=9, cancelling=(), ops_per_cell=291),
+        counter="launches_3d_bwd", qwell=9, cancelling=(), ops_per_cell=291,
+        device_name="dg3d_stencil_bwd"),
     "gc_stencil_residual_backward": dict(
         forward="gc_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:533",
-        counter="launches_gc_bwd", qwell=25, cancelling=(0,), ops_per_cell=1016),
+        counter="launches_gc_bwd", qwell=25, cancelling=(0,), ops_per_cell=1016,
+        device_name="gc_stencil_bwd_cells"),
 }
 
 
@@ -435,7 +458,7 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
     try:
         for c in counters:
             setattr(st, c, 0)
-        trainer, history = train_combined_models_unified(
+        trainer, history, _ = train_combined_models_unified(
             case["train_groups"], case["val_groups"], loss_fn, training_batch_size=32,
             epochs=2, general_config=case["general_config"])
         torch.cuda.synchronize()
@@ -463,9 +486,15 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
     for k, ps in before.items():
         if all(torch.equal(a, b) for a, b in zip(ps, models[k].parameters())):
             raise AssertionError(f"the {k} model did not change in training")
+    # every step after the eager warm-up steps is one replay of its graph
+    warm = trainer.warmup_steps
+    want_replays = {"train": max(0, 2 * n_train - warm), "eval": max(0, 2 * n_val - warm)}
+    if not trainer.cuda_graph or trainer.replays != want_replays:
+        raise AssertionError(f"graph replays {trainer.replays}, expected {want_replays} "
+                             f"({warm} eager warm-up steps of each kind)")
     steps_per_s = n_train / (history["epoch_times"][1] / 1000.0)
-    log(f"main path {fluid} {grid}: {len(steps)} steps, launches {counts}, "
-        f"{len(recomputes)} plain recomputes, "
+    log(f"main path {fluid} {grid}: {len(steps)} steps, {warm} eager warm-up steps and "
+        f"replays {trainer.replays}, launches {counts}, {len(recomputes)} plain recomputes, "
         f"{steps_per_s:.2f} steps/s in epoch 2, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
@@ -487,7 +516,130 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
         raise AssertionError(f"non-finite loss {float(total)} after training")
     log(f"trained models: {kernel} and its plain version agree on the main path's "
         f"stencil inputs; total loss {float(total):.6e}")
+    phase_graph(trainer, kernel)
     return counts
+
+
+def _copy_loss(loss_fn):
+    """The loss with copies of its trained models (the same weights)."""
+    import copy
+    out = copy.copy(loss_fn)
+    trained = [loss_fn.logical_name(k) for k in loss_fn.trainable_models_keys]
+    out.models = {**loss_fn.models, **{k: copy.deepcopy(loss_fn.models[k]) for k in trained}}
+    return out
+
+
+def _rel(got, want) -> float:
+    import torch
+    with torch.no_grad():
+        num = torch.sqrt(sum(((g.double() - w.double()) ** 2).sum() for g, w in zip(got, want)))
+        return float(num / torch.sqrt(sum((w.double() ** 2).sum() for w in want)))
+
+
+def phase_graph(trainer, kernel: str) -> None:
+    """After the main path's training, on its graphed trainer:
+
+    1. a profiler window over 3 replayed training steps shows ``kernel``
+       (by its device name) once per step and its backward kernel once per
+       step: the kernels run inside the replay;
+    2. from the same weights on the same batches, the graphed trainer (its
+       eager warm-up steps, then replays) and the eager one
+       (``cuda_graph=False``), with cuDNN deterministic, give the same step
+       losses up to the first replayed step within GRAPH_LOSS_RTOL, Model
+       1's weights after 9 steps within GRAPH_WEIGHT_REL of their update and
+       Model 2's after the first replayed step within GRAPH_MODEL2_REL (held
+       on one step only: its float32 gradient is rounding noise once the
+       weights move, ROADMAP C2); the eager step against a second eager run
+       is logged beside it;
+    3. a best-epoch restore (``load_snapshot``, in place) is seen by the next
+       replay: the replayed eval losses on the restored weights equal the
+       eager eval step's."""
+    import re
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from srm_tpu_torch.training.trainer import Trainer
+
+    # 1. the kernels inside the replayed step
+    bwd = next(b for b in BACKWARD.values() if b["forward"] == kernel)
+    names = {"forward": KERNELS[kernel]["device_name"], "backward": bwd["device_name"]}
+    replays = trainer.replays["train"]
+    snap = trainer.snapshot()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_epoch_resident("train", steps=3)
+        torch.cuda.synchronize()
+    if trainer.replays["train"] != replays + 3:
+        raise AssertionError("the profiled steps were not graph replays")
+    device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = {k: sum(bool(re.search(rf"(^|::){n}\(", e)) for e in device) for k, n in names.items()}
+    if seen != {"forward": 3, "backward": 3}:
+        raise AssertionError(f"in 3 replayed steps the trace shows {seen} of {names} "
+                             f"(stencil kernels: {sorted({e for e in device if 'stencil' in e})})")
+    log(f"profiler over 3 replayed steps: {len(device)} device kernels, {names['forward']} "
+        f"{seen['forward']}x and {names['backward']} {seen['backward']}x")
+
+    # 2. replay against the eager step, from the same weights (and the eager
+    # step against itself, for the kernels' own run-to-run spread)
+    m1, m2 = trainer.optimizer_keys[:2]
+    start = {k: [p.detach().clone() for p in trainer.optimizers[k].params] for k in (m1, m2)}
+    warm = Trainer.warmup_steps
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name, graph in (("graph", True), ("eager", False), ("eager again", False)):
+            t = Trainer(_copy_loss(trainer.loss_fn), seed=7, cuda_graph=graph)
+            t._resident["train"] = trainer._resident["train"]
+            # the warm-up steps, then the first replayed step
+            first = t.train_epoch_resident("train", steps=warm + 1)["total"]
+            after_first = [p.detach().clone() for p in t.optimizers[m2].params]
+            rest = t.train_epoch_resident("train", steps=8 - warm)["total"]
+            runs[name] = (t, np.concatenate([first, rest]), after_first)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if runs["graph"][0].replays["train"] != 9 - warm:
+        raise AssertionError(f"the graphed trainer replayed {runs['graph'][0].replays['train']} "
+                             f"of 9 steps")
+
+    def apart(a, b):
+        (ta, la, a2), (tb, lb, b2) = runs[a], runs[b]
+        rel = np.abs(la - lb) / np.abs(lb)
+        return (float(rel[:warm + 1].max()), float(rel.max()),
+                _rel([x - s for x, s in zip(ta.optimizers[m1].params, start[m1])],
+                     [y - s for y, s in zip(tb.optimizers[m1].params, start[m1])]),
+                _rel([x - s for x, s in zip(a2, start[m2])],
+                     [y - s for y, s in zip(b2, start[m2])]))
+
+    got, spread = apart("graph", "eager"), apart("eager again", "eager")
+    for what, (l1, l9, w1, w2) in (("replay vs eager", got), ("eager vs eager", spread)):
+        log(f"{what} from the same weights, 9 steps ({warm} warm-up): step losses {l1:.3e} apart "
+            f"up to the first "
+            f"replayed step, {l9:.3e} over all 9 (relative); {m1} weights after 9 steps "
+            f"{w1:.3e} and {m2} after the first replayed step {w2:.3e} of their update")
+    l1, _, w1, w2 = got
+    if not np.all(np.isfinite(runs["graph"][1])) or l1 > GRAPH_LOSS_RTOL or \
+            w1 > GRAPH_WEIGHT_REL or w2 > GRAPH_MODEL2_REL:
+        raise AssertionError(f"the replayed step differs from the eager one: {got}")
+
+    # 3. a restore seen by the next replay: eval steps over the train split
+    # (the cases have no val split at 20 realizations), the first epoch's
+    # warm-up steps and capture before the restore
+    moved = trainer.eval_epoch_resident("train")["total"]
+    n_eval = trainer.replays["eval"]
+    trainer.load_snapshot(snap)
+    restored = trainer.eval_epoch_resident("train")["total"]
+    if trainer.replays["eval"] != n_eval + len(restored):
+        raise AssertionError("the eval steps after the restore were not graph replays")
+    eager = Trainer(trainer.loss_fn, cuda_graph=False)
+    eager._resident["train"] = trainer._resident["train"]
+    want = eager.eval_epoch_resident("train")["total"]
+    err = float(np.max(np.abs(restored - want) / np.abs(want)))
+    log(f"restore: replayed eval losses on the restored weights {err:.3e} from the eager eval "
+        f"step's (before the restore {float(np.max(np.abs(moved - want) / np.abs(want))):.3e})")
+    if err > GRAPH_LOSS_RTOL or np.allclose(moved, want, rtol=GRAPH_LOSS_RTOL, atol=0):
+        raise AssertionError("the replay after a restore did not compute with the restored "
+                             "weights")
 
 
 def main() -> int:

@@ -65,6 +65,11 @@ launches_gc = 0
 launches_bwd = 0
 launches_3d_bwd = 0
 launches_gc_bwd = 0
+#: the names of the launch counters above. They count calls from Python: a
+#: CUDA graph that captured a launch replays it without calling the wrapper,
+#: so the trainer adds each counter's move during the capture at each replay
+COUNTERS = ("launches", "launches_3d", "launches_gc", "launches_bwd", "launches_3d_bwd",
+            "launches_gc_bwd")
 
 
 class StencilConfig(NamedTuple):
@@ -928,14 +933,21 @@ def _library_3d() -> ctypes.CDLL:
 
 
 _TICKETS = {}
+_RETIRED_TICKETS = []
 
 
 def _tickets(device: torch.device, B: int) -> torch.Tensor:
     """B2's per-sample tickets on ``device``: zero between launches (each
     launch's last block of a sample resets its own), so one buffer per
-    device serves every launch of both kernels in stream order."""
+    device serves every launch of both kernels in stream order.
+
+    A CUDA graph keeps the address of the buffer it captured, so a buffer
+    outgrown by a larger batch is kept alive, never freed. The trainer's
+    eager warm-up steps allocate it before any capture."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < B:
+        if t is not None:
+            _RETIRED_TICKETS.append(t)
         t = _TICKETS[device] = torch.zeros(max(B, 64), dtype=torch.int32, device=device)
     return t
 
@@ -965,7 +977,13 @@ def _alloc(like: torch.Tensor, shapes):
 def _call(fn, device, *args):
     """Call a C launcher with PyTorch's current stream on ``device``; raise
     if it reports a CUDA error (a refused launch never runs, and a later
-    synchronise would not report it)."""
+    synchronise would not report it).
+
+    Under a CUDA graph capture the current stream is the capture stream, so
+    the launch is recorded into the graph. The launchers neither synchronise
+    nor allocate, and their scalars (``_pack``) are constants of the case; a
+    wrapper must keep it so, with no host read of a device value
+    (``.item()``, ``.cpu()``), for the training step to stay capturable."""
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -5,15 +5,21 @@
 
 For each case (the configurations ``chip_smoke.py`` trains: DG 39×39, DG
 39×39×10 with uncorrelated fields, GC 39×39; batch 32, float32 with TF32
-off, 20 realizations) it builds the case, trains one warm-up epoch, then
-measures on the card:
+off, 20 realizations) it builds the case, trains one warm-up epoch (on the
+card the trainer's eager warm-up steps and its graph capture happen there),
+then measures on the card:
 
-* the step: steps/s over one timed epoch (host clock around work that ends
-  in a synchronise), the device-busy share and the device operations per
-  step from ``torch.profiler`` over ``--steps`` steps (the sum of the
-  device kernels' durations over the window's host-clock length), the
-  convolution and matmul FLOP of one step (``torch.utils.flop_counter``,
-  forward and backward) and the peak device memory of the epoch;
+* the step as the trainer runs it (a CUDA graph replay per step where the
+  trainer has graphs, the eager step otherwise): steps/s over one timed
+  epoch (host clock around work that ends in a synchronise), the device
+  operations and device time per step from ``torch.profiler`` over
+  ``--steps`` steps of a resident epoch (CUPTI records the kernels inside a
+  graph), the busy share (device time over the window's host-clock length,
+  and device time × the untraced steps/s), the convolution and matmul FLOP
+  of one loss-and-gradient evaluation (``torch.utils.flop_counter``,
+  forward and backward, eager), the peak device memory allocated and
+  reserved over both epochs (reserved includes the graph's private pool)
+  and the step's top device kernels by time (``top_kernels``);
 * the case's stencil kernel and its plain version on the stencil inputs of
   one main-path batch: device time per call from the profiler over 100
   calls each, and the device launches each call makes; the same for its
@@ -30,6 +36,9 @@ directory that ``.gitignore`` lists), it measures that checkout's step and
 kernels with this file's code, for an A/B in one call::
 
     PYTHONPATH=build/parent python srm_tpu_torch/tools/profile_step.py --case dg3d
+
+A parent without graphs (whose trainer has no ``cuda_graph``) is profiled
+through its ``train_step`` on the epoch's batches, as before.
 
 Prints one JSON object per case and writes it to ``DIR/profile_<case>.json``
 (default ``build/profile/``, listed in ``.gitignore``). It needs a CUDA device
@@ -60,6 +69,21 @@ def _device_events(prof):
     import torch
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return len(events), sum(e.time_range.elapsed_us() for e in events)
+
+
+def top_kernels(prof, steps: int, top: int = 12):
+    """The ``top`` device kernels of a trace by summed device time: name
+    (cut to 90 characters), launches and µs, each per step."""
+    import collections
+
+    import torch
+    calls, us = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            calls[e.name] += 1
+            us[e.name] += e.time_range.elapsed_us()
+    return [{"name": n[:90], "launches": calls[n] / steps, "us": t / steps}
+            for n, t in us.most_common(top)]
 
 
 # the card's published peaks (H100 SXM, NVIDIA's data sheet): HBM bytes/s and
@@ -164,9 +188,10 @@ def backward_calls(kernel: str, args, cfg) -> dict:
     return calls
 
 
-def profile_calls(fn, n: int):
+def profile_calls(fn, n: int, table: list = None):
     """Run ``fn`` n times under the profiler; returns (device kernels per
-    call, device µs per call, host-clock ms of the window)."""
+    call, device µs per call, host-clock ms of the window). With ``table``
+    (a list), appends the trace's :func:`top_kernels` per call to it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -178,6 +203,8 @@ def profile_calls(fn, n: int):
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     count, device_us = _device_events(prof)
+    if table is not None:
+        table.extend(top_kernels(prof, n))
     return count / n, device_us / n, window_ms
 
 
@@ -194,28 +221,37 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
     case = setup_case(fluid, base_dir=base_dir, n_realizations=20, device="cuda", **spec)
     loss_fn = case["loss_fn"]
     trainer = Trainer(loss_fn)
+    graphed = bool(getattr(trainer, "cuda_graph", False))
     nb, _ = trainer.stage_dataset("train", case["train_groups"], 32)
-    trainer.train_epoch_resident("train")                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_epoch_resident("train")                       # warm-up (and capture)
     torch.cuda.synchronize()
 
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer.train_epoch_resident("train")
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    reserved_mib = torch.cuda.max_memory_reserved() / 2**20
 
     x_all, y_all, _, bs = trainer._resident["train"]
     batches = [(x_all[i * bs:(i + 1) * bs], {k: v[i * bs:(i + 1) * bs] for k, v in y_all.items()})
                for i in range(nb)]
-    cycle = itertools.cycle(batches)
-
-    def step():
-        trainer.train_step(*next(cycle))
-
-    ops_per_step, busy_us, window_ms = profile_calls(step, steps)
+    table = []
+    if graphed:
+        n = min(steps, nb)
+        ops, busy_us, window_ms = profile_calls(
+            lambda: trainer.train_epoch_resident("train", steps=n), 1, table)
+        ops_per_step, busy_us, steps = ops / n, busy_us / n, n
+        for row in table:
+            row["launches"], row["us"] = row["launches"] / n, row["us"] / n
+    else:
+        cycle = itertools.cycle(batches)
+        ops_per_step, busy_us, window_ms = profile_calls(
+            lambda: trainer.train_step(*next(cycle)), steps, table)
     with FlopCounterMode(display=False) as flops:
-        step()
+        loss_fn.pinn_batch_sse_grad(*batches[0])
     torch.cuda.synchronize()
 
     with torch.no_grad():
@@ -238,12 +274,15 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
         backward["kernel"].update(warm_cold_ms(calls["kernel"]))
 
     return {
-        "case": name, "batch": bs, "features": list(x_all.shape), "steps_per_s": nb / epoch_s,
+        "case": name, "batch": bs, "features": list(x_all.shape), "graphed": graphed,
+        "replays": getattr(trainer, "replays", None), "steps_per_s": nb / epoch_s,
         "samples_per_s": nb * bs / epoch_s, "profiled_steps": steps,
         "device_ops_per_step": ops_per_step, "device_busy_ms_per_step": busy_us / 1e3,
         "window_ms_per_step": window_ms / steps,
         "device_busy_share": busy_us / 1e3 / (window_ms / steps),
+        "busy_share_untraced": busy_us / 1e3 * nb / epoch_s / 1e3,
         "flop_per_step": flops.get_total_flops(), "peak_memory_mib": peak_mib,
+        "peak_reserved_mib": reserved_mib, "top_kernels_per_step": table,
         "kernel": {"name": kernel, "device_us": k_us, "launches_per_call": k_launches,
                    **k_events, "plain_device_us": p_us, "plain_launches_per_call": p_launches,
                    "backward": backward},

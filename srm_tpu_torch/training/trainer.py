@@ -1,45 +1,114 @@
 """Multi-model training loop.
 
 Port of ``srm_tpu/training/trainer.py``: a :class:`Trainer` that owns one
-optimizer per trainable model and the device-resident datasets, and a
-minimal :func:`train_combined_models_unified` loop (epochs, the train and
-val history dict, a stop on a non-finite loss).
+optimizer per trainable model, the device-resident datasets and the train
+and eval steps, and :func:`train_combined_models_unified`, the training
+driver (epochs, the train and val history, watched-epoch snapshots, the
+min–max best-epoch restore, checkpoint and resume).
 
 A dataset is staged once: its (K, T) axes are collapsed first-axis-fastest,
 the groups concatenated and the result copied to the device. Each training
 epoch draws a fresh permutation from the trainer's ``torch.Generator`` and
 runs ``N // B`` full batches; the ragged tail is dropped, a different subset
-each epoch, as the reference drops it (``trainer.py:200-229``). Per-step
-metrics stay on the device until the epoch ends.
+each epoch, as the reference drops it (``trainer.py:200-229``).
 
-Watched-epoch snapshots, the best-epoch restore and checkpoint/resume wait
-for a later slice of the port.
+**One step function, eager or replayed.** The reference jits the whole
+step (loss, gradients, every optimizer update) and scans it over an epoch
+(``trainer.py:82-92``, ``:168-183``). Here the step reads its batch from
+static buffers: before each step one copy puts the batch's rows of the
+epoch's permutation into a static index buffer, and the step gathers the
+batch from the resident dataset itself (under a graph, into the same
+addresses of its pool at every replay), computes the loss and
+``torch.autograd.grad``, runs every optimizer update (whose schedules are
+device tensors, ``optimizers.py``) and writes its scalar metrics into a
+``(num_batches, n_metrics)`` device buffer at the row of a device-side step
+index. The epoch then makes one host copy of that buffer.
+
+On a CUDA device (``cuda_graph``, on by default there) the step is captured
+as one CUDA graph per step kind and dataset, and every later step is one
+replay of it. The first ``Trainer.warmup_steps`` (3) steps of a kind run
+eagerly on a side stream, as PyTorch requires before a capture; they are
+real steps, each on its own batch, so every epoch makes exactly
+``num_batches`` updates. The eval step is captured the same way under
+``no_grad`` and shares the train graph's memory pool: no tensor allocated
+during a capture outlives it, and the graphs never run at once. A graph holds the addresses of the
+tensors it captured: whatever writes the weights, the optimizer state or the
+datasets afterwards (the best-epoch restore, a resume) copies into them in
+place. A capture that fails raises; nothing falls back to the eager step.
+On the CPU, where there are no graphs, the same step function runs eagerly.
+
+The kernels' launch counters (``kernels/stencil.py``) count Python calls; the
+trainer takes back what a capture moved them by and adds that at every
+replay, so they go on counting launches on the card.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG, get_optimizer_config
 from srm_tpu_torch.data.batching import collapse_groups
+from srm_tpu_torch.kernels import stencil as st
 from srm_tpu_torch.training.optimizers import build_optimizer_from_config
 
 log = logging.getLogger(__name__)
 
 
+def validate_loss_keys(labels, loss_keys, general_config) -> None:
+    """In data (non-physics) mode, assert that the label dict covers the
+    training-data terms (ref training.py:367-409). No-op in physics mode."""
+    if general_config.get("physics_mode_fraction", 1.0) != 0:
+        return
+    n_td_terms = sum(1 for keys in loss_keys.values() for k in keys
+                     if k.split("_")[0] == "td")
+    n_labels = len(labels) if isinstance(labels, dict) else 1
+    assert n_labels >= min(n_td_terms, 2) and n_labels > 0, (
+        f"non-physics mode needs labels for the td terms: have {n_labels} "
+        f"label keys for {n_td_terms} td terms")
+
+
+class _StepState:
+    """The static buffers of one step kind over one source dataset: the
+    batch's index, the per-step metrics and the device-side step index; and,
+    on the card, its graph."""
+
+    def __init__(self, x_all, y_all, batch_size: int, num_batches: int, n_metrics: int):
+        device = x_all.device
+        self.x_all, self.y_all = x_all, y_all
+        self.idx = torch.arange(batch_size, device=device)
+        self.metrics = torch.zeros((num_batches, n_metrics), dtype=torch.float32, device=device)
+        self.row = torch.zeros(1, dtype=torch.long, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.warm = 0                       # eager warm-up steps taken
+        self.counts: Dict[str, int] = {}    # launch-counter moves per replay
+
+
 class Trainer:
-    """Owns the optimizers, the resident datasets and the train/eval steps."""
+    """Owns the optimizers, the resident datasets and the train/eval steps.
+
+    ``cuda_graph``: None means a graph exactly when the models are on a CUDA
+    device; True on the CPU raises. False on the card runs the eager step,
+    the replay's reference for the checks."""
+
+    #: eager steps of each kind before its capture (PyTorch's recipe: a few
+    #: on a side stream, so that autograd, cuBLAS and cuDNN set up outside it)
+    warmup_steps = 3
 
     def __init__(self, loss_fn, optimizer_configs: Optional[Dict[str, Dict]] = None,
-                 seed: int = 0):
+                 seed: int = 0, cuda_graph: Optional[bool] = None):
         self.loss_fn = loss_fn
         self.models = loss_fn.models
         self.device = loss_fn.device
+        on_cuda = self.device.type == "cuda"
+        if cuda_graph and not on_cuda:
+            raise ValueError(f"cuda_graph=True needs the models on a CUDA device, they are on "
+                             f"{self.device}")
+        self.cuda_graph = on_cuda if cuda_graph is None else bool(cuda_graph)
         self.generator = torch.Generator().manual_seed(int(seed))
         self.optimizer_keys = list(loss_fn.trainable_models_keys)
         self.optimizers = {}
@@ -47,31 +116,115 @@ class Trainer:
             cfg = (optimizer_configs or {}).get(key) or get_optimizer_config(key)
             params = list(self.models[loss_fn.logical_name(key)].parameters())
             self.optimizers[key] = build_optimizer_from_config(params, cfg)
+        # the step's scalar metrics, in the order of its metrics row
+        self._terms = [(ph, k.rsplit("_", 1)[0]) for ph, keys in loss_fn.loss_keys.items()
+                       for k in keys]
+        self.metric_names = [f"{ph}/{t}" for ph, t in self._terms] + ["total", "tstep_mean"]
         self._resident: Dict[str, Any] = {}
+        self._states: Dict[tuple, _StepState] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.cuda_graph else None
+        self._side_stream = None
+        self.replays = {"train": 0, "eval": 0}
 
+    # -- the step function (eager on the CPU, captured on the card) ---------
     @staticmethod
-    def _scalar_metrics(aux, total) -> Dict[str, torch.Tensor]:
-        metrics = {f"{ph}/{t}": v.detach() for ph, terms in aux.items() if ph != "outputs"
-                   for t, v in terms.items()}
-        metrics["total"] = total.detach()
-        metrics["tstep_mean"] = aux["outputs"]["tstep"].detach().mean()
-        return metrics
+    def _gather(s: _StepState):
+        """The batch that ``s.idx`` names. Under a graph it lands at the same
+        address of the graph's pool at every replay. (Gathered into
+        preallocated buffers instead, with ``index_select(out=)``, the DG 3D
+        step's convolutions took slower cuDNN plans on the H100; PERF.md.)"""
+        return s.x_all[s.idx], {k: v[s.idx] for k, v in s.y_all.items()}
 
-    def train_step(self, x: torch.Tensor, y) -> Dict[str, torch.Tensor]:
-        aux, grads, total = self.loss_fn.pinn_batch_sse_grad(x, y)
+    def _record(self, s: _StepState, aux, total) -> None:
+        vals = [aux[ph][t] for ph, t in self._terms] + [total, aux["outputs"]["tstep"].mean()]
+        row = torch.stack([v.detach().reshape(()) for v in vals])
+        s.metrics.index_copy_(0, s.row, row[None])
+        s.row.add_(1)
+
+    def _train_body(self, s: _StepState) -> None:
+        aux, grads, total = self.loss_fn.pinn_batch_sse_grad(*self._gather(s))
         for key in self.optimizer_keys:
             self.optimizers[key].step(grads[key])
-        return self._scalar_metrics(aux, total)
+        self._record(s, aux, total)
 
     @torch.no_grad()
+    def _eval_body(self, s: _StepState) -> None:
+        total, aux = self.loss_fn.loss_and_metrics(*self._gather(s))
+        self._record(s, aux, total)
+
+    def _run(self, kind: str, s: _StepState) -> None:
+        """One step of ``kind`` on the batch that ``s.idx`` names."""
+        body = self._train_body if kind == "train" else self._eval_body
+        if not self.cuda_graph:
+            body(s)
+            return
+        if s.graph is None and s.warm < self.warmup_steps:
+            # one side stream for every warm-up step: the caching allocator
+            # keeps a stream's freed blocks for that stream
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(self.device)
+            stream = self._side_stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                body(s)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            s.warm += 1
+            return
+        if s.graph is None:
+            before = {c: getattr(st, c) for c in st.COUNTERS}
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool):
+                body(s)
+            # the capture launched nothing: take its counts back, add them per replay
+            s.counts = {c: getattr(st, c) - before[c] for c in st.COUNTERS}
+            for c in st.COUNTERS:
+                setattr(st, c, before[c])
+            s.graph = graph
+        s.graph.replay()
+        for c, n in s.counts.items():
+            setattr(st, c, getattr(st, c) + n)
+        self.replays[kind] += 1
+
+    def _state(self, kind: str, source: str, x_all, y_all, bs: int, nb: int) -> _StepState:
+        key = (kind, source, bs)
+        if key not in self._states:
+            self._states[key] = _StepState(x_all, y_all, bs, nb, len(self.metric_names))
+        return self._states[key]
+
+    def _host_metrics(self, s: _StepState, n: int) -> Dict[str, np.ndarray]:
+        """The first n rows of the per-step metrics → host arrays, one copy."""
+        m = s.metrics[:n].cpu().numpy()
+        return {name: m[:, j] for j, name in enumerate(self.metric_names)}
+
+    # -- one batch given by the caller -------------------------------------
+    def _direct(self, kind: str, x: torch.Tensor, y) -> Dict[str, torch.Tensor]:
+        bs = x.shape[0]
+        key = (kind, "_direct", bs)
+        s = self._states.get(key)
+        if s is None:
+            src_x = torch.empty_like(x, device=self.device)
+            src_y = {k: torch.empty_like(v, device=self.device) for k, v in y.items()}
+            s = self._state(kind, "_direct", src_x, src_y, bs, 1)
+        s.x_all.copy_(x)
+        for k, v in y.items():
+            s.y_all[k].copy_(v)
+        s.row.zero_()
+        self._run(kind, s)
+        return dict(zip(self.metric_names, s.metrics[0].clone().unbind()))
+
+    def train_step(self, x: torch.Tensor, y) -> Dict[str, torch.Tensor]:
+        """One training step on the batch (x, y): copied into the static
+        buffers, then the step (on the card, a graph replay)."""
+        return self._direct("train", x, y)
+
     def eval_step(self, x: torch.Tensor, y) -> Dict[str, torch.Tensor]:
-        total, aux = self.loss_fn.loss_and_metrics(x, y)
-        return self._scalar_metrics(aux, total)
+        return self._direct("eval", x, y)
 
     # -- device-resident datasets -------------------------------------------
     def stage_dataset(self, name: str, groups, batch_size: int):
         """Collapse (K, T) groups and copy them to the device once.
         Returns (num_batches, num_samples)."""
+        self._states = {k: v for k, v in self._states.items() if k[1] != name}
         if not groups or groups[0][0].shape[0] == 0:
             self._resident[name] = None
             return 0, 0
@@ -94,43 +247,103 @@ class Trainer:
         self._resident[name] = (x, y, nb, batch_size)
         return nb, n
 
-    @staticmethod
-    def _stack(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
-        """Per-step metrics → host arrays, one copy per epoch."""
-        return {k: torch.stack([m[k] for m in metrics]).cpu().numpy() for k in metrics[0]}
-
-    def train_epoch_resident(self, name: str) -> Dict[str, np.ndarray]:
+    def train_epoch_resident(self, name: str, steps: Optional[int] = None
+                             ) -> Dict[str, np.ndarray]:
+        """One epoch (or its first ``steps`` steps) over the staged dataset
+        ``name``, in a fresh permutation; the per-step metrics on the host."""
         x, y, nb, bs = self._resident[name]
+        s = self._state("train", name, x, y, bs, nb)
         perm = torch.randperm(x.shape[0], generator=self.generator)[: nb * bs].to(self.device)
-        metrics = []
-        for i in range(nb):
-            idx = perm[i * bs:(i + 1) * bs]
-            metrics.append(self.train_step(x[idx], {k: v[idx] for k, v in y.items()}))
-        return self._stack(metrics)
+        n = nb if steps is None else min(int(steps), nb)
+        s.row.zero_()
+        for i in range(n):
+            s.idx.copy_(perm[i * bs:(i + 1) * bs])
+            self._run("train", s)
+        return self._host_metrics(s, n)
 
     def eval_epoch_resident(self, name: str) -> Dict[str, np.ndarray]:
         x, y, nb, bs = self._resident[name]
-        return self._stack([self.eval_step(x[i * bs:(i + 1) * bs],
-                                           {k: v[i * bs:(i + 1) * bs] for k, v in y.items()})
-                            for i in range(nb)])
+        s = self._state("eval", name, x, y, bs, nb)
+        rows = torch.arange(nb * bs, device=self.device)
+        s.row.zero_()
+        for i in range(nb):
+            s.idx.copy_(rows[i * bs:(i + 1) * bs])
+            self._run("eval", s)
+        return self._host_metrics(s, nb)
+
+    # -- weights, in place --------------------------------------------------
+    def trained_models(self) -> Dict[str, torch.nn.Module]:
+        """The trained models by logical name."""
+        return {self.loss_fn.logical_name(k): self.models[self.loss_fn.logical_name(k)]
+                for k in self.optimizer_keys}
+
+    def snapshot(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """A host copy of each trained model's parameters, by optimizer key."""
+        return {key: {n: p.detach().cpu().clone() for n, p in
+                      self.models[self.loss_fn.logical_name(key)].named_parameters()}
+                for key in self.optimizer_keys}
+
+    @torch.no_grad()
+    def load_snapshot(self, snap: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Write a :meth:`snapshot` into the live parameters in place (the
+        graphs hold their addresses)."""
+        for key, params in snap.items():
+            live = dict(self.models[self.loss_fn.logical_name(key)].named_parameters())
+            for n, v in params.items():
+                live[n].copy_(v)
+
+
+def _select_best(records, loss_min_max, loss_keys) -> tuple:
+    """The min–max-normalized summed loss of each watched epoch and the
+    index of the least (ref training.py:833-866)."""
+    normalized = []
+    for record in records:
+        tot = 0.0
+        for ph in loss_keys:
+            for key in loss_keys[ph]:
+                v = record["losses"][ph][key]
+                mm = loss_min_max[ph][key]
+                if mm["max"] > mm["min"]:
+                    tot += (v - mm["min"]) / (mm["max"] - mm["min"])
+                else:
+                    tot += 0.0 if v == mm["min"] else 1.0
+        normalized.append(tot)
+    return int(np.argmin(normalized)), normalized
 
 
 def train_combined_models_unified(train_groups, val_groups, loss_fn,
                                   training_batch_size: Optional[int] = None,
                                   testing_batch_size: Optional[int] = None,
-                                  epochs: int = 5, general_config: Optional[Dict] = None,
-                                  optimizer_configs: Optional[Dict[str, Dict]] = None,
-                                  seed: int = 0, verbose: int = 1):
-    """Train for ``epochs``; returns (trainer, history).
+                                  epochs: int = 5, callbacks=None, verbose: int = 1,
+                                  general_config: Optional[Dict] = None,
+                                  log_variables_callback: Optional[Callable] = None,
+                                  log_epoch_percentage: float = 0.2, seed: int = 0,
+                                  checkpoint_dir: Optional[str] = None,
+                                  checkpoint_every: int = 1, resume: bool = False,
+                                  optimizer_configs: Optional[Dict[str, Dict]] = None):
+    """Train for ``epochs``; returns (trainer, history, best_model_variables).
 
     History layout follows the reference: per-phase per-key train/val
     series, ``epoch_times`` (ms), ``total_train_loss``, ``total_val_loss``
     and ``tstep_mean``, plus ``step_total_loss`` (every step's total
     weighted SSE). An empty split is skipped; a non-finite epoch loss stops
-    training."""
+    training. Over the last ``log_epoch_percentage`` of the epochs each
+    epoch's parameters are snapshot to the host (``log_variables_callback``
+    sees each); at the end the snapshot with the least min–max-normalized
+    summed loss is written back into the live parameters and returned as
+    ``best_model_variables`` (None without a watched epoch). With
+    ``checkpoint_dir`` the training state is saved every
+    ``checkpoint_every`` epochs and after the restore; ``resume`` continues
+    from the latest checkpoint there. Unlike the reference, whose resumed
+    run draws its permutations anew from the seed (``trainer.py:306``,
+    ``:343``), the trainer's generator is saved and restored, so a resumed
+    run trains on the batches an uninterrupted one would."""
     g = general_config or DEFAULT_GENERAL_CONFIG
     training_batch_size = training_batch_size or g["training_batch_size"]
     testing_batch_size = testing_batch_size or g["testing_batch_size"]
+    if train_groups:
+        validate_loss_keys(train_groups[0][1], loss_fn.loss_keys, g)
+
     trainer = Trainer(loss_fn, optimizer_configs=optimizer_configs, seed=seed)
     n_train, _ = trainer.stage_dataset("train", train_groups, training_batch_size)
     n_val, _ = trainer.stage_dataset("val", val_groups, testing_batch_size)
@@ -146,8 +359,26 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
         "epoch_times": [], "total_train_loss": [], "total_val_loss": [],
         "tstep_mean": [], "step_total_loss": [],
     }
+    model_variables_history: List[Dict] = []
+    loss_min_max = {ph: {key: {"min": float("inf"), "max": float("-inf")}
+                         for key in keys} for ph, keys in loss_keys.items()}
+    log_start_epoch = max(0, int(epochs * (1.0 - log_epoch_percentage)))
+    physics = loss_fn.physics_mode_fraction >= 1.0
     t_total = time.time()
-    for epoch in range(epochs):
+
+    ckpt = None
+    start_epoch = 0
+    if checkpoint_dir is not None:
+        from srm_tpu_torch.utils.checkpoint import CheckpointManager
+        ckpt = CheckpointManager(checkpoint_dir)
+        if resume:
+            restored = ckpt.restore(params=trainer.trained_models(),
+                                    opt_state=trainer.optimizers, generator=trainer.generator)
+            if restored is not None:
+                start_epoch = int(restored[3]) + 1
+                log.info("Resumed from checkpoint at epoch %d", start_epoch)
+
+    for epoch in range(start_epoch, epochs):
         if n_train == 0:
             continue
         t0 = time.time()
@@ -163,17 +394,59 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
         history["tstep_mean"].append(float(np.mean(metrics["tstep_mean"])))
         history["step_total_loss"].extend(float(v) for v in metrics["total"])
         if not np.isfinite(total_train):
-            log.error("Non-finite training loss at epoch %d — stopping.", epoch + 1)
+            log.error("Non-finite training loss at epoch %d — stopping. "
+                      "Check Δt bounds, PVT clamps and input normalization.", epoch + 1)
             break
+        if total_train == 0.0 and physics:
+            log.warning("All physics losses are zero at epoch %d — the residual "
+                        "is likely disconnected from the models.", epoch + 1)
         if verbose:
             print(f"Epoch {epoch + 1}/{epochs} - loss {total_train:.4f} - {epoch_ms:.0f} ms "
                   f"({n_train / max(epoch_ms / 1000.0, 1e-9):.2f} steps/s)")
+
+        # watched-epoch snapshots (ref :708-718)
+        if epoch >= log_start_epoch:
+            snap = trainer.snapshot()
+            if log_variables_callback is not None:
+                log_variables_callback(epoch, snap, total_train)
+            for ph in loss_keys:
+                for key in loss_keys[ph]:
+                    mm = loss_min_max[ph][key]
+                    mm["min"] = min(mm["min"], avg[ph][key])
+                    mm["max"] = max(mm["max"], avg[ph][key])
+            model_variables_history.append(
+                {"epoch": epoch + 1, "variables": snap,
+                 "losses": {ph: dict(avg[ph]) for ph in loss_keys}})
+
         if n_val > 0:
             vavg = averages(trainer.eval_epoch_resident("val"))
             for ph in loss_keys:
                 for key in loss_keys[ph]:
                     history["val"][ph][key].append(vavg[ph][key])
             history["total_val_loss"].append(sum(sum(v.values()) for v in vavg.values()))
+        if ckpt is not None and ((epoch + 1) % checkpoint_every == 0 or epoch == epochs - 1):
+            ckpt.save(epoch, trainer.trained_models(), trainer.optimizers, history=history,
+                      rng_state=trainer.generator.get_state())
+
+        for cbk in callbacks or []:
+            cbk(epoch)
+
+    # best-epoch selection by min–max-normalized summed losses (ref :833-866)
+    best_model_variables = None
+    if model_variables_history:
+        best, normalized = _select_best(model_variables_history, loss_min_max, loss_keys)
+        best_model_variables = model_variables_history[best]["variables"]
+        trainer.load_snapshot(best_model_variables)
+        log.info("Restored variables from epoch %d (normalized loss %.4f)",
+                 model_variables_history[best]["epoch"], normalized[best])
+        if ckpt is not None:
+            # persist the restored weights: the last periodic save predates the restore
+            ckpt.save(epochs, trainer.trained_models(), trainer.optimizers, history=history,
+                      rng_state=trainer.generator.get_state())
+
     if verbose:
         print(f"Total training time: {time.time() - t_total:.2f}s")
-    return trainer, history
+    if ckpt is not None:
+        ckpt.wait_until_finished()
+        ckpt.close()
+    return trainer, history, best_model_variables

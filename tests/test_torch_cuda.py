@@ -397,3 +397,108 @@ def test_dg3d_backward_kernel_writes_zero_off_the_stencil(cuda, shape):
         assert torch.isfinite(g).all()
         assert torch.all(g[:, count >= 2] == 0)
     assert torch.all(got[0][:, count >= 1] == 0)
+
+
+# -- the trainer's CUDA graphs ----------------------------------------------
+def test_cuda_graph_on_the_cpu_raises(tmp_path):
+    """A graph needs the models on a CUDA device: asked for one on the CPU,
+    the trainer refuses rather than running eagerly."""
+    from srm_tpu_torch.examples.common import setup_case
+    from srm_tpu_torch.training.trainer import Trainer
+    case = setup_case("DG", base_dir=str(tmp_path), nx=9, n_realizations=6, device="cpu")
+    with pytest.raises(ValueError, match="cuda_graph"):
+        Trainer(case["loss_fn"], cuda_graph=True)
+    assert not Trainer(case["loss_fn"]).cuda_graph
+
+
+@pytest.fixture(scope="module")
+def small_cases(tmp_path_factory):
+    """The dg9 and gc9 cases on the card (9×9, 6 realizations: 3 batches of
+    32 per epoch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from srm_tpu_torch.examples.common import setup_case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {f: setup_case(f, base_dir=str(tmp_path_factory.mktemp(f)), nx=9, n_realizations=6,
+                          device="cuda") for f in ("DG", "GC")}
+
+
+def _trainer(case, **kw):
+    """A Trainer on copies of the case's trained models, with the train
+    split staged at batch 32 (the cases have no val split)."""
+    import copy
+
+    from srm_tpu_torch.training.trainer import Trainer
+    loss_fn = copy.copy(case["loss_fn"])
+    loss_fn.models = {**case["models"], **{n: copy.deepcopy(case["models"][n]) for n in
+                                           ("pressure", "time_step", "saturation_model")
+                                           if n in case["models"]}}
+    trainer = Trainer(loss_fn, **kw)
+    trainer.stage_dataset("train", case["train_groups"], 32)
+    return trainer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fluid", ["DG", "GC"])
+def test_graph_replay_matches_the_eager_step(small_cases, fluid, monkeypatch):
+    """From the same weights on the same batches, the graphed trainer (its
+    eager warm-up steps, then replays) and the eager one give the same step
+    losses up to the first replayed step (1e-3) and Model 1 update over two
+    epochs (1e-2 of its size), as chip_smoke.py holds them: where kernels
+    are not deterministic two eager runs differ by up to 3.4e-5 and 9e-4 at
+    39×39, since Adam magnifies an ulp where a gradient is near zero. Each
+    replay runs the step's kernels on the step's buffers, and its counters
+    count launches per replay."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    eager = _trainer(small_cases[fluid], cuda_graph=False)
+    for c in st.COUNTERS:
+        monkeypatch.setattr(st, c, 0)
+    graphed = _trainer(small_cases[fluid])
+    losses = {}
+    for name, t in (("graphed", graphed), ("eager", eager)):
+        losses[name] = np.concatenate([t.train_epoch_resident("train")["total"]
+                                       for _ in range(2)])
+        if name == "graphed":
+            counts = {c: getattr(st, c) for c in st.COUNTERS}
+    nb, warm = graphed._resident["train"][2], graphed.warmup_steps
+    assert graphed.replays["train"] == 2 * nb - warm
+    fwd, bwd = (("launches", "launches_bwd") if fluid == "DG"
+                else ("launches_gc", "launches_gc_bwd"))
+    assert counts[fwd] == counts[bwd] == 2 * nb, counts
+    # up to the first replayed step; later the weights' rounding spreads
+    np.testing.assert_allclose(losses["graphed"][:warm + 1], losses["eager"][:warm + 1], rtol=1e-3)
+    assert np.all(np.isfinite(losses["graphed"]))
+    for key in graphed.optimizer_keys:
+        assert int(graphed.optimizers[key].count) == int(eager.optimizers[key].count) == 2 * nb
+    # Model 1's update over the 2 epochs; Model 2's float32 gradient is
+    # rounding noise once the weights move (ROADMAP C2)
+    key = graphed.optimizer_keys[0]
+    start = [p.detach() for p in small_cases[fluid]["models"][key].parameters()]
+    with torch.no_grad():
+        got = [p - s for p, s in zip(graphed.optimizers[key].params, start)]
+        want = [p - s for p, s in zip(eager.optimizers[key].params, start)]
+        rel = torch.sqrt(sum(((g - w).double() ** 2).sum() for g, w in zip(got, want))
+                         / sum((w.double() ** 2).sum() for w in want))
+    assert float(rel) <= 1e-2, float(rel)
+
+
+@pytest.mark.cuda
+def test_restore_is_seen_by_the_next_replay(small_cases):
+    """A best-epoch restore writes the live parameters in place: the next
+    replayed eval step computes with the restored weights, as an eager
+    eval step on them does."""
+    graphed = _trainer(small_cases["DG"])
+    snap = graphed.snapshot()
+    for _ in range(2):
+        graphed.train_epoch_resident("train")
+        graphed.eval_epoch_resident("train")
+    trained = graphed.eval_epoch_resident("train")["total"]
+    replays = graphed.replays["eval"]
+    graphed.load_snapshot(snap)
+    restored = graphed.eval_epoch_resident("train")["total"]
+    assert graphed.replays["eval"] == replays + len(restored)
+    eager = _trainer(small_cases["DG"], cuda_graph=False)
+    want = eager.eval_epoch_resident("train")["total"]
+    assert not np.allclose(trained, want)
+    np.testing.assert_allclose(restored, want, rtol=1e-6)

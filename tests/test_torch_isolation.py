@@ -73,6 +73,37 @@ def test_port_gc_never_imports_jax(tmp_path):
     assert "isolated" in proc.stdout
 
 
+def test_checkpoint_path_never_imports_jax(tmp_path):
+    """The training driver's checkpoint and resume path (``utils/checkpoint.py``,
+    ``torch.save`` files) stands alone as well."""
+    script = textwrap.dedent(f"""
+        import sys
+        import torch
+        torch.set_num_threads(2)
+        from srm_tpu_torch.examples.common import setup_case
+        from srm_tpu_torch.training.trainer import train_combined_models_unified
+        from srm_tpu_torch.utils.checkpoint import CheckpointManager
+        case = setup_case("DG", base_dir={str(tmp_path / "data")!r}, nx=9, n_realizations=6,
+                          device="cpu")
+        ckpt = {str(tmp_path / "ckpt")!r}
+        for epochs, resume in ((1, False), (3, True)):
+            _, history, best = train_combined_models_unified(
+                case["train_groups"], case["val_groups"], case["loss_fn"],
+                training_batch_size=32, epochs=epochs, verbose=0, checkpoint_dir=ckpt,
+                resume=resume)
+            assert best is not None and len(history["total_train_loss"]) == 1, history
+        assert CheckpointManager(ckpt).latest_step() == 3
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
+        assert not loaded, loaded
+        ref = sorted(m for m in sys.modules if m.split(".")[0] == "srm_tpu")
+        assert not ref, ref
+        print("isolated")
+    """)
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
 def test_chip_smoke_imports_nothing_of_the_jax_package():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]

@@ -354,10 +354,9 @@ def jax_steps(cases):
 @pytest.mark.parametrize("key", ["pressure", "time_step"])
 def test_optimizer_matches_optax_on_the_same_gradients(cases, jax_steps, key):
     """The port's Adam/AdamW, fed the reference's three gradients, lands on
-    the reference's parameters. Same formulas in float32; the schedules and
-    bias corrections are evaluated in double here and in float32 by optax,
-    and an element whose three gradients nearly cancel in Adam's first
-    moment loses relative precision: 1e-4 of the update's size."""
+    the reference's parameters. Same formulas in float32, the schedules and
+    bias corrections too (device tensors in optax's order): measured 1.8e-8
+    (pressure) and 1.2e-7 (time step) of the update's size, held to 1e-6."""
     trail, grads_seen = jax_steps
     params = [p.clone() for p in trail[0][key]]
     opt = build_port_optimizer(params, get_optimizer_config(key))
@@ -365,7 +364,7 @@ def test_optimizer_matches_optax_on_the_same_gradients(cases, jax_steps, key):
         opt.step(_as_torch_layout(cases["tcase"], grads)[key])
     rel = _rel([p - s for p, s in zip(params, trail[0][key])],
                [w - s for w, s in zip(trail[-1][key], trail[0][key])])
-    assert rel <= 1e-4, f"{key}: three-step update differs by {rel:.2e}"
+    assert rel <= 1e-6, f"{key}: three-step update differs by {rel:.2e}"
 
 
 def test_three_optimizer_steps_match(cases, jax_steps):

@@ -410,7 +410,7 @@ def test_trainer_runs_epochs_on_3d_samples(cases):
                                             for k in ("pressure", "time_step")}}
     before = {k: [p.detach().clone() for p in loss_fn.models[k].parameters()]
               for k in ("pressure", "time_step")}
-    trainer, history = train_combined_models_unified(
+    trainer, history, _ = train_combined_models_unified(
         tcase["train_groups"], tcase["val_groups"], loss_fn, training_batch_size=32,
         epochs=2, general_config=tcase["general_config"], verbose=0)
     x, _, nb, bs = trainer._resident["train"]

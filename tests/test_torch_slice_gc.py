@@ -212,6 +212,70 @@ def test_time_step_gradient_within_float32_reach(cases, grads_64, b):
         assert err <= 0.2, f"{name}: {err:.2e} from the float64 gradient"
 
 
+def _ulp(a: np.ndarray, rng) -> np.ndarray:
+    """``a`` moved by one float32 ulp, up or down, at a random half of its
+    positions."""
+    moved = np.nextafter(a, np.where(rng.rand(*a.shape) < 0.5, -np.inf, np.inf).astype(a.dtype))
+    return np.where(rng.rand(*a.shape) < 0.5, moved, a).astype(a.dtype)
+
+
+def _time_step_distance(lf, x, y, pvt=None) -> float:
+    """The port's float32 time-step gradient's distance from its float64
+    one, on (x, y), with the PVT module ``pvt`` in place of the case's."""
+    lf32 = copy.copy(lf)
+    lf32.models = {**lf.models, **({"pvt_model": pvt} if pvt is not None else {})}
+    lf64 = copy.copy(lf32)
+    lf64.models = {**lf32.models, **{k: copy.deepcopy(lf32.models[k]).double()
+                                     for k in ("pressure", "time_step", "pvt_model",
+                                               "saturation_model")}}
+    _, g32, _ = lf32.pinn_batch_sse_grad(x, y)
+    _, g64, _ = lf64.pinn_batch_sse_grad(x.double(), {k: v.double() for k, v in y.items()})
+    return _rel(g32["time_step"], g64["time_step"])
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_time_step_gradient_spread_under_float32_rounding(cases, grads_64, b):
+    """How far float32 rounding alone moves the time-step gradient from its
+    float64 value (ROADMAP C4), on the batches where the two packages sit at
+    different distances (port 0.129 and 0.0070, reference 0.0073 and 0.0014):
+
+    * x moved by one ulp at random positions, 8 numpy seeds, barely moves
+      the port's distance on batch 2 (measured 0.113-0.119; batch 3:
+      0.0028-0.0099): the fields whose rounding decides it are the PVT's
+      values at the pinned pressure, the same float32 numbers whatever x is;
+    * the PVT's spline weights moved by one ulp at random positions, 8
+      seeds, which re-rounds those values, move it over a decade (measured
+      0.0172-0.146 and 0.00088-0.060): the spread holds the port's own
+      distance, and on batch 3 the reference's too;
+    * the reference itself, run op by op (``jax.disable_jit``) instead of
+      compiled, sits 0.118 and 0.0126 from float64, inside that spread and
+      9-16x further than its compiled gradient: the reference's small
+      distance comes from XLA's rewrites of its compiled step, not from
+      another function. The quantity is ill-conditioned, as C1 and C2."""
+    grads_t, grads_j = _grads(cases, b)
+    port_err = _rel(grads_t["time_step"], grads_64[b]["time_step"])
+    ref_jit = _rel(grads_j["time_step"], grads_64[b]["time_step"])
+    with jax.disable_jit():
+        _, eager_j, _ = cases["jcase"]["loss_fn"].pinn_batch_sse_grad(
+            cases["jcase"]["params"], *_j(cases["batches"][b]))
+    ref_eager = _rel(_as_torch_layout(cases["tcase"], eager_j)["time_step"],
+                     grads_64[b]["time_step"])
+    lf = cases["tcase"]["loss_fn"]
+    x, y = _t(cases["batches"][b])
+    by_x, by_pvt = [], []
+    for seed in range(8):
+        rng = np.random.RandomState(seed)
+        by_x.append(_time_step_distance(lf, torch.from_numpy(_ulp(x.numpy(), rng)), y))
+        pvt = copy.deepcopy(lf.models["pvt_model"])
+        pvt.w.copy_(torch.from_numpy(_ulp(pvt.w.numpy(), rng)))
+        by_pvt.append(_time_step_distance(lf, x, y, pvt))
+    assert np.all(np.isfinite(by_x + by_pvt))
+    assert max(by_x) / min(by_x) < max(by_pvt) / min(by_pvt), (by_x, by_pvt)
+    assert min(by_pvt) <= port_err <= max(by_pvt), (port_err, by_pvt)
+    assert min(by_pvt) <= ref_eager <= max(by_pvt), (ref_eager, by_pvt)
+    assert ref_eager >= 5.0 * ref_jit, (ref_eager, ref_jit)
+
+
 def _residual_call(monkeypatch, module, run):
     """The arguments and outputs of the one call of
     ``module.gc_residual_from_fields`` that ``run()`` makes."""
@@ -336,8 +400,8 @@ def jax_steps(cases):
 @pytest.mark.parametrize("key", list(MODELS))
 def test_optimizer_matches_optax_on_the_same_gradients(cases, jax_steps, key):
     """The port's Adam/AdamW, fed the reference's three gradients, lands on
-    the reference's parameters (1e-4 of the update's size, as in the
-    dry-gas slice)."""
+    the reference's parameters (measured 1.6e-8 to 3.9e-8 of the update's
+    size, held to 1e-6 as in the dry-gas slice)."""
     trail, grads_seen = jax_steps
     params = [p.clone() for p in trail[0][key]]
     opt = build_port_optimizer(params, get_optimizer_config(key))
@@ -345,7 +409,7 @@ def test_optimizer_matches_optax_on_the_same_gradients(cases, jax_steps, key):
         opt.step(_as_torch_layout(cases["tcase"], grads)[key])
     rel = _rel([p - s for p, s in zip(params, trail[0][key])],
                [w - s for w, s in zip(trail[-1][key], trail[0][key])])
-    assert rel <= 1e-4, f"{key}: three-step update differs by {rel:.2e}"
+    assert rel <= 1e-6, f"{key}: three-step update differs by {rel:.2e}"
 
 
 def test_three_optimizer_steps_match(cases, jax_steps):
