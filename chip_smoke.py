@@ -91,6 +91,16 @@ RTOL, ATOL_REL = 1e-4, 1e-5
 # A replay on stale weights or another batch is 6e-2 to 1.3 off (the restore
 # check's "before" numbers).
 GRAPH_LOSS_RTOL, GRAPH_WEIGHT_REL, GRAPH_MODEL2_REL = 1e-3, 1e-2, 1e-2
+
+# the simulator labels (phase_labels): the test split of each 2D case at 20
+# realizations, the reference's physical bounds and its mass-balance bound
+# (tests/test_fv_simulator.py:36-93), its bound between the dense and the
+# iterative solver (:202, 0.1 psia), and its bound on the RMSE of a barely
+# trained pressure model (:131-134)
+LABEL_REALIZATIONS = 20
+MASS_BALANCE_TOL = 0.02
+SOLVER_PSIA_TOL = 0.1
+RMSE_BOUND = 3500.0
 # backward kernel vs autograd of the plain forward, for B3's p0: its
 # gradient is a difference of large terms (the chord slopes and the
 # accumulation), which the kernel rounds in the explicit adjoint's order and
@@ -423,6 +433,143 @@ def phase_backward(name: str) -> dict:
             "autograd_launches_per_call": device["autograd"][0], **events}
 
 
+def _timed(fn):
+    """fn() and its seconds on the host clock, the card synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _labelled_config(fluid: str) -> dict:
+    import copy
+    from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG
+    g = copy.deepcopy(DEFAULT_GENERAL_CONFIG)
+    g["fluid_type"] = fluid
+    g["label_source"] = "simulator"
+    return g
+
+
+def simulator_pvt(fluid: str):
+    """The simulator's order-1 spline PVT, on the card."""
+    from srm_tpu_torch.config import get_configuration
+    from srm_tpu_torch.data.pvt_table import load_pvt_table
+    from srm_tpu_torch.physics.pvt import make_spline_pvt, properties_for
+    return make_spline_pvt(get_configuration("pvt_layer", fluid_type=fluid), load_pvt_table(),
+                           properties=properties_for(fluid), order=1).cuda()
+
+
+def phase_labels(base_dir: str) -> None:
+    """The FV simulator on the card: the test split of the DG 2D and GC 2D
+    default cases at LABEL_REALIZATIONS realizations (dense solver), each
+    simulated twice and required bitwise equal, held to the reference's
+    physical checks; then one DG 3D realization at 39×39×10 for 5 time
+    steps, the CG path against the dense solve in float64; prints the
+    seconds of each."""
+    import numpy as np
+    import torch
+    from srm_tpu_torch.config import DEFAULT_SCAL_CONFIG
+    from srm_tpu_torch.data.dataset import SRMDataProcessor
+    from srm_tpu_torch.physics.relperm import RelativePermeability
+    from srm_tpu_torch.sim import build_problem, simulate_dry_gas, simulate_labels
+    from srm_tpu_torch.sim.fv_simulator import mass_balance
+    scal = DEFAULT_SCAL_CONFIG
+    relperm = RelativePermeability.from_config(scal["end_points"], scal["corey_exponents"])
+    for fluid in ("DG", "GC"):
+        g = _labelled_config(fluid)
+        proc = SRMDataProcessor(base_dir=base_dir, general_config=g, device="cuda")
+        proc.reservoir_config["realizations"]["permx"]["number"] = LABEL_REALIZATIONS
+        permx = proc.generate_kle_splits()["test"]
+        times = proc.generate_time_tensor()["test"].reshape(-1)
+        (a, t1), (b, t2) = (_timed(lambda: simulate_labels(proc, "test", permx=permx,
+                                                           times=times)) for _ in range(2))
+        for k in a:
+            if a[k].tobytes() != b[k].tobytes():
+                raise AssertionError(f"{fluid} {k}: two simulations on the card differ")
+        p = a["PRESSURE"]
+        K, T = p.shape[:2]
+        Pi = float(proc.reservoir_config["initialization"]["Pi"])
+        Sgi = 1.0 - scal["end_points"]["Swmin"]
+        means = p.mean(axis=(0, 2, 3, 4))
+        checks = {"p at t0 is Pi": bool((p[:, 0] == Pi).all()),
+                  "field mean falls at every step": bool((np.diff(means) < 0).all()),
+                  "1000 < p <= Pi": bool(p.min() > 1000.0 and p.max() <= Pi + 1e-3),
+                  "finite": bool(np.isfinite(p).all())}
+        prob, kscale = build_problem(proc.reservoir_config, proc.wells_config, scal, g)
+        pvt = simulator_pvt(fluid)
+        kx = torch.from_numpy(permx.reshape(K, -1)).cuda()
+        if fluid == "DG":
+            out = torch.from_numpy(p.reshape(K, T, -1)).cuda()
+            mb = mass_balance(prob, kscale, kx, times, out, pvt)
+        else:
+            sg = a["SGAS"]
+            checks["0 <= Sg <= Sgi"] = bool(sg.min() >= 0.0 and sg.max() <= Sgi + 1e-5)
+            out = torch.from_numpy(np.stack([p.reshape(K, T, -1), sg.reshape(K, T, -1)], -1)).cuda()
+            mb = mass_balance(prob, kscale, kx, times, out, pvt, relperm,
+                              scal["end_points"]["Swmin"])
+        worst = float(mb.abs().max())
+        checks[f"mass balance within {MASS_BALANCE_TOL}"] = worst < MASS_BALANCE_TOL
+        log(f"labels {fluid} {p.shape} (dense): {t1:.2f} s and {t2:.2f} s, bitwise equal; "
+            f"p in [{p.min():.2f}, {p.max():.2f}], worst mass balance {worst:.2e}"
+            + (f", Sg in [{a['SGAS'].min():.5f}, {a['SGAS'].max():.5f}]" if fluid == "GC" else ""))
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"{fluid} labels fail: {failed}")
+
+    # DG 3D: one realization at 39×39×10, 5 time steps. The float32 dense
+    # solve is itself more than 0.1 psia from the float64 solution in 3D
+    # (both packages; tests/test_torch_sim.py), so the CG path is held to
+    # the dense solve in float64 within the reference's 0.1 psia
+    import copy
+    from srm_tpu_torch.config import DEFAULT_RESERVOIR_CONFIG, DEFAULT_WELLS_CONFIG
+    res = copy.deepcopy(DEFAULT_RESERVOIR_CONFIG)
+    res["Nz"] = 10
+    g = _labelled_config("DG")
+    prob, kscale = build_problem(res, DEFAULT_WELLS_CONFIG, scal, g)
+    n = 10 * res["Ny"] * res["Nx"]
+    spec = res["realizations"]["permx"]
+    rng = np.random.RandomState(g["seed"])
+    kx = torch.from_numpy(np.exp(rng.normal(np.log(spec["mean"]), spec["std"] / spec["mean"],
+                                            (1, n))).astype(np.float32)).cuda()
+    times = np.arange(5, dtype=np.float32) * g["srm_timestep"]
+    stats = {}
+    pvt, pvt64 = simulator_pvt("DG"), simulator_pvt("DG").double()
+    exact, t_exact = _timed(lambda: simulate_dry_gas(prob, kscale, kx.double(), times, pvt64,
+                                                     solver="dense"))
+    dense, t_dense = _timed(lambda: simulate_dry_gas(prob, kscale, kx, times, pvt,
+                                                     solver="dense"))
+    cg, t_cg = _timed(lambda: simulate_dry_gas(prob, kscale, kx, times, pvt, solver="cg",
+                                               stats=stats))
+    gap = {k: float((v.double() - exact).abs().max()) for k, v in (("cg", cg), ("dense", dense))}
+    log(f"labels DG 3D {tuple(cg.shape)} (1 realization, 10x39x39, 5 times): CG {t_cg:.2f} s, "
+        f"dense {t_dense:.2f} s, dense float64 {t_exact:.2f} s; CG trips per solve (checked "
+        f"every 32) {stats['trips']}; from the float64 solution: CG {gap['cg']:.4f} psia, "
+        f"float32 dense {gap['dense']:.4f} psia; drawdown {prob.Pi - float(exact.min()):.2f} psia")
+    if not torch.isfinite(cg).all() or gap["cg"] > SOLVER_PSIA_TOL or max(stats["trips"]) >= 1000:
+        raise AssertionError(f"DG 3D: CG {gap['cg']:.4f} psia from the float64 dense solve "
+                             f"(bound {SOLVER_PSIA_TOL}), trips {stats['trips']}")
+
+
+def phase_rmse(case) -> None:
+    """The pressure RMSE of the trained model against the case's labelled
+    test split, and of predicting Pi everywhere."""
+    import numpy as np
+    from srm_tpu_torch.eval.plotting import pressure_rmse
+    _, labels = case["test_groups"][0]
+    p = np.asarray(labels["PRESSURE"])
+    Pi = float(case["processor"].reservoir_config["initialization"]["Pi"])
+    if not p.min() > 1000.0:
+        raise AssertionError(f"the test split is not labelled (min {p.min()})")
+    rmse, secs = _timed(lambda: pressure_rmse(case["models"], case["test_groups"]))
+    rmse_pi = float(np.sqrt(np.mean((p - Pi) ** 2)))
+    log(f"pressure RMSE after two epochs: {rmse:.3f} psia on the labelled test split {p.shape} "
+        f"({secs:.2f} s), predict-Pi {rmse_pi:.3f} psia")
+    if not np.isfinite(rmse) or rmse >= RMSE_BOUND:
+        raise AssertionError(f"pressure RMSE {rmse} is not finite and below {RMSE_BOUND}")
+
+
 def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs) -> dict:
     """Two epochs at batch 32 of the case ``setup_case(fluid, **case_kwargs)``;
     returns the launch counts during training, and checks that no other
@@ -516,6 +663,8 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
         raise AssertionError(f"non-finite loss {float(total)} after training")
     log(f"trained models: {kernel} and its plain version agree on the main path's "
         f"stencil inputs; total loss {float(total):.6e}")
+    if case["general_config"].get("label_source") == "simulator":
+        phase_rmse(case)
     phase_graph(trainer, kernel)
     return counts
 
@@ -655,7 +804,9 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     counts = {}
     with tempfile.TemporaryDirectory(prefix="smoke_data_", dir=os.path.join(ROOT, "build")) as tmp:
-        counts["dg_stencil_residual"] = phase_main_path(tmp, "dg_stencil_residual")
+        phase_labels(tmp)
+        counts["dg_stencil_residual"] = phase_main_path(tmp, "dg_stencil_residual",
+                                                        general_config=_labelled_config("DG"))
         counts["dg3d_stencil_residual"] = phase_main_path(
             tmp, "dg3d_stencil_residual", nz=10, kle_method="uncorrelated")
         counts["gc_stencil_residual"] = phase_main_path(tmp, "gc_stencil_residual",

@@ -1,18 +1,23 @@
 """Physics-mode training-dataset assembly and cache.
 
 Port of ``srm_tpu/data/dataset.py::SRMDataProcessor`` for physics mode
-(``physics_mode_fraction >= 1``) with zero labels: KLE realizations →
-per-split time tensors (with shut-in times) → positional midpoint grids →
-woven features ``(K, T, D, H, W, 5)`` with channels
-``(z, y, x, time, permx)`` → train-split statistics → lnk-linear
-normalization → (features, labels) groups.
+(``physics_mode_fraction >= 1``): KLE realizations → per-split time tensors
+(with shut-in times) → positional midpoint grids → woven features
+``(K, T, D, H, W, 5)`` with channels ``(z, y, x, time, permx)`` →
+train-split statistics → lnk-linear normalization → (features, labels)
+groups. The train and val labels are zeros; with
+``label_source="simulator"`` the test split's labels come from the port's
+FV simulator (``srm_tpu_torch.sim``, on the processor's ``device``), and
+the prediction split takes its labels from the test split's.
 
 The cache files are the reference's: ``training_data_{hash}.npz`` and
 ``training_statistics_summary_{hash}.json`` under
 ``static_dynamic/{name}_{hash}/``, keyed by
 ``srm_tpu_torch.config.generate_full_config_hash``, the port's copy of the
 JAX package's: while the two hashes agree (``tests/test_torch_config.py``),
-either package reads what the other wrote. Simulator and Eclipse labels are not ported yet.
+either package reads what the other wrote. Mixed physics/data modes (ROADMAP
+A11), labels parsed from simulator files (A15) and their time re-slicing
+are not ported.
 """
 
 from __future__ import annotations
@@ -34,8 +39,8 @@ from srm_tpu_torch.config import (
     generate_full_config_hash,
 )
 from srm_tpu_torch.data.kle import generate_kle_numpy, split_realizations
-from srm_tpu_torch.data.weave import (create_positional_grids, split_tensor_sequence,
-                                      weave_tensors)
+from srm_tpu_torch.data.weave import (align_and_trim_pair_lists, create_positional_grids,
+                                      split_tensor_sequence, weave_tensors)
 from srm_tpu_torch.utils.stats import DataSummary, compute_statistics, normalize_channels
 
 log = logging.getLogger(__name__)
@@ -44,12 +49,14 @@ FEATURE_KEYS = ["z", "y", "x", "time", "permx"]  # woven channel order
 
 
 class SRMDataProcessor:
-    """Builds, normalizes and caches the physics-mode SRM dataset."""
+    """Builds, normalizes and caches the physics-mode SRM dataset; simulator
+    labels run on ``device`` (None: ``"cuda"``)."""
 
     def __init__(self, base_dir: Optional[str] = None,
                  general_config: Optional[Dict] = None,
                  reservoir_config: Optional[Dict] = None,
-                 wells_config: Optional[Dict] = None):
+                 wells_config: Optional[Dict] = None, device=None):
+        self.device = device
         self.base_dir = base_dir or WORKING_DIRECTORY
         self.general_config = copy.deepcopy(general_config or DEFAULT_GENERAL_CONFIG)
         self.reservoir_config = copy.deepcopy(reservoir_config or DEFAULT_RESERVOIR_CONFIG)
@@ -151,16 +158,30 @@ class SRMDataProcessor:
         return ["PRESSURE"] if self.general_config["fluid_type"] == "DG" else ["PRESSURE", "SGAS"]
 
     def _check_physics_mode(self):
-        """Only zero labels are ported: refuse any configuration for which
-        the reference would read or simulate labels."""
+        """Refuse what the port cannot build yet, before any work."""
         g = self.general_config
-        if g["physics_mode_fraction"] < 1.0 or g.get("label_source") == "simulator":
-            raise NotImplementedError("only physics mode with zero labels is ported")
+        if g["physics_mode_fraction"] < 1.0:
+            raise NotImplementedError("physics_mode_fraction < 1 (mixed physics/data training) "
+                                      "is not ported yet (ROADMAP A11)")
+        if (g.get("array_pipeline") or {}).get("slices") is not None:
+            raise NotImplementedError("array_pipeline.slices (the labels' time re-slicing, "
+                                      "pipeline.process_array) is not ported yet (ROADMAP A15)")
         _, h = self.config_hash()
         sim_dir = os.path.join(self.kle_folder(), f"dat_files_test_{h}", "dynamic")
         if os.path.isdir(sim_dir):
             raise NotImplementedError(
-                f"simulator labels in {sim_dir} are not ported yet")
+                f"labels parsed from the simulator files in {sim_dir} (the Eclipse parsers) "
+                f"are not ported yet (ROADMAP A15)")
+
+    def simulation_labels(self, split: str, permx: Optional[np.ndarray] = None,
+                          times: Optional[np.ndarray] = None) -> Optional[Dict[str, np.ndarray]]:
+        """The split's labels from the FV simulator, in feature grid order
+        ``(K, T, Nz, Ny, Nx)``, when ``label_source == "simulator"``; else
+        None (the caller falls back to zero labels)."""
+        if self.general_config.get("label_source") != "simulator":
+            return None
+        from srm_tpu_torch.sim import simulate_labels
+        return simulate_labels(self, split, permx=permx, times=times, device=self.device)
 
     # -- full pipeline ----------------------------------------------------------
     def process_data(self):
@@ -169,8 +190,23 @@ class SRMDataProcessor:
         times = self.generate_time_tensor()
         grids = self.positional_grids()
         woven = {s: self.weave_split(kle[s], times[s], grids) for s in self.split_keys}
-        labels = {s: {k: np.zeros_like(woven[s][..., 0]) for k in self.label_keys()}
-                  for s in self.split_keys}
+
+        # labels: in physics mode only the test split is simulated
+        labels: Dict[str, Dict[str, np.ndarray]] = {}
+        for s in self.split_keys:
+            sim = (self.simulation_labels(s, permx=kle[s], times=times[s])
+                   if s == "test" else None)
+            if sim is None:
+                labels[s] = {k: np.zeros_like(woven[s][..., 0]) for k in self.label_keys()}
+                continue
+            # features and labels trimmed to their common (K, T)
+            fk, fT = woven[s].shape[:2]
+            lk, lT = next(iter(sim.values())).shape[:2]
+            if (fk, fT) != (lk, lT):
+                log.warning("split %r: aligning features (K=%d,T=%d) with labels (K=%d,T=%d) "
+                            "— trimming both to the common extent", s, fk, fT, lk, lT)
+            woven[s], labels[s] = align_and_trim_pair_lists(woven[s], sim, dims=(0, 1),
+                                                            trim_target="both")
 
         # prediction split: test permeabilities at the unseen (late) times
         split_ratio_pred = copy.deepcopy(self.split_ratio)

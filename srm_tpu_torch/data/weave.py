@@ -1,8 +1,9 @@
 """Feature weaving, positional grids and sequence splitting (host, numpy).
 
 Port of ``srm_tpu/data/weave.py`` (``weave_tensors``,
-``create_positional_grids``, ``split_tensor_sequence``), carried over
-unchanged: the woven tensor has channels ``(z, y, x, time, permx)``.
+``create_positional_grids``, ``split_tensor_sequence``,
+``align_and_trim_pair_lists``), carried over unchanged: the woven tensor
+has channels ``(z, y, x, time, permx)``.
 """
 
 from __future__ import annotations
@@ -114,3 +115,38 @@ def split_tensor_sequence(tensors, split_ratio: Dict[int, Sequence[float]],
             for si, part in enumerate(slice_one(t)):
                 results[si].append(part)
     return results
+
+
+def align_and_trim_pair_lists(a, b, dims=(0, 1), trim_target: str = "b"):
+    """Trim ``a`` and ``b`` (arrays, dicts of arrays or lists of either) so
+    that their given leading dims match (srm_tpu/data/weave.py:153)."""
+    def leading(x):
+        if isinstance(x, dict):
+            x = next(iter(x.values()))
+        return [np.shape(x)[d] for d in dims]
+
+    def trim(x, sizes):
+        def t_one(arr):
+            sl = [slice(None)] * np.ndim(arr)
+            for d, s in zip(dims, sizes):
+                if d < np.ndim(arr):
+                    sl[d] = slice(0, s)
+            return np.asarray(arr)[tuple(sl)]
+        if isinstance(x, dict):
+            return {k: t_one(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [trim(v, sizes) for v in x]
+        return t_one(x)
+
+    la = leading(a[0] if isinstance(a, list) else a)
+    lb = leading(b[0] if isinstance(b, list) else b)
+    target = [min(x, y) for x, y in zip(la, lb)]
+    if trim_target in ("a", "both"):
+        a = trim(a, target)
+    if trim_target in ("b", "both"):
+        b = trim(b, target)
+    if trim_target == "b" and la != target:
+        a = trim(a, target)
+    if trim_target == "a" and lb != target:
+        b = trim(b, target)
+    return a, b

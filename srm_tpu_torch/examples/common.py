@@ -13,6 +13,8 @@ config hash.
 
 The case runs on the GPU: ``device=None`` means ``"cuda"``, and without a
 usable CUDA device the call raises. Pass ``device="cpu"`` to run on the CPU.
+With ``general_config["label_source"] == "simulator"`` the test split's
+labels come from the FV simulator, on the same device.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
     g["fluid_type"] = fluid_type
     if seed is not None:
         g["seed"] = seed
-    processor = SRMDataProcessor(base_dir=base_dir, general_config=g)
+    processor = SRMDataProcessor(base_dir=base_dir, general_config=g, device=device)
     res = processor.reservoir_config
     if nx is not None or nz is not None:
         # resize the grid: rescale well positions and the unit target shape

@@ -1,5 +1,6 @@
 """The port stands alone: it never imports JAX nor anything of the JAX
-package, its entry points run on the GPU unless the caller asks for the CPU,
+package (its training steps, its simulator labels and its RMSE), its entry
+points run on the GPU unless the caller asks for the CPU,
 and its chip check imports nothing of the JAX package and refuses to run,
 and prints no result, without a GPU or outside a checkout."""
 
@@ -94,6 +95,40 @@ def test_checkpoint_path_never_imports_jax(tmp_path):
             assert best is not None and len(history["total_train_loss"]) == 1, history
         assert CheckpointManager(ckpt).latest_step() == 3
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
+        assert not loaded, loaded
+        ref = sorted(m for m in sys.modules if m.split(".")[0] == "srm_tpu")
+        assert not ref, ref
+        print("isolated")
+    """)
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+def test_simulator_labels_and_rmse_never_import_jax(tmp_path):
+    """The FV simulator (``simulate_labels``), a case whose test split it
+    labels, and the pressure RMSE against those labels stand alone as well."""
+    script = textwrap.dedent(f"""
+        import copy, sys
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)
+        from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG
+        from srm_tpu_torch.eval.plotting import pressure_rmse
+        from srm_tpu_torch.examples.common import setup_case
+        from srm_tpu_torch.sim import simulate_labels
+        g = copy.deepcopy(DEFAULT_GENERAL_CONFIG)
+        g["label_source"] = "simulator"
+        case = setup_case("DG", base_dir={str(tmp_path)!r}, nx=9, n_realizations=6,
+                          general_config=g, device="cpu")
+        times = np.array([0.0, 30.0, 60.0], np.float32)
+        p = simulate_labels(case["processor"], "test", times=times)["PRESSURE"]
+        assert p.shape[1:] == (3, 1, 9, 9) and np.isfinite(p).all(), p.shape
+        _, labels = case["test_groups"][0]
+        assert labels["PRESSURE"].min() > 1000.0
+        rmse = pressure_rmse(case["models"], case["test_groups"])
+        assert np.isfinite(rmse) and rmse > 0, rmse
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
         assert not loaded, loaded
         ref = sorted(m for m in sys.modules if m.split(".")[0] == "srm_tpu")
         assert not ref, ref
