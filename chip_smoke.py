@@ -56,6 +56,17 @@ the process exits non-zero:
    (``cuda_graph=False``, cuDNN deterministic) agree within
    GRAPH_LOSS_RTOL and GRAPH_WEIGHT_REL; and after a best-epoch restore
    the replayed eval step computes with the restored weights.
+7. serving — on the trained DG 2D and GC 2D models: the predictor's rollout
+   of the test split (14 realizations × 74 times, batch 256; pressure, and
+   for GC the gas saturation) as one CUDA graph replay per batch, bitwise
+   its eager rollout (cuDNN deterministic for both), within SERVE_CPU_REL
+   of the field's scale of the same predictor on the CPU; the serving
+   bundle (GC with both heads) exported for cpu and cuda and loaded from
+   its directory on each, within SERVE_BUNDLE_REL of the live predictor on
+   that platform, serving batches of 1, 3, 7 and 300, t = 0 giving Pi; then
+   ``python -m srm_tpu_torch.tools.infer_vs_sim --sim-reps 1`` (the
+   surrogate's and the FV simulator's seconds on the reference's workload,
+   its JSON line).
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -108,6 +119,15 @@ RMSE_BOUND = 3500.0
 # magnitude from the float64 gradient (the phase prints both distances); the
 # bound is their sum with room
 CANCELLING_TOL = 1e-3
+
+# the serving phase: the card's rollout against the CPU's, relative to the
+# field's largest magnitude (float32 convolutions in another order, through
+# five encoder and five decoder layers); a served bundle against the live
+# predictor on the same platform (the same network at another batch size,
+# normalised on the device instead of the host); the batch sizes served
+SERVE_CPU_REL = 1e-4
+SERVE_BUNDLE_REL = 1e-5
+SERVE_BATCHES = (1, 3, 7, 300)
 
 DG_OUTPUTS = ("dom", "ibc", "tde", "mbc")
 GC_OUTPUTS = ("dom_g", "dom_o", "ibc", "trn_g", "trn_o", "mbc_g", "mbc_o")
@@ -570,9 +590,10 @@ def phase_rmse(case) -> None:
         raise AssertionError(f"pressure RMSE {rmse} is not finite and below {RMSE_BOUND}")
 
 
-def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs) -> dict:
+def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs):
     """Two epochs at batch 32 of the case ``setup_case(fluid, **case_kwargs)``;
-    returns the launch counts during training, and checks that no other
+    returns the launch counts during training and the trained case, and
+    checks that no other
     kernel launched and that each training step's backward went through
     ``kernel``'s backward kernel, where it has one, and nothing else."""
     import numpy as np
@@ -666,7 +687,7 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
     if case["general_config"].get("label_source") == "simulator":
         phase_rmse(case)
     phase_graph(trainer, kernel)
-    return counts
+    return counts, case
 
 
 def _copy_loss(loss_fn):
@@ -791,6 +812,108 @@ def phase_graph(trainer, kernel: str) -> None:
                              "weights")
 
 
+def _rollouts(pred, permx, times, fields) -> dict:
+    return {f: getattr(pred, f"predict_{f}")(permx, times) for f in fields}
+
+
+def phase_serving(base_dir: str, dg_case, gc_case) -> None:
+    """The serving path on the trained DG 2D and GC 2D models: the
+    predictor's graphed rollout of the test split (14 realizations × 74
+    times, batch 256) against its eager one bitwise (cuDNN deterministic for
+    both), one graph replay per batch, the card against the same predictor
+    on the CPU within SERVE_CPU_REL of the field's scale; the serving bundle
+    (GC with both heads) exported for cpu and cuda, loaded from its
+    directory on each, within SERVE_BUNDLE_REL of the live predictor on the
+    same platform, serving batches of SERVE_BATCHES, and t = 0 giving Pi;
+    then ``infer_vs_sim`` at one simulator repeat."""
+    import copy
+
+    import numpy as np
+    import torch
+    from srm_tpu_torch.eval import SRMPredictor, export_surrogate, load_surrogate
+    from srm_tpu_torch.tools import infer_vs_sim
+
+    for fluid, case in (("DG", dg_case), ("GC", gc_case)):
+        proc, models = case["processor"], case["models"]
+        permx = proc.generate_kle_splits()["test"]
+        times = proc.generate_time_tensor()["test"].reshape(-1)
+        n = permx.shape[0] * times.size
+        fields = ("pressure", "saturation") if fluid == "GC" else ("pressure",)
+        names = {"pressure": "pressure", "saturation": "saturation_model"}
+        args = (case["data_summary"], case["general_config"], proc.reservoir_config)
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            graphed = SRMPredictor(models, *args)
+            eager = SRMPredictor(models, *args, cuda_graph=False)
+            live, t_graph = _timed(lambda: _rollouts(graphed, permx, times, fields))
+            first = dict(graphed.replays)
+            again, t_again = _timed(lambda: _rollouts(graphed, permx, times, fields))
+            plain, t_eager = _timed(lambda: _rollouts(eager, permx, times, fields))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        batches = -(-n // graphed.batch_size)
+        want_replays = {names[f]: batches for f in fields}
+        if not graphed.cuda_graph or first != want_replays or \
+                graphed.replays != {k: 2 * v for k, v in want_replays.items()}:
+            raise AssertionError(f"{fluid}: graph replays {first}, then {graphed.replays}, "
+                                 f"expected {want_replays} per rollout ({n} fields in batches "
+                                 f"of {graphed.batch_size})")
+        for f in fields:
+            if live[f].tobytes() != plain[f].tobytes() or live[f].tobytes() != again[f].tobytes():
+                raise AssertionError(f"{fluid} {f}: the graphed rollout differs from the eager "
+                                     f"one (max {np.abs(live[f] - plain[f]).max():.3e})")
+
+        cpu_models = {names[f]: copy.deepcopy(models[names[f]]).cpu() for f in fields}
+        on_cpu = SRMPredictor(cpu_models, *args)
+        ref, t_cpu = _timed(lambda: _rollouts(on_cpu, permx, times, fields))
+        cpu_rel = {f: float(np.abs(live[f] - ref[f]).max() / np.abs(ref[f]).max())
+                   for f in fields}
+        log(f"serving {fluid} {live['pressure'].shape}: graphed rollout bitwise the eager one "
+            f"and a second rollout, replays per rollout {first} ({batches} batches of "
+            f"{graphed.batch_size} for {n} fields); seconds graphed {t_graph:.3f} and "
+            f"{t_again:.3f}, eager {t_eager:.3f}, CPU {t_cpu:.3f}; card vs CPU "
+            + ", ".join(f"{f} {cpu_rel[f]:.3e}" for f in fields) + " of the field's scale; "
+            + ", ".join(f"{f} in [{live[f].min():.4f}, {live[f].max():.4f}]" for f in fields))
+        if max(cpu_rel.values()) > SERVE_CPU_REL or not all(np.isfinite(live[f]).all()
+                                                          for f in fields):
+            raise AssertionError(f"{fluid}: the card's rollout is {cpu_rel} of the field's "
+                                 f"scale from the CPU's (bound {SERVE_CPU_REL})")
+
+        out = os.path.join(base_dir, f"bundle_{fluid}")
+        _, t_export = _timed(lambda: export_surrogate(graphed, out, fields=fields,
+                                                      platforms=("cpu", "cuda")))
+        px = np.repeat(permx, times.size, axis=0)
+        tt = np.tile(times.astype(np.float32), permx.shape[0])
+        Pi = float(proc.reservoir_config["initialization"]["Pi"])
+        for platform, want in (("cuda", live), ("cpu", ref)):
+            srv = load_surrogate(out, device=platform)
+            if srv.fields != sorted(fields):
+                raise AssertionError(f"{fluid} bundle on {platform}: fields {srv.fields}")
+            rel = {}
+            for f in fields:
+                got = srv(f, px, tt).reshape(want[f].shape)
+                rel[f] = float(np.abs(got - want[f]).max() / np.abs(want[f]).max())
+            sizes = {}
+            for b in SERVE_BATCHES:
+                idx = np.arange(b) % n
+                got = srv("pressure", px[idx], tt[idx])
+                flat = want["pressure"].reshape((n,) + got.shape[1:])
+                sizes[b] = float(np.abs(got - flat[idx]).max() / np.abs(flat).max())
+            t0 = srv("pressure", permx, np.zeros(permx.shape[0], np.float32))
+            log(f"bundle {fluid} on {platform} (exported in {t_export:.2f} s): vs the live "
+                f"predictor " + ", ".join(f"{f} {rel[f]:.3e}" for f in fields)
+                + f"; batches {list(sizes)} {max(sizes.values()):.3e}; t = 0 in "
+                f"[{t0.min():.4f}, {t0.max():.4f}] (Pi {Pi})")
+            if max(rel.values()) > SERVE_BUNDLE_REL or max(sizes.values()) > SERVE_BUNDLE_REL:
+                raise AssertionError(f"{fluid} bundle on {platform}: {rel}, batches {sizes} "
+                                     f"(bound {SERVE_BUNDLE_REL})")
+            if not np.all(t0 == Pi):
+                raise AssertionError(f"{fluid} bundle on {platform}: t = 0 does not give Pi")
+
+    infer_vs_sim.main(["--sim-reps", "1", "--base-dir", base_dir])
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "srm_tpu_torch")):
         raise SystemExit("chip_smoke: run from the root of a checkout of the repository")
@@ -805,12 +928,13 @@ def main() -> int:
     counts = {}
     with tempfile.TemporaryDirectory(prefix="smoke_data_", dir=os.path.join(ROOT, "build")) as tmp:
         phase_labels(tmp)
-        counts["dg_stencil_residual"] = phase_main_path(tmp, "dg_stencil_residual",
-                                                        general_config=_labelled_config("DG"))
-        counts["dg3d_stencil_residual"] = phase_main_path(
+        counts["dg_stencil_residual"], dg_case = phase_main_path(
+            tmp, "dg_stencil_residual", general_config=_labelled_config("DG"))
+        counts["dg3d_stencil_residual"], _ = phase_main_path(
             tmp, "dg3d_stencil_residual", nz=10, kle_method="uncorrelated")
-        counts["gc_stencil_residual"] = phase_main_path(tmp, "gc_stencil_residual",
-                                                        fluid="GC")
+        counts["gc_stencil_residual"], gc_case = phase_main_path(tmp, "gc_stencil_residual",
+                                                                 fluid="GC")
+        phase_serving(tmp, dg_case, gc_case)
     # each kernel's launches on its own main path (a backward kernel's on
     # its forward's)
     launches = {name: counts[name][spec["counter"]] for name, spec in KERNELS.items()}

@@ -20,15 +20,18 @@ easy to find:
   training/  optimizers + trainer                          (srm_tpu/training/)
   examples/  case construction                             (srm_tpu/examples/)
   sim/       the implicit FV simulator and its labels      (srm_tpu/sim/)
-  eval/      pressure and saturation RMSE                  (srm_tpu/eval/plotting.py)
-  tools/     step profiler, time-to-accuracy experiment    (tools/)
+  eval/      predictor, serving bundle, plots, RMSE,
+             time-step log                                 (srm_tpu/eval/)
+  tools/     step profiler, time to accuracy, infer_vs_sim (tools/, bench.py)
 
 The package imports ``torch`` and ``numpy``, never JAX and nothing of the
 JAX package: ``config/`` and ``data/assets/pvt_table.csv`` are its own
 copies. What is ported so far is the physics-mode training step of dry gas
 in 2D and in 3D (Nz > 1, through ``examples.common.setup_case(nz=...)``)
 and of gas condensate in 2D, the FV simulator that labels the test split,
-and the RMSE against those labels; ``ROADMAP.md`` lists what remains. The entry
+the RMSE against those labels, and the serving path (the predictor, the
+``torch.export`` bundle, the CLI's ``predict`` and ``export``);
+``ROADMAP.md`` lists what remains. The entry
 points run on the GPU unless the caller asks for the CPU.
 """
 

@@ -4,9 +4,16 @@
                                   [--nx N] [--realizations K] [--base-dir DIR]
                                   [--checkpoint-dir DIR] [--resume]
                                   [--device cuda|cpu]
+    python -m srm_tpu_torch predict --fluid DG|GC [--times 0,30,90,180,365]
+                                    [--max-realizations K] [--checkpoint-dir DIR]
+                                    [--out FILE.npz] [--device cuda|cpu] ...
+    python -m srm_tpu_torch export --fluid DG|GC --out-dir DIR
+                                   [--platforms cpu,cuda] [--checkpoint-dir DIR]
+                                   [--device cuda|cpu] ...
 
-Port of the ``train`` command of ``srm_tpu/__main__.py`` for dry gas and gas
-condensate in physics mode. It builds the case (dataset, models, loss),
+Port of the ``train``, ``predict`` and ``export`` commands of
+``srm_tpu/__main__.py`` for dry gas and gas condensate in physics mode.
+``train`` builds the case (dataset, models, loss),
 trains on the first GPU (``--device cuda``, the default; without a usable
 CUDA device it fails) or, when asked with ``--device cpu``, on the CPU, and
 prints per-epoch losses. On the card each training and eval step is one
@@ -16,6 +23,16 @@ restore; with ``--resume`` training continues from the latest checkpoint
 there (the JAX package's flags of the same names). ``--device`` is the
 port's spelling of the JAX package's ``JAX_PLATFORMS``. Float32 means
 float32: TF32 is turned off for matmuls and cuDNN convolutions here.
+
+``predict`` and ``export`` rebuild the same case (the dataset comes from the
+cache that ``train`` wrote under the same ``--base-dir``), restore the
+latest checkpoint of ``--checkpoint-dir`` into the models in place, and
+build an ``SRMPredictor`` on the device. ``predict`` rolls out pressure (and
+for gas condensate the gas saturation) over the first
+``--max-realizations`` test realizations × ``--times`` (days) and saves
+them with ``--out``; ``export`` writes a ``torch.export`` serving bundle for
+``--platforms`` (``eval/serving.py``). The reference's ``--drawdown``
+preset is not ported yet (ROADMAP A11): the commands refuse it.
 """
 
 from __future__ import annotations
@@ -53,6 +70,87 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _restore_predictor(args):
+    """Shared by predict and export: rebuild the case, restore the latest
+    checkpoint into its models in place; returns (predictor, case)."""
+    import torch
+
+    from srm_tpu_torch.eval.predictor import SRMPredictor
+    from srm_tpu_torch.examples.common import setup_case
+    from srm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    if args.drawdown:
+        raise SystemExit("--drawdown: the GC below-dew-point preset is not ported yet "
+                         "(ROADMAP A11)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    case = setup_case(args.fluid, base_dir=args.base_dir, nx=args.nx,
+                      n_realizations=args.realizations, device=args.device)
+    models, loss_fn = case["models"], case["loss_fn"]
+    if args.checkpoint_dir:
+        # the trained models, as the trainer saves them (Trainer.trained_models)
+        trained = {loss_fn.logical_name(k): models[loss_fn.logical_name(k)]
+                   for k in loss_fn.trainable_models_keys}
+        restored = CheckpointManager(args.checkpoint_dir).restore(params=trained)
+        if restored is None:
+            print(f"no checkpoint in {args.checkpoint_dir}: the initial weights")
+        else:
+            print(f"restored checkpoint step {restored[3]} ({', '.join(trained)})")
+    pred = SRMPredictor(models, case["data_summary"], general_config=case["general_config"],
+                        reservoir_config=case["processor"].reservoir_config)
+    return pred, case
+
+
+def cmd_predict(args) -> int:
+    import numpy as np
+
+    pred, case = _restore_predictor(args)
+    permx = case["processor"].generate_kle_splits()["test"]
+    if args.max_realizations:
+        permx = permx[: args.max_realizations]
+    times = [float(t) for t in args.times.split(",")]
+    p = pred.predict_pressure(permx, times)
+    print(f"pressure rollout: shape {p.shape}, range "
+          f"[{p.min():.1f}, {p.max():.1f}] psia")
+    arrays = {"pressure": p, "times": np.asarray(times)}
+    if args.fluid == "GC":
+        sg = pred.predict_saturation(permx, times)
+        print(f"gas-saturation rollout: shape {sg.shape}, range "
+              f"[{sg.min():.4f}, {sg.max():.4f}]")
+        arrays["saturation"] = sg
+    if args.out:
+        np.savez_compressed(args.out, **arrays)
+        print(f"saved to {args.out}")
+    return 0
+
+
+def cmd_export(args) -> int:
+    from srm_tpu_torch.eval.serving import export_surrogate
+
+    platforms = tuple(p.strip() for p in args.platforms.split(",") if p.strip())
+    pred, _ = _restore_predictor(args)
+    fields = ("pressure", "saturation") if args.fluid == "GC" else ("pressure",)
+    paths = export_surrogate(pred, args.out_dir, fields=fields, platforms=platforms)
+    for field, by_platform in paths.items():
+        for platform, path in by_platform.items():
+            print(f"exported {field} ({platform}): {path}")
+    print(f"serving bundle written to {args.out_dir} "
+          f"(platforms: {', '.join(platforms)})")
+    return 0
+
+
+def _case_flags(p) -> None:
+    """The flags that rebuild a trained case (predict, export)."""
+    p.add_argument("--fluid", default="DG", type=str.upper, choices=["DG", "GC"])
+    p.add_argument("--drawdown", action="store_true",
+                   help="the GC below-dew-point preset: not ported yet (ROADMAP A11), refused")
+    p.add_argument("--base-dir", default=None)
+    p.add_argument("--nx", type=int, default=None)
+    p.add_argument("--realizations", type=int, default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     parser = argparse.ArgumentParser(prog="srm_tpu_torch", description=__doc__,
@@ -69,6 +167,22 @@ def main(argv=None) -> int:
     t.add_argument("--resume", action="store_true")
     t.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     t.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("predict", help="pressure (and, for GC, gas-saturation) rollout with "
+                                       "the trained surrogate")
+    _case_flags(p)
+    p.add_argument("--times", default="0,30,90,180,365")
+    p.add_argument("--max-realizations", type=int, default=4)
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_predict)
+
+    e = sub.add_parser("export", help="save the trained surrogate as a torch.export serving "
+                                      "bundle (loads with no model or config code)")
+    _case_flags(e)
+    e.add_argument("--out-dir", required=True)
+    e.add_argument("--platforms", default="cpu,cuda",
+                   help="comma-separated platforms to export a program for (default: cpu,cuda)")
+    e.set_defaults(fn=cmd_export)
     args = parser.parse_args(argv)
     return args.fn(args)
 

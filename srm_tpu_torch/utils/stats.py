@@ -1,7 +1,8 @@
 """Normalization transforms and the named statistics table.
 
 Port of ``srm_tpu/utils/stats.py``: ``normalize``, ``denormalize``,
-``normalize_diff``, :class:`DataSummary` and :func:`compute_statistics`.
+``normalize_diff``, :class:`DataSummary` (with its channelwise
+``normalize``) and :func:`compute_statistics`.
 The transforms act on tensors with one statistics row
 ``[min, max, mean, std, count]``; ``is_log`` is a Python bool here, so only
 the selected branch is evaluated (the reference evaluates both and selects,
@@ -13,13 +14,30 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 #: column indices into a statistics row
 MIN, MAX, MEAN, STD, COUNT = 0, 1, 2, 3, 4
+
+
+def _norm_limits(norm_config: Optional[Mapping[str, Any]]) -> Tuple[float, float]:
+    """The normalization's target interval (srm_tpu/utils/stats.py:41-45)."""
+    if norm_config is None:
+        return (-1.0, 1.0)
+    lim = norm_config.get("normalization_limits") or norm_config.get("Norm_Limits") or (-1.0, 1.0)
+    return float(lim[0]), float(lim[1])
+
+
+def _method(norm_config: Optional[Mapping[str, Any]]) -> str:
+    """The normalization method's name (srm_tpu/utils/stats.py:48-53)."""
+    if norm_config is None:
+        return "lnk-linear-scaling"
+    return (norm_config.get("feature_normalization_method")
+            or norm_config.get("Input_Normalization")
+            or "lnk-linear-scaling")
 
 
 def _scrub(x: torch.Tensor) -> torch.Tensor:
@@ -106,6 +124,39 @@ class DataSummary:
     def is_log(self, key: str) -> bool:
         return bool(self.is_log_np[self.get_key_index(key)])
 
+    def channel_rows(self, statistics_index) -> Tuple[np.ndarray, np.ndarray]:
+        """Resolve a 2xK [channel positions; stats rows] map (or a scalar, or
+        a list of rows) into (positions, rows) vectors
+        (srm_tpu/utils/stats.py:240-248)."""
+        idx = np.asarray(statistics_index)
+        if idx.ndim == 0:
+            return np.array([0]), idx.reshape(1)
+        if idx.ndim == 1:
+            return np.arange(idx.size), idx
+        return idx[0], idx[1]
+
+    def normalize(self, x, norm_config: Optional[Mapping[str, Any]] = None,
+                  statistics_index=None, compute: bool = True) -> torch.Tensor:
+        """Channelwise normalization of a tensor (or host array) along its
+        last axis (srm_tpu/utils/stats.py:250-283).
+
+        ``statistics_index`` is the reference's 2xK map of [channel
+        position; stats row], every row onto its own position by default.
+        Channels not listed pass through."""
+        x = torch.as_tensor(x)
+        if not compute:
+            return x
+        method, limits = _method(norm_config), _norm_limits(norm_config)
+        if statistics_index is None:
+            statistics_index = np.stack([np.arange(len(self.names))] * 2)
+        pos, rows = self.channel_rows(statistics_index)
+        pos2row = {int(p): int(r) for p, r in zip(pos, rows)}
+        table = torch.from_numpy(self.table_np).to(x.device)
+        out = [normalize(c, table[pos2row[i]], method=method, limits=limits,
+                         is_log=bool(self.is_log_np[pos2row[i]])) if i in pos2row else c
+               for i, c in enumerate(x.unbind(-1))]
+        return torch.stack(out, dim=-1)
+
 
 def compute_statistics(features: np.ndarray, keys: Sequence[str]) -> Dict[str, Dict[str, Any]]:
     """Per-channel [min, max, mean, std, shape] of a woven feature tensor
@@ -125,15 +176,9 @@ def compute_statistics(features: np.ndarray, keys: Sequence[str]) -> Dict[str, D
 def normalize_channels(features: np.ndarray, summary: DataSummary,
                        norm_config: Mapping[str, Any]) -> np.ndarray:
     """Normalize channel ``c`` of a ``[..., C]`` host array with stats row
-    ``c`` — the reference's ``DataSummary.normalize`` with the identity
-    channel→row map (srm_tpu/utils/stats.py:250-283), in float32 on the host."""
-    method = norm_config.get("feature_normalization_method", "lnk-linear-scaling")
-    limits = tuple(float(v) for v in norm_config.get("normalization_limits", (-1.0, 1.0)))
+    ``c`` (:meth:`DataSummary.normalize` with the identity channel→row map),
+    in float32 on the host."""
     if features.size == 0:           # an empty split (numpy may give it negative strides)
         return np.zeros(features.shape, np.float32)
     x = torch.from_numpy(np.ascontiguousarray(features, dtype=np.float32))
-    table = torch.from_numpy(summary.table_np)
-    chans = [normalize(x[..., c], table[c], method=method, limits=limits,
-                       is_log=bool(summary.is_log_np[c]))
-             for c in range(x.shape[-1])]
-    return torch.stack(chans, dim=-1).numpy()
+    return summary.normalize(x, norm_config).numpy()

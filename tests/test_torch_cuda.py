@@ -502,3 +502,41 @@ def test_restore_is_seen_by_the_next_replay(small_cases):
     want = eager.eval_epoch_resident("train")["total"]
     assert not np.allclose(trained, want)
     np.testing.assert_allclose(restored, want, rtol=1e-6)
+
+
+# -- the predictor's CUDA graphs and the serving bundle -----------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("fluid", ["DG", "GC"])
+def test_predictor_graph_matches_eager_and_the_bundle(small_cases, fluid, tmp_path,
+                                                      monkeypatch):
+    """The predictor's graphed rollout (batch 4, the last batch padded) is
+    bitwise its eager rollout with cuDNN deterministic, one replay per batch
+    and model; a bundle exported for "cuda" serves the same fields within
+    1e-5 of their scale, and t = 0 gives Pi."""
+    from srm_tpu_torch.eval import SRMPredictor, export_surrogate, load_surrogate
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    case = small_cases[fluid]
+    proc = case["processor"]
+    args = (case["data_summary"], case["general_config"], proc.reservoir_config)
+    permx = proc.generate_kle_splits()["test"]
+    times = [0.0, 10.0, 50.0]
+    fields = ("pressure", "saturation") if fluid == "GC" else ("pressure",)
+    names = {"pressure": "pressure", "saturation": "saturation_model"}
+    graphed = SRMPredictor(case["models"], *args, batch_size=4)
+    eager = SRMPredictor(case["models"], *args, batch_size=4, cuda_graph=False)
+    assert graphed.cuda_graph and not eager.cuda_graph
+    live = {f: getattr(graphed, f"predict_{f}")(permx, times) for f in fields}
+    for f in fields:
+        np.testing.assert_array_equal(live[f], getattr(eager, f"predict_{f}")(permx, times))
+    n = permx.shape[0] * len(times)
+    assert graphed.replays == {names[f]: -(-n // 4) for f in fields}
+
+    export_surrogate(graphed, str(tmp_path), fields=fields, platforms=("cuda",))
+    srv = load_surrogate(str(tmp_path))
+    px = np.repeat(permx, len(times), axis=0)
+    t = np.tile(np.asarray(times, np.float32), permx.shape[0])
+    for f in fields:
+        got = srv(f, px, t).reshape(live[f].shape)
+        np.testing.assert_allclose(got, live[f], rtol=0, atol=1e-5 * np.abs(live[f]).max())
+    Pi = float(proc.reservoir_config["initialization"]["Pi"])
+    assert np.all(srv("pressure", permx, np.zeros(permx.shape[0], np.float32)) == Pi)

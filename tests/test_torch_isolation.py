@@ -1,6 +1,7 @@
 """The port stands alone: it never imports JAX nor anything of the JAX
-package (its training steps, its simulator labels and its RMSE), its entry
-points run on the GPU unless the caller asks for the CPU,
+package (its training steps, its simulator labels and its RMSE, its
+predictor and serving bundle), its entry points run on the GPU unless the
+caller asks for the CPU,
 and its chip check imports nothing of the JAX package and refuses to run,
 and prints no result, without a GPU or outside a checkout."""
 
@@ -11,6 +12,8 @@ import subprocess
 import sys
 import textwrap
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -137,6 +140,55 @@ def test_simulator_labels_and_rmse_never_import_jax(tmp_path):
     proc = _run([sys.executable, "-c", script], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "isolated" in proc.stdout
+
+
+def test_serving_path_never_imports_jax(tmp_path):
+    """A CPU rollout (pressure, rates), an export and a served bundle, and
+    the CLI's predict, stand alone as well."""
+    script = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)
+        from srm_tpu_torch.__main__ import main
+        from srm_tpu_torch.eval import SRMPredictor, export_surrogate, load_surrogate
+        from srm_tpu_torch.examples.common import setup_case
+        case = setup_case("DG", base_dir={str(tmp_path)!r}, nx=9, n_realizations=6,
+                          device="cpu")
+        pred = SRMPredictor(case["models"], case["data_summary"], case["general_config"],
+                            case["processor"].reservoir_config, batch_size=8)
+        permx = case["processor"].generate_kle_splits()["test"][:2]
+        p = pred.predict_pressure(permx, [0.0, 30.0])
+        q, pwf = pred.predict_rates(permx, [0.0, 30.0])
+        assert p.shape == (2, 2, 1, 9, 9) and np.isfinite(p).all() and np.isfinite(pwf).all()
+        export_surrogate(pred, {str(tmp_path / "bundle")!r}, platforms=("cpu",))
+        served = load_surrogate({str(tmp_path / "bundle")!r}, device="cpu")(
+            "pressure", np.repeat(permx, 2, axis=0), np.array([0.0, 30.0] * 2, np.float32))
+        assert np.allclose(served.reshape(p.shape), p, rtol=1e-5, atol=1e-3)
+        assert main(["predict", "--nx", "9", "--realizations", "6", "--device", "cpu",
+                     "--base-dir", {str(tmp_path)!r}]) == 0
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+        assert not loaded, loaded
+        ref = sorted(m for m in sys.modules if m.split(".")[0] == "srm_tpu")
+        assert not ref, ref
+        print("isolated")
+    """)
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+@pytest.mark.parametrize("command", [
+    ["-m", "srm_tpu_torch", "predict"],
+    ["-m", "srm_tpu_torch", "export", "--out-dir", "bundle", "--platforms", "cpu"],
+    ["-m", "srm_tpu_torch.tools.infer_vs_sim"],
+])
+def test_serving_entry_points_refuse_to_run_on_the_cpu_unasked(command, tmp_path):
+    proc = _run([sys.executable, *command, "--nx", "9", "--base-dir", str(tmp_path)],
+                cwd=tmp_path, env_extra={"PYTHONPATH": str(ROOT)})
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr, proc.stderr[-2000:]
+    assert not (tmp_path / "bundle").exists()
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
