@@ -13,8 +13,9 @@ the process exits non-zero:
    ``srm_tpu_torch/kernels/csrc/`` with nvcc for sm_90a, one nvcc per
    source, all started together.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   its main path's shape and at a ragged one, forward and backward; CUDA
-   event times of both at the main path's shape, and the kernel's bound
+   its main paths' shapes (batch 32, and the production profile's batch
+   128) and at a ragged one, forward and backward; CUDA
+   event times of both at both main paths' shapes, and the kernel's bound
    (the larger of its bytes over the HBM rate and its operations over the
    float32 peak), and the card's time for one kernel call on a warm L2 and
    on a cold one (after writing 256 MiB, over 2x the L2). B1 is the 2D
@@ -67,9 +68,31 @@ the process exits non-zero:
    ``python -m srm_tpu_torch.tools.infer_vs_sim --sim-reps 1`` (the
    surrogate's and the FV simulator's seconds on the reference's workload,
    its JSON line).
+8. production — the production profile (``apply_production_overrides``:
+   bfloat16 networks, Model 2 on a 2x strided input, batch 128; the
+   batch-scaled decay, 62 steps) on DG 2D (B1) and DG 3D (B2) at 20
+   realizations: two epochs through the graphed trainer, each kernel's
+   forward and backward counters once per step, the kernel against its
+   plain version on the trained models' inputs at batch 128, then
+   ``phase_graph``'s checks as in phases 4-6 with the production
+   optimizers (steps run across the 2-step epochs); 10 timed steps
+   (steps/s) and the profiled device ms and operations per step printed
+   beside the f32 batch-32 numbers of phases 4 and 5; on DG 2D also the
+   serving path with the bfloat16 networks (graphed rollout bitwise the
+   eager one, the cuda bundle within SERVE_BF16_REL of the live predictor,
+   beside a float32 bundle and predictor of the same weights).
+9. drawdown — the CLI's ``--drawdown`` preset (mixed physics/data training
+   on FV labels, balanced td errors, the ``abs`` Sg rectifier, Pi 4300 /
+   BHP floor 2000 psia, 250 decay steps) on GC at 20 realizations: every
+   split labelled by the simulator, two epochs of mixed training on B3,
+   then ``predict --drawdown`` and ``export --drawdown`` through the CLI
+   from the training's checkpoint, the bundle on cuda and cpu held to the
+   live predictor.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object describing each kernel (its
+numbers at batch 32, under ``at_b128`` those at batch 128, its launches on
+its f32 main path and, under ``launches_by_path``, on every path of this
+run that runs it); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -128,6 +151,17 @@ CANCELLING_TOL = 1e-3
 SERVE_CPU_REL = 1e-4
 SERVE_BUNDLE_REL = 1e-5
 SERVE_BATCHES = (1, 3, 7, 300)
+# a bundle of bfloat16-compute networks against the live predictor, of the
+# field's scale: the bundle normalizes its inputs on the device, the
+# predictor on the host, and a float32 ulp there may move a bfloat16 rounding
+# inside the network (measured on the card, max: 7.5e-6 and 3.6e-6); the
+# bound is over 10x that. It does not tell the precisions apart: a float32
+# bundle of the same weights lay 4.3e-6 (max) from the bfloat16 predictor.
+# The RMS distance does (5.2e-8 against 2.7e-7 of the scale): the bundle's
+# RMS distance from the predictor is held within SERVE_BF16_RMS_SHARE of
+# the float32 predictor's RMS distance from it, measured in the same run.
+SERVE_BF16_REL = 1e-4
+SERVE_BF16_RMS_SHARE = 0.5
 
 DG_OUTPUTS = ("dom", "ibc", "tde", "mbc")
 GC_OUTPUTS = ("dom_g", "dom_o", "ibc", "trn_g", "trn_o", "mbc_g", "mbc_o")
@@ -135,22 +169,24 @@ GC_OUTPUTS = ("dom_g", "dom_o", "ibc", "trn_g", "trn_o", "mbc_g", "mbc_o")
 # the kernels of the main paths: the wrapper's name in
 # srm_tpu_torch.kernels.stencil (its plain version is <name>_reference), the
 # source, the TPU kernel it replaces, its launch counter, the shapes it is
-# checked at (the main path's first), the arguments it is differentiated by,
+# checked at (the f32 main path's first, then the production batch, timed
+# both; then a ragged one), the arguments it is differentiated by,
 # its outputs (per-sample balances start with "mbc") and its floating-point
 # operations per cell, counted from the source (comparisons, negations and
 # the mbc reduction included)
 KERNELS = {
     "dg_stencil_residual": dict(
         source="dg_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:132",
-        counter="launches", shapes=[(32, 39, 39), (3, 13, 17)], wrt=(1, 9),
+        counter="launches", shapes=[(32, 39, 39), (128, 39, 39), (3, 13, 17)], wrt=(1, 9),
         outputs=DG_OUTPUTS, ops_per_cell=96, device_name="dg_stencil_cells"),
     "dg3d_stencil_residual": dict(
         source="dg3d_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:265",
-        counter="launches_3d", shapes=[(32, 10, 39, 39), (3, 5, 13, 17)], wrt=(1, 3, 10),
+        counter="launches_3d", shapes=[(32, 10, 39, 39), (128, 10, 39, 39), (3, 5, 13, 17)],
+        wrt=(1, 3, 10),
         outputs=DG_OUTPUTS, ops_per_cell=124, device_name="dg3d_stencil_cells"),
     "gc_stencil_residual": dict(
         source="gc_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:495",
-        counter="launches_gc", shapes=[(32, 39, 39), (3, 13, 17)], wrt=(1, 4, 26),
+        counter="launches_gc", shapes=[(32, 39, 39), (128, 39, 39), (3, 13, 17)], wrt=(1, 4, 26),
         outputs=GC_OUTPUTS, ops_per_cell=377, device_name="gc_stencil_cells"),
 }
 
@@ -306,12 +342,11 @@ def phase_build():
 
 def phase_kernels(name: str) -> dict:
     """One kernel vs its plain version, forward and backward, at its main
-    path's shape and a ragged one; returns its measured numbers and bound
-    at the main path's shape."""
+    paths' shapes (batch 32 and the production batch 128) and a ragged one;
+    returns its measured numbers and bound at batch 32, and under "at_b128"
+    those at batch 128."""
     import torch
     from srm_tpu_torch.kernels import stencil as st
-    from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms,
-                                                  warm_cold_ms)
     spec = KERNELS[name]
     fused, plain = getattr(st, name), getattr(st, f"{name}_reference")
     max_err = 0.0
@@ -337,7 +372,22 @@ def phase_kernels(name: str) -> dict:
         log(f"{name} kernel vs plain {shape}: forward and backward agree "
             f"(max abs err so far {max_err:.3e})")
 
-    args, cfg = make_stencil_inputs(name, *spec["shapes"][0])
+    timed = [_time_forward(name, shape) for shape in spec["shapes"][:2]]
+    return {"max_abs_err": max_err, **timed[0], "at_b128": timed[1]}
+
+
+def _time_forward(name: str, shape) -> dict:
+    """A kernel's and its plain version's times at ``shape`` (CUDA events,
+    plain, kernel, kernel, plain; the card's time for one call on a warm and
+    a cold L2) and its bound: each input read once, each output written
+    once, at the HBM rate, or its operations at the float32 peak."""
+    import torch
+    from srm_tpu_torch.kernels import stencil as st
+    from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms,
+                                                  warm_cold_ms)
+    spec = KERNELS[name]
+    fused, plain = getattr(st, name), getattr(st, f"{name}_reference")
+    args, cfg = make_stencil_inputs(name, *shape)
     with torch.no_grad():
         plain_ms = time_ms(lambda: plain(*args, cfg))
         ms = time_ms(lambda: fused(*args, cfg))
@@ -345,30 +395,27 @@ def phase_kernels(name: str) -> dict:
         plain_ms2 = time_ms(lambda: plain(*args, cfg))
         outs = fused(*args, cfg)
         events = warm_cold_ms(lambda: fused(*args, cfg))
-    # the least time for this call: each input read once, each output
-    # written once, at the HBM rate; or its operations at the float32 peak
     nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(outs))
     ops = spec["ops_per_cell"] * outs[0].numel()
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
     bound_by = max(bounds, key=bounds.get)
-    log(f"{name} time per call at {spec['shapes'][0]} (plain, kernel, kernel, plain): "
+    log(f"{name} time per call at {shape} (plain, kernel, kernel, plain): "
         f"{plain_ms:.4f} {ms:.4f} {ms2:.4f} {plain_ms2:.4f} ms; {nbytes} bytes, {ops} "
         f"operations: bound {bounds[bound_by]:.6f} ms by {bound_by}; one call on the card "
         f"(warm, cold, cold, warm L2): {events['warm_ms'][0]:.4f} {events['cold_ms'][0]:.4f} "
         f"{events['cold_ms'][1]:.4f} {events['warm_ms'][1]:.4f} ms")
-    return {"max_abs_err": max_err, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+    return {"ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
             "bound_ms": bounds[bound_by], "bound_by": bound_by, **events}
 
 
 def phase_backward(name: str) -> dict:
     """One backward kernel vs its explicit adjoint and vs autograd through
-    the plain forward, at its forward's two shapes, and bitwise run to run;
-    returns its measured numbers and bound at the main path's shape."""
+    the plain forward, at its forward's shapes, and bitwise run to run;
+    returns its measured numbers and bound at batch 32, and under
+    "at_b128" those at batch 128."""
     import torch
     from srm_tpu_torch.kernels import stencil as st
-    from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, backward_bytes,
-                                                  backward_calls, profile_calls, time_ms,
-                                                  warm_cold_ms)
+    from srm_tpu_torch.tools.profile_step import backward_calls
     spec = BACKWARD[name]
     fwd = KERNELS[spec["forward"]]
     qwell = spec["qwell"]
@@ -417,16 +464,31 @@ def phase_backward(name: str) -> dict:
             f"{worst:.3e} of a gradient's scale), "
             f"bitwise the same over three runs")
 
-    args, cfg = make_stencil_inputs(spec["forward"], *fwd["shapes"][0])
+    timed = [_time_backward(name, shape) for shape in fwd["shapes"][:2]]
+    return {"max_abs_err": max_err, **timed[0], "at_b128": timed[1]}
+
+
+def _time_backward(name: str, shape) -> dict:
+    """A backward kernel's, its explicit adjoint's and ``_plain_backward``'s
+    host-inclusive times (CUDA events) and device times and launches
+    (profiler) at ``shape``, the kernel's time on a warm and a cold L2, and
+    its bound: each input that the backward needs read once (not the well
+    rates; p0p's interior only), each cotangent read once, each gradient
+    (all but qwell's) written once; or its operations at the float32
+    peak."""
+    import torch
+    from srm_tpu_torch.kernels import stencil as st
+    from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, backward_bytes,
+                                                  backward_calls, profile_calls, time_ms,
+                                                  warm_cold_ms)
+    spec = BACKWARD[name]
+    plain = getattr(st, f"{spec['forward']}_reference")
+    args, cfg = make_stencil_inputs(spec["forward"], *shape)
     calls = backward_calls(spec["forward"], args, cfg)
     host = {k: time_ms(calls[k], calls=20) for k in ("adjoint", "kernel", "autograd")}
     host2 = {k: time_ms(calls[k], calls=20) for k in ("autograd", "kernel", "adjoint")}
     device = {k: profile_calls(calls[k], 20) for k in ("kernel", "adjoint", "autograd")}
     events = warm_cold_ms(calls["kernel"])
-    # the least time: each input that the backward needs read once (not the
-    # well rates; p0p's interior only), each cotangent read once, each
-    # gradient (all but qwell's) written once; or its operations at the
-    # float32 peak
     got = calls["kernel"]()
     with torch.no_grad():
         outs = plain(*args, cfg)
@@ -435,16 +497,16 @@ def phase_backward(name: str) -> dict:
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
     bound_by = max(bounds, key=bounds.get)
     ms = {k: min(host[k], host2[k]) for k in host}
-    log(f"{name} at {fwd['shapes'][0]}: host-inclusive ms per call (adjoint, kernel, autograd; "
+    log(f"{name} at {shape}: host-inclusive ms per call (adjoint, kernel, autograd; "
         f"autograd, kernel, adjoint): {host['adjoint']:.4f} {host['kernel']:.4f} "
         f"{host['autograd']:.4f}; {host2['autograd']:.4f} {host2['kernel']:.4f} "
         f"{host2['adjoint']:.4f}")
-    log(f"{name} device us per call and launches: " + ", ".join(
+    log(f"{name} at {shape} device us per call and launches: " + ", ".join(
         f"{k} {device[k][1]:.2f} us / {device[k][0]:.0f}" for k in device)
         + f"; {nbytes} bytes, {ops} operations: bound {bounds[bound_by]:.6f} ms by {bound_by}; "
         f"one kernel call on the card (warm, cold, cold, warm L2): {events['warm_ms'][0]:.4f} "
         f"{events['cold_ms'][0]:.4f} {events['cold_ms'][1]:.4f} {events['warm_ms'][1]:.4f} ms")
-    return {"max_abs_err": max_err, "ms": ms["kernel"], "plain_ms": ms["adjoint"],
+    return {"ms": ms["kernel"], "plain_ms": ms["adjoint"],
             "bound_ms": bounds[bound_by], "bound_by": bound_by,
             "device_us": device["kernel"][1], "launches_per_call": device["kernel"][0],
             "plain_device_us": device["adjoint"][1],
@@ -592,14 +654,14 @@ def phase_rmse(case) -> None:
 
 def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs):
     """Two epochs at batch 32 of the case ``setup_case(fluid, **case_kwargs)``;
-    returns the launch counts during training and the trained case, and
+    returns the launch counts during training, the trained case and the
+    step's steps/s (epoch 2) and device ms (``phase_graph``), and
     checks that no other
     kernel launched and that each training step's backward went through
     ``kernel``'s backward kernel, where it has one, and nothing else."""
     import numpy as np
     import torch
     from srm_tpu_torch.examples.common import setup_case
-    from srm_tpu_torch.kernels import stencil as st
     from srm_tpu_torch.training.trainer import train_combined_models_unified
 
     t0 = time.time()
@@ -615,25 +677,10 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
     before = {k: [p.detach().clone() for p in models[k].parameters()] for k in trained}
 
     torch.cuda.reset_peak_memory_stats()
-    counters = [k["counter"] for k in KERNELS.values()] + [k["counter"] for k in BACKWARD.values()]
-    plain_backward, recomputes = st._plain_backward, []
-
-    def counted(*a):
-        recomputes.append(1)
-        return plain_backward(*a)
-
-    st._plain_backward = counted
-    try:
-        for c in counters:
-            setattr(st, c, 0)
-        trainer, history, _ = train_combined_models_unified(
+    (trainer, history, _), counts, recomputes = _counted_training(
+        kernel, lambda: train_combined_models_unified(
             case["train_groups"], case["val_groups"], loss_fn, training_batch_size=32,
-            epochs=2, general_config=case["general_config"])
-        torch.cuda.synchronize()
-        counts = {c: getattr(st, c) for c in counters}
-    finally:
-        st._plain_backward = plain_backward
-
+            epochs=2, general_config=case["general_config"]))
     steps = history["step_total_loss"]
     n_train = trainer._resident["train"][2]
     n_val = trainer._resident["val"][2] if trainer._resident["val"] else 0
@@ -641,16 +688,7 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
         log(f"step {i + 1}: total loss {v:.6e}")
     if len(steps) != 2 * n_train or not np.all(np.isfinite(steps)):
         raise AssertionError(f"expected {2 * n_train} finite step losses, got {steps}")
-    mine = KERNELS[kernel]["counter"]
-    bwd = next((b["counter"] for b in BACKWARD.values() if b["forward"] == kernel), None)
-    want = {c: 2 * (n_train + n_val) if c == mine else 2 * n_train if c == bwd else 0
-            for c in counters}
-    want_recomputes = 0 if bwd else 2 * n_train
-    if counts != want or len(recomputes) != want_recomputes:
-        raise AssertionError(
-            f"kernel launches {counts} and {len(recomputes)} plain recomputes, expected {want} "
-            f"and {want_recomputes} for {2 * (n_train + n_val)} loss evaluations, "
-            f"{2 * n_train} of them with a backward")
+    _check_launches(kernel, counts, recomputes, n_train, n_val, 2)
     for k, ps in before.items():
         if all(torch.equal(a, b) for a, b in zip(ps, models[k].parameters())):
             raise AssertionError(f"the {k} model did not change in training")
@@ -662,7 +700,7 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
                              f"({warm} eager warm-up steps of each kind)")
     steps_per_s = n_train / (history["epoch_times"][1] / 1000.0)
     log(f"main path {fluid} {grid}: {len(steps)} steps, {warm} eager warm-up steps and "
-        f"replays {trainer.replays}, launches {counts}, {len(recomputes)} plain recomputes, "
+        f"replays {trainer.replays}, launches {counts}, {recomputes} plain recomputes, "
         f"{steps_per_s:.2f} steps/s in epoch 2, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
@@ -670,24 +708,16 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
     # trained models give for one batch of the main path
     x_all, y_all, _, bs = trainer._resident["train"]
     x, y = x_all[:bs], {k: v[:bs] for k, v in y_all.items()}
+    _stencil_agrees(loss_fn, kernel, x, grid)
     with torch.no_grad():
-        args, _ = loss_fn.stencil_inputs(x)
-        got = getattr(st, kernel)(*args, loss_fn.stencil_cfg)
-        want_out = getattr(st, f"{kernel}_reference")(*args, loss_fn.stencil_cfg)
         total, _ = loss_fn.loss_and_metrics(x, y)
-    for t, a, b in zip(KERNELS[kernel]["outputs"], got, want_out):
-        want_shape = (bs,) if t.startswith("mbc") else (bs,) + grid
-        if tuple(a.shape) != want_shape:
-            raise AssertionError(f"{t} has shape {tuple(a.shape)}, expected {want_shape}")
-        check_close(f"trained-model inputs {t}", a, b)
     if not torch.isfinite(total):
         raise AssertionError(f"non-finite loss {float(total)} after training")
     log(f"trained models: {kernel} and its plain version agree on the main path's "
         f"stencil inputs; total loss {float(total):.6e}")
     if case["general_config"].get("label_source") == "simulator":
         phase_rmse(case)
-    phase_graph(trainer, kernel)
-    return counts, case
+    return counts, case, {"steps_per_s": steps_per_s, **phase_graph(trainer, kernel)}
 
 
 def _copy_loss(loss_fn):
@@ -706,8 +736,20 @@ def _rel(got, want) -> float:
         return float(num / torch.sqrt(sum((w.double() ** 2).sum() for w in want)))
 
 
-def phase_graph(trainer, kernel: str) -> None:
-    """After the main path's training, on its graphed trainer:
+def _train_steps(trainer, n: int):
+    """The step losses of ``n`` training steps over the staged train split,
+    epoch after epoch (an epoch of a small split holds fewer steps)."""
+    import numpy as np
+    losses = []
+    while len(losses) < n:
+        losses.extend(trainer.train_epoch_resident("train", steps=n - len(losses))["total"])
+    return np.asarray(losses)
+
+
+def phase_graph(trainer, kernel: str, optimizer_configs=None) -> dict:
+    """After a path's training, on its graphed trainer (steps run epoch after
+    epoch where the staged split holds fewer; the trainers built here take
+    ``optimizer_configs``, the path's):
 
     1. a profiler window over 3 replayed training steps shows ``kernel``
        (by its device name) once per step and its backward kernel once per
@@ -723,7 +765,13 @@ def phase_graph(trainer, kernel: str) -> None:
        is logged beside it;
     3. a best-epoch restore (``load_snapshot``, in place) is seen by the next
        replay: the replayed eval losses on the restored weights equal the
-       eager eval step's."""
+       eager eval step's; before the restore the weights are trained (whole
+       replayed epochs) until their eval losses lie beyond twice
+       GRAPH_LOSS_RTOL of the snapshot's, so that a replay on stale weights
+       would show.
+
+    Returns the device ms and device operations per replayed step of the
+    profiler window."""
     import re
 
     import numpy as np
@@ -737,8 +785,11 @@ def phase_graph(trainer, kernel: str) -> None:
     names = {"forward": KERNELS[kernel]["device_name"], "backward": bwd["device_name"]}
     replays = trainer.replays["train"]
     snap = trainer.snapshot()
+    eager = Trainer(trainer.loss_fn, cuda_graph=False)
+    eager._resident["train"] = trainer._resident["train"]
+    at_snap = eager.eval_epoch_resident("train")["total"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        trainer.train_epoch_resident("train", steps=3)
+        _train_steps(trainer, 3)
         torch.cuda.synchronize()
     if trainer.replays["train"] != replays + 3:
         raise AssertionError("the profiled steps were not graph replays")
@@ -747,8 +798,11 @@ def phase_graph(trainer, kernel: str) -> None:
     if seen != {"forward": 3, "backward": 3}:
         raise AssertionError(f"in 3 replayed steps the trace shows {seen} of {names} "
                              f"(stencil kernels: {sorted({e for e in device if 'stencil' in e})})")
+    device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 3e3
     log(f"profiler over 3 replayed steps: {len(device)} device kernels, {names['forward']} "
-        f"{seen['forward']}x and {names['backward']} {seen['backward']}x")
+        f"{seen['forward']}x and {names['backward']} {seen['backward']}x; device time "
+        f"{device_ms:.3f} ms per step")
 
     # 2. replay against the eager step, from the same weights (and the eager
     # step against itself, for the kernels' own run-to-run spread)
@@ -759,12 +813,13 @@ def phase_graph(trainer, kernel: str) -> None:
     try:
         runs = {}
         for name, graph in (("graph", True), ("eager", False), ("eager again", False)):
-            t = Trainer(_copy_loss(trainer.loss_fn), seed=7, cuda_graph=graph)
+            t = Trainer(_copy_loss(trainer.loss_fn), optimizer_configs=optimizer_configs,
+                        seed=7, cuda_graph=graph)
             t._resident["train"] = trainer._resident["train"]
             # the warm-up steps, then the first replayed step
-            first = t.train_epoch_resident("train", steps=warm + 1)["total"]
+            first = _train_steps(t, warm + 1)
             after_first = [p.detach().clone() for p in t.optimizers[m2].params]
-            rest = t.train_epoch_resident("train", steps=8 - warm)["total"]
+            rest = _train_steps(t, 8 - warm)
             runs[name] = (t, np.concatenate([first, rest]), after_first)
     finally:
         torch.backends.cudnn.deterministic = False
@@ -793,23 +848,353 @@ def phase_graph(trainer, kernel: str) -> None:
         raise AssertionError(f"the replayed step differs from the eager one: {got}")
 
     # 3. a restore seen by the next replay: eval steps over the train split
-    # (the cases have no val split at 20 realizations), the first epoch's
-    # warm-up steps and capture before the restore
-    moved = trainer.eval_epoch_resident("train")["total"]
+    # (the cases have no val split at 20 realizations), the warm-up steps
+    # and capture before the restore
+    bs = trainer._resident["train"][3]
+
+    def replayed_eval():
+        out = trainer.eval_epoch_resident("train")["total"]
+        while trainer._states[("eval", "train", bs)].graph is None:
+            out = trainer.eval_epoch_resident("train")["total"]
+        return out
+
+    moved, extra = replayed_eval(), 0
+    while np.allclose(moved, at_snap, rtol=2 * GRAPH_LOSS_RTOL, atol=0):
+        if extra == 20:
+            raise AssertionError(f"{extra} more epochs left the eval losses within "
+                                 f"{2 * GRAPH_LOSS_RTOL} of the snapshot's")
+        trainer.train_epoch_resident("train")
+        moved, extra = replayed_eval(), extra + 1
     n_eval = trainer.replays["eval"]
     trainer.load_snapshot(snap)
     restored = trainer.eval_epoch_resident("train")["total"]
     if trainer.replays["eval"] != n_eval + len(restored):
         raise AssertionError("the eval steps after the restore were not graph replays")
-    eager = Trainer(trainer.loss_fn, cuda_graph=False)
-    eager._resident["train"] = trainer._resident["train"]
     want = eager.eval_epoch_resident("train")["total"]
     err = float(np.max(np.abs(restored - want) / np.abs(want)))
     log(f"restore: replayed eval losses on the restored weights {err:.3e} from the eager eval "
-        f"step's (before the restore {float(np.max(np.abs(moved - want) / np.abs(want))):.3e})")
+        f"step's (before the restore {float(np.max(np.abs(moved - want) / np.abs(want))):.3e}, "
+        f"after {extra} more training epochs)")
     if err > GRAPH_LOSS_RTOL or np.allclose(moved, want, rtol=GRAPH_LOSS_RTOL, atol=0):
         raise AssertionError("the replay after a restore did not compute with the restored "
                              "weights")
+    return {"device_ms_per_step": device_ms, "device_ops_per_step": len(device) / 3}
+
+
+def _counted_training(kernel: str, train):
+    """``train()`` with every launch counter set to 0 just before and read
+    just after, and ``_plain_backward`` (autograd through a recomputed
+    plain version) counted; returns (train()'s result, counts, recomputes)."""
+    import torch
+    from srm_tpu_torch.kernels import stencil as st
+    counters = [k["counter"] for k in KERNELS.values()] + [k["counter"] for k in BACKWARD.values()]
+    plain_backward, recomputes = st._plain_backward, []
+
+    def counted(*a):
+        recomputes.append(1)
+        return plain_backward(*a)
+
+    st._plain_backward = counted
+    try:
+        for c in counters:
+            setattr(st, c, 0)
+        out = train()
+        torch.cuda.synchronize()
+        counts = {c: getattr(st, c) for c in counters}
+    finally:
+        st._plain_backward = plain_backward
+    return out, counts, len(recomputes)
+
+
+def _check_launches(kernel: str, counts: dict, recomputes: int, n_train: int, n_val: int,
+                    epochs: int) -> None:
+    """Each loss evaluation launched ``kernel`` once, each training step its
+    backward kernel once, nothing else launched and nothing recomputed."""
+    mine = KERNELS[kernel]["counter"]
+    bwd = next(b["counter"] for b in BACKWARD.values() if b["forward"] == kernel)
+    want = {c: epochs * (n_train + n_val) if c == mine else epochs * n_train if c == bwd else 0
+            for c in counts}
+    if counts != want or recomputes:
+        raise AssertionError(f"kernel launches {counts} and {recomputes} plain recomputes, "
+                             f"expected {want} and 0")
+
+
+def _stencil_agrees(loss_fn, kernel: str, x, grid) -> None:
+    """The kernel and its plain version, of the expected shapes, on the
+    stencil inputs that the trained models give for the batch ``x`` on the
+    grid ``grid``."""
+    import torch
+    from srm_tpu_torch.kernels import stencil as st
+    with torch.no_grad():
+        args, _ = loss_fn.stencil_inputs(x)
+        got = getattr(st, kernel)(*args, loss_fn.stencil_cfg)
+        want = getattr(st, f"{kernel}_reference")(*args, loss_fn.stencil_cfg)
+    bs = x.shape[0]
+    for t, a, b in zip(KERNELS[kernel]["outputs"], got, want):
+        want_shape = (bs,) if t.startswith("mbc") else (bs,) + tuple(grid)
+        if tuple(a.shape) != want_shape:
+            raise AssertionError(f"{t} has shape {tuple(a.shape)}, expected {want_shape}")
+        check_close(f"trained-model inputs {t} at batch {bs}", a, b)
+
+
+def phase_production(base_dir: str, kernel: str, f32: dict, **case_kwargs) -> dict:
+    """The production profile (``apply_production_overrides``: bfloat16
+    networks, Model 2 on a 2x strided input, batch 128, and
+    ``production_optimizer_configs`` at that batch, 62 decay steps) on the
+    dry-gas case ``setup_case("DG", **case_kwargs)`` at 20 realizations:
+    two epochs through the graphed trainer (each loss evaluation through
+    ``kernel``, each training step's backward through its backward kernel),
+    finite losses; ``kernel`` against its plain version on the trained
+    models' stencil inputs at batch 128; ``phase_graph``'s checks with the
+    production optimizers (the kernels inside the replays, the device ms and
+    operations per step, replay against eager, a restore); then steps/s over
+    10 timed steps, printed beside the f32 batch-32 numbers ``f32`` of the
+    same case in this run. Returns the launch counts of the two training
+    epochs."""
+    import numpy as np
+    import torch
+
+    from srm_tpu_torch.config import (DEFAULT_GENERAL_CONFIG, apply_production_overrides,
+                                      production_optimizer_configs)
+    from srm_tpu_torch.examples.common import setup_case
+    from srm_tpu_torch.training.trainer import train_combined_models_unified
+
+    g = apply_production_overrides(DEFAULT_GENERAL_CONFIG)
+    bs = g["training_batch_size"]
+    opt = production_optimizer_configs(batch_size=bs)
+    decay = {c["exponential_decay"]["learning_rate"]["decay_steps"] for c in opt.values()
+             if c.get("exponential_decay", {}).get("learning_rate", {}).get("enabled")}
+    case, secs = _timed(lambda: setup_case("DG", base_dir=base_dir, n_realizations=20,
+                                           general_config=g, device="cuda", **case_kwargs))
+    loss_fn, models = case["loss_fn"], case["models"]
+    nets = (models["pressure"].network, models["time_step"].network)
+    if (not loss_fn.use_cuda_stencil or loss_fn.dt_input_stride != 2 or bs != 128
+            or any(n.cdt != torch.bfloat16 for n in nets) or decay != {62}):
+        raise AssertionError(f"not the production profile: stride {loss_fn.dt_input_stride}, "
+                             f"batch {bs}, compute dtypes {[n.cdt for n in nets]}, decay {decay}")
+    x_shape = case["train_groups"][0][0].shape
+    log(f"production setup: train features {x_shape} in {secs:.1f} s; bf16 networks, "
+        f"Model 2 on a 2x strided input, batch {bs}, decay steps {decay}")
+    trained = [loss_fn.logical_name(k) for k in loss_fn.trainable_models_keys]
+    before = {k: [p.detach().clone() for p in models[k].parameters()] for k in trained}
+
+    torch.cuda.reset_peak_memory_stats()
+    (trainer, history, _), counts, recomputes = _counted_training(
+        kernel, lambda: train_combined_models_unified(
+            case["train_groups"], case["val_groups"], loss_fn, epochs=2, general_config=g,
+            optimizer_configs=opt))
+    x_all, _, n_train, got_bs = trainer._resident["train"]
+    n_val = trainer._resident["val"][2] if trainer._resident["val"] else 0
+    steps = history["step_total_loss"]
+    if got_bs != bs or len(steps) != 2 * n_train or not np.all(np.isfinite(steps)):
+        raise AssertionError(f"batch {got_bs}: expected {2 * n_train} finite step losses, "
+                             f"got {steps}")
+    _check_launches(kernel, counts, recomputes, n_train, n_val, 2)
+    warm = trainer.warmup_steps
+    if trainer.replays["train"] != max(0, 2 * n_train - warm):
+        raise AssertionError(f"graph replays {trainer.replays}, {2 * n_train} steps")
+    for k, ps in before.items():
+        if all(torch.equal(a, b) for a, b in zip(ps, models[k].parameters())):
+            raise AssertionError(f"the {k} model did not change in training")
+    log(f"production {kernel} batch {bs}: step losses {[f'{v:.6e}' for v in steps]}; "
+        f"launches {counts}, replays {trainer.replays}")
+    _stencil_agrees(loss_fn, kernel, x_all[:bs], x_shape[3:-1])
+
+    device = phase_graph(trainer, kernel, optimizer_configs=opt)
+    n_timed = 5 * n_train
+    _, secs = _timed(lambda: _train_steps(trainer, n_timed))
+    steps_per_s = n_timed / secs
+    if kernel == "dg_stencil_residual":
+        phase_serving_bf16(base_dir, case)
+    log(f"production {kernel}: bf16, batch {bs}: {steps_per_s:.3f} steps/s "
+        f"({steps_per_s * bs:.1f} samples/s, {n_timed} steps), "
+        f"{device['device_ms_per_step']:.3f} device ms per step, "
+        f"{device['device_ops_per_step']:.1f} device operations per step, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; f32 batch 32 in this run: "
+        f"{f32['steps_per_s']:.3f} steps/s ({f32['steps_per_s'] * 32:.1f} samples/s), "
+        f"{f32['device_ms_per_step']:.3f} device ms per step, "
+        f"{f32['device_ops_per_step']:.1f} device operations per step")
+    return counts
+
+
+def phase_serving_bf16(base_dir: str, case) -> None:
+    """The serving path on the production case's trained bfloat16 networks:
+    the predictor's graphed rollout of the test split bitwise its eager one
+    (cuDNN deterministic), and the bundle exported for cuda within
+    SERVE_BF16_REL (max) of the live predictor, and by RMS within
+    SERVE_BF16_RMS_SHARE of the distance between the live predictor and
+    the same weights with every layer in float32: the bundle holds the
+    bfloat16 casts. The float32 bundle's distances are logged beside."""
+    import copy
+
+    import numpy as np
+    import torch
+    from srm_tpu_torch.eval import SRMPredictor, export_surrogate, load_surrogate
+
+    proc = case["processor"]
+    permx = proc.generate_kle_splits()["test"]
+    times = proc.generate_time_tensor()["test"].reshape(-1)
+    args = (case["models"], case["data_summary"], case["general_config"], proc.reservoir_config)
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphed, eager = SRMPredictor(*args), SRMPredictor(*args, cuda_graph=False)
+        live = graphed.predict_pressure(permx, times)
+        plain = eager.predict_pressure(permx, times)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not graphed.replays.get("pressure") or live.tobytes() != plain.tobytes():
+        raise AssertionError(f"bf16 serving: replays {graphed.replays}, graphed vs eager "
+                             f"{np.abs(live - plain).max():.3e}")
+    f32 = copy.deepcopy(case["models"]["pressure"])
+    for m in f32.modules():
+        for attr in ("cdt", "cdt_io"):
+            if hasattr(m, attr):
+                setattr(m, attr, None)
+
+    def served(models, name):
+        out = os.path.join(base_dir, name)
+        export_surrogate(SRMPredictor(models, *args[1:]), out, fields=("pressure",),
+                         platforms=("cuda",))
+        srv = load_surrogate(out, device="cuda")
+        return srv("pressure", np.repeat(permx, times.size, axis=0),
+                   np.tile(times.astype(np.float32), permx.shape[0])).reshape(live.shape)
+
+    def dist(a, b):
+        """max and RMS of a - b over the field's scale and over its range"""
+        d = np.abs(a.astype(np.float64) - b)
+        scale, drop = np.abs(b).max(), np.ptp(b)
+        return (d.max() / scale, np.sqrt(np.mean(d ** 2)) / scale, d.max() / drop,
+                np.sqrt(np.mean(d ** 2)) / drop)
+
+    got, got32 = served(case["models"], "bundle_bf16"), served({"pressure": f32}, "bundle_f32")
+    live32 = SRMPredictor({"pressure": f32}, *args[1:], cuda_graph=False).predict_pressure(
+        permx, times)
+    (rel, rms, _, _), gap = dist(got, live), dist(live32, live)[1]
+    for what, d in (("bf16 bundle vs bf16 predictor", dist(got, live)),
+                    ("f32 bundle vs bf16 predictor", dist(got32, live)),
+                    ("f32 predictor vs bf16 predictor", dist(live32, live)),
+                    ("f32 bundle vs f32 predictor", dist(got32, live32))):
+        log(f"bf16 serving, {what}: max {d[0]:.3e} and RMS {d[1]:.3e} of the field's scale, "
+            f"max {d[2]:.3e} and RMS {d[3]:.3e} of its range")
+    log(f"bf16 serving {live.shape}: graphed rollout bitwise the eager one "
+        f"({graphed.replays['pressure']} replays); bundle on cuda {rel:.3e} (max) of the field's "
+        f"scale from the live predictor (bound {SERVE_BF16_REL:.3e}), RMS {rms / gap:.3f} of "
+        f"the float32 network's (bound {SERVE_BF16_RMS_SHARE}); p in "
+        f"[{live.min():.2f}, {live.max():.2f}]")
+    if rel > SERVE_BF16_REL or not np.isfinite(got).all():
+        raise AssertionError(f"bf16 bundle on cuda: {rel:.3e} from the live predictor")
+    if not gap > 0 or rms > SERVE_BF16_RMS_SHARE * gap:
+        raise AssertionError(f"bf16 bundle on cuda: RMS {rms:.3e} from the live predictor, "
+                             f"the float32 network {gap:.3e}")
+
+
+def phase_drawdown(base_dir: str) -> dict:
+    """The ``--drawdown`` preset as the CLI builds it (``_case_presets``:
+    mixed physics/data training on FV labels, balanced td errors, the
+    ``abs`` saturation rectifier, 250 decay steps, Pi 4300 / BHP floor
+    2000 psia) on the GC case at 20 realizations: every non-empty split
+    labelled by the simulator (physical bounds, condensate dropout below
+    the dew point); two epochs of mixed training through the graphed
+    trainer on B3 (each loss evaluation through the kernel, each step's
+    backward through its backward kernel; finite losses, physics and label
+    terms both live), checkpointed; then ``predict --drawdown`` and
+    ``export --drawdown`` through the CLI, restoring that checkpoint: the
+    rollout's t = 0 at Pi and Sgi, and the bundle on cuda and cpu within
+    SERVE_BUNDLE_REL of the live predictor on the trained models. Returns
+    the launch counts of the training."""
+    import argparse
+
+    import numpy as np
+    from srm_tpu_torch.__main__ import _case_presets
+    from srm_tpu_torch.__main__ import main as cli
+    from srm_tpu_torch.eval import SRMPredictor, load_surrogate
+    from srm_tpu_torch.examples.common import setup_case
+    from srm_tpu_torch.training.trainer import train_combined_models_unified
+
+    kernel = "gc_stencil_residual"
+    args = argparse.Namespace(drawdown=True, production=False, fluid="DG", batch_size=None)
+    fluid, g, opt, setup_kwargs = _case_presets(args, train=True)
+    case, secs = _timed(lambda: setup_case(fluid, base_dir=base_dir, n_realizations=20,
+                                           general_config=g, device="cuda", **setup_kwargs))
+    loss_fn, models = case["loss_fn"], case["models"]
+    Pi, Sgi = setup_kwargs["pi"], loss_fn.Sgi
+    if fluid != "GC" or loss_fn.physics_mode_fraction != 0.5 or not loss_fn.use_cuda_stencil:
+        raise AssertionError(f"not the drawdown recipe: {fluid}, f {loss_fn.physics_mode_fraction}")
+    labelled = {}
+    for split in ("train", "val", "test"):
+        _, y = case[f"{split}_groups"][0]
+        p, sg = np.asarray(y["PRESSURE"]), np.asarray(y["SGAS"])
+        if p.shape[0] == 0:
+            labelled[split] = "empty"
+            continue
+        ok = (np.isfinite(p).all() and (p[:, 0] == Pi).all() and p.min() > 1000.0
+              and p.max() <= Pi + 1e-3 and sg.min() >= 0.0 and sg.max() <= Sgi + 1e-5
+              and sg.min() < Sgi - 1e-3)
+        if not ok:
+            raise AssertionError(f"drawdown {split} labels: p in [{p.min()}, {p.max()}], "
+                                 f"Sg in [{sg.min()}, {sg.max()}]")
+        labelled[split] = (f"{p.shape}: p [{p.min():.2f}, {p.max():.2f}] psia, "
+                           f"Sg [{sg.min():.5f}, {sg.max():.5f}]")
+    if labelled["train"] == "empty" or labelled["test"] == "empty":
+        raise AssertionError(f"drawdown splits: {labelled}")
+    log(f"drawdown setup in {secs:.1f} s (every split simulated): {labelled}")
+
+    ckpt = os.path.join(base_dir, "ckpt_drawdown")
+    (trainer, history, _), counts, recomputes = _counted_training(
+        kernel, lambda: train_combined_models_unified(
+            case["train_groups"], case["val_groups"], loss_fn, epochs=2, general_config=g,
+            optimizer_configs=opt, checkpoint_dir=ckpt))
+    n_train = trainer._resident["train"][2]
+    n_val = trainer._resident["val"][2] if trainer._resident["val"] else 0
+    steps = history["step_total_loss"]
+    terms = {k: history["train"][ph][k][-1] for ph, k in (("gas", "dom_g"), ("gas", "td_g"),
+                                                         ("oil", "dom_o"), ("oil", "td_o"))}
+    if len(steps) != 2 * n_train or not np.all(np.isfinite(steps)) or \
+            not all(v > 0 for v in terms.values()):
+        raise AssertionError(f"drawdown training: step losses {steps}, terms {terms}")
+    _check_launches(kernel, counts, recomputes, n_train, n_val, 2)
+    log(f"drawdown training: {len(steps)} steps, last epoch's terms "
+        + ", ".join(f"{k} {v:.4e}" for k, v in terms.items())
+        + f"; launches {counts}, replays {trainer.replays}")
+    x_all, _, _, bs = trainer._resident["train"]
+    _stencil_agrees(loss_fn, kernel, x_all[:bs], x_all.shape[2:-1])
+
+    flags = ["--drawdown", "--realizations", "20", "--base-dir", base_dir,
+             "--checkpoint-dir", ckpt]
+    npz = os.path.join(base_dir, "drawdown_rollout.npz")
+    out_dir = os.path.join(base_dir, "bundle_drawdown")
+    if cli(["predict", *flags, "--out", npz]) or \
+            cli(["export", *flags, "--out-dir", out_dir, "--platforms", "cpu,cuda"]):
+        raise AssertionError("predict or export --drawdown failed")
+    with np.load(npz) as z:
+        p, sg, times = z["pressure"], z["saturation"], z["times"]
+    permx = case["processor"].generate_kle_splits()["test"]
+    live = SRMPredictor(models, case["data_summary"], g, case["processor"].reservoir_config)
+    want = {"pressure": live.predict_pressure(permx[:p.shape[0]], times),
+            "saturation": live.predict_saturation(permx[:p.shape[0]], times)}
+    rel = {f: float(np.abs(a - want[f]).max() / np.abs(want[f]).max())
+           for f, a in (("pressure", p), ("saturation", sg))}
+    if max(rel.values()) > SERVE_BUNDLE_REL or not (p[:, 0] == Pi).all() or \
+            not np.allclose(sg[:, 0], Sgi) or sg.min() < 0.0 or sg.max() > Sgi + 1e-5:
+        raise AssertionError(f"predict --drawdown: {rel} from the live predictor, t0 p "
+                             f"{p[:, 0].min()}..{p[:, 0].max()}, Sg [{sg.min()}, {sg.max()}]")
+    px = np.repeat(permx, times.size, axis=0)
+    tt = np.tile(times.astype(np.float32), permx.shape[0])
+    full = {"pressure": live.predict_pressure(permx, times),
+            "saturation": live.predict_saturation(permx, times)}
+    for platform in ("cuda", "cpu"):
+        srv = load_surrogate(out_dir, device=platform)
+        brel = {f: float(np.abs(srv(f, px, tt).reshape(w.shape) - w).max() / np.abs(w).max())
+                for f, w in full.items()}
+        log(f"drawdown bundle on {platform}: vs the live predictor (cuda) "
+            + ", ".join(f"{f} {v:.3e}" for f, v in brel.items()))
+        if platform == "cuda" and max(brel.values()) > SERVE_BUNDLE_REL:
+            raise AssertionError(f"drawdown bundle on cuda: {brel} (bound {SERVE_BUNDLE_REL})")
+        if platform == "cpu" and max(brel.values()) > SERVE_CPU_REL:
+            raise AssertionError(f"drawdown bundle on cpu: {brel} (bound {SERVE_CPU_REL})")
+    log(f"predict --drawdown {p.shape}: {rel} from the live predictor; p in "
+        f"[{p.min():.2f}, {p.max():.2f}], Sg in [{sg.min():.5f}, {sg.max():.5f}]")
+    return counts
 
 
 def _rollouts(pred, permx, times, fields) -> dict:
@@ -925,21 +1310,31 @@ def main() -> int:
     measured.update({name: phase_backward(name) for name in BACKWARD})
     # the cases' datasets go under the checkout's build/ (listed in .gitignore)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    counts = {}
+    counts, f32 = {}, {}
     with tempfile.TemporaryDirectory(prefix="smoke_data_", dir=os.path.join(ROOT, "build")) as tmp:
         phase_labels(tmp)
-        counts["dg_stencil_residual"], dg_case = phase_main_path(
+        counts["dg_stencil_residual"], dg_case, f32["dg_stencil_residual"] = phase_main_path(
             tmp, "dg_stencil_residual", general_config=_labelled_config("DG"))
-        counts["dg3d_stencil_residual"], _ = phase_main_path(
+        counts["dg3d_stencil_residual"], _, f32["dg3d_stencil_residual"] = phase_main_path(
             tmp, "dg3d_stencil_residual", nz=10, kle_method="uncorrelated")
-        counts["gc_stencil_residual"], gc_case = phase_main_path(tmp, "gc_stencil_residual",
-                                                                 fluid="GC")
+        counts["gc_stencil_residual"], gc_case, _ = phase_main_path(tmp, "gc_stencil_residual",
+                                                                    fluid="GC")
         phase_serving(tmp, dg_case, gc_case)
-    # each kernel's launches on its own main path (a backward kernel's on
-    # its forward's)
-    launches = {name: counts[name][spec["counter"]] for name, spec in KERNELS.items()}
-    launches.update({name: counts[spec["forward"]][spec["counter"]]
-                     for name, spec in BACKWARD.items()})
+        del dg_case, gc_case
+        production = {
+            "dg_stencil_residual": phase_production(tmp, "dg_stencil_residual",
+                                                    f32["dg_stencil_residual"]),
+            "dg3d_stencil_residual": phase_production(
+                tmp, "dg3d_stencil_residual", f32["dg3d_stencil_residual"], nz=10,
+                kle_method="uncorrelated")}
+        drawdown = {"gc_stencil_residual": phase_drawdown(tmp)}
+    # each kernel's launches on its own f32 main path (a backward kernel's on
+    # its forward's), and on each path of this run that runs it
+    paths = {"f32": counts, "production": production, "drawdown": drawdown}
+    by_path = {name: {path: c[fwd][spec["counter"]] for path, c in paths.items() if fwd in c}
+               for name, spec in {**KERNELS, **BACKWARD}.items()
+               for fwd in [spec.get("forward", name)]}
+    launches = {name: by_path[name]["f32"] for name in by_path}
     sources = {name: KERNELS[spec["forward"]]["source"] for name, spec in BACKWARD.items()}
     sources.update({name: spec["source"] for name, spec in KERNELS.items()})
     replaces = {name: spec["replaces"] for name, spec in {**KERNELS, **BACKWARD}.items()}
@@ -951,7 +1346,8 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"srm_tpu_torch/kernels/csrc/{sources[name]}",
-        "replaces": replaces[name], "launches": launches[name], **measured[name],
+        "replaces": replaces[name], "launches": launches[name],
+        "launches_by_path": by_path[name], **measured[name],
         "library_ms": None} for name in measured]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,24 @@
-"""Physics-mode training-dataset assembly and cache.
+"""Training-dataset assembly and cache.
 
-Port of ``srm_tpu/data/dataset.py::SRMDataProcessor`` for physics mode
-(``physics_mode_fraction >= 1``): KLE realizations → per-split time tensors
-(with shut-in times) → positional midpoint grids → woven features
-``(K, T, D, H, W, 5)`` with channels ``(z, y, x, time, permx)`` →
-train-split statistics → lnk-linear normalization → (features, labels)
-groups. The train and val labels are zeros; with
-``label_source="simulator"`` the test split's labels come from the port's
-FV simulator (``srm_tpu_torch.sim``, on the processor's ``device``), and
-the prediction split takes its labels from the test split's.
+Port of ``srm_tpu/data/dataset.py::SRMDataProcessor``: KLE realizations →
+per-split time tensors (with shut-in times) → positional midpoint grids →
+woven features ``(K, T, D, H, W, 5)`` with channels
+``(z, y, x, time, permx)`` → train-split statistics → lnk-linear
+normalization → (features, labels) groups. With
+``label_source="simulator"`` labels come from the port's FV simulator
+(``srm_tpu_torch.sim``, on the processor's ``device``): in physics mode
+(``physics_mode_fraction >= 1``) the test split's only, the others being
+zeros; in data and mixed mode every split's (``srm_tpu/data/dataset.py:217-243``),
+so the label statistics come from real train labels. The prediction split
+takes its labels from the test split's.
 
 The cache files are the reference's: ``training_data_{hash}.npz`` and
 ``training_statistics_summary_{hash}.json`` under
 ``static_dynamic/{name}_{hash}/``, keyed by
 ``srm_tpu_torch.config.generate_full_config_hash``, the port's copy of the
 JAX package's: while the two hashes agree (``tests/test_torch_config.py``),
-either package reads what the other wrote. Mixed physics/data modes (ROADMAP
-A11), labels parsed from simulator files (A15) and their time re-slicing
-are not ported.
+either package reads what the other wrote. Labels parsed from simulator
+files and their time re-slicing (ROADMAP A15) are not ported.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ FEATURE_KEYS = ["z", "y", "x", "time", "permx"]  # woven channel order
 
 
 class SRMDataProcessor:
-    """Builds, normalizes and caches the physics-mode SRM dataset; simulator
+    """Builds, normalizes and caches the SRM dataset; simulator
     labels run on ``device`` (None: ``"cuda"``)."""
 
     def __init__(self, base_dir: Optional[str] = None,
@@ -160,9 +161,6 @@ class SRMDataProcessor:
     def _check_physics_mode(self):
         """Refuse what the port cannot build yet, before any work."""
         g = self.general_config
-        if g["physics_mode_fraction"] < 1.0:
-            raise NotImplementedError("physics_mode_fraction < 1 (mixed physics/data training) "
-                                      "is not ported yet (ROADMAP A11)")
         if (g.get("array_pipeline") or {}).get("slices") is not None:
             raise NotImplementedError("array_pipeline.slices (the labels' time re-slicing, "
                                       "pipeline.process_array) is not ported yet (ROADMAP A15)")
@@ -191,11 +189,16 @@ class SRMDataProcessor:
         grids = self.positional_grids()
         woven = {s: self.weave_split(kle[s], times[s], grids) for s in self.split_keys}
 
-        # labels: in physics mode only the test split is simulated
+        # labels: in physics mode only the test split is simulated; in data
+        # and mixed mode (physics_mode_fraction < 1) with simulator labels,
+        # every split, so that the train labels and their statistics are real
         labels: Dict[str, Dict[str, np.ndarray]] = {}
+        g = self.general_config
+        sim_splits = (tuple(self.split_keys) if g.get("label_source") == "simulator"
+                      and g["physics_mode_fraction"] < 1.0 else ("test",))
         for s in self.split_keys:
             sim = (self.simulation_labels(s, permx=kle[s], times=times[s])
-                   if s == "test" else None)
+                   if s in sim_splits else None)
             if sim is None:
                 labels[s] = {k: np.zeros_like(woven[s][..., 0]) for k in self.label_keys()}
                 continue

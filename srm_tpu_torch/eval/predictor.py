@@ -16,7 +16,10 @@ is copied into the graph's static input; the output is cloned out. A
 capture that fails raises; nothing falls back to the eager forward or to
 the CPU. ``cuda_graph=False`` runs the eager forward on the card (the
 replay's reference in the checks); on the CPU there are no graphs, and
-``cuda_graph=True`` there raises.
+``cuda_graph=True`` there raises. Networks with a ``compute_dtype``
+(bfloat16 layers over float32 parameters) need nothing more: their casts
+are operations of the forward, captured with it, and the output is
+float32.
 """
 
 from __future__ import annotations

@@ -18,6 +18,9 @@ tables.
   carries another device's tensors; exporting for ``"cuda"`` needs a card.
   ``manifest.json`` keeps the reference's keys and says which file serves
   which platform (``fields[field]["artifact"][platform]``).
+* A network with a ``compute_dtype`` is traced with its per-layer casts
+  (bfloat16 layers over float32 parameters); the program's inputs and
+  output stay float32.
 
 A bundle is served on one platform (``device``, ``"cuda"`` by default):
 :class:`ServingSurrogate` loads that platform's programs and raises if the

@@ -1,10 +1,13 @@
 """PhysicsLoss: finite-volume PDE residual loss over the multi-model SRM.
 
-Port of ``srm_tpu/losses/physics_loss.py`` in physics mode with a scalar
-porosity: dry gas in 2D (Nz = 1) and 3D (Nz > 1), ``_residuals_dg``
+Port of ``srm_tpu/losses/physics_loss.py`` with a scalar porosity, in
+physics, data and mixed mode (``physics_mode_fraction``, with
+``td_loss_normalization`` and ``sg_td_focus``) and with Model 2 on a
+strided input (``dt_input_stride``): dry gas in 2D (Nz = 1) and 3D
+(Nz > 1), ``_residuals_dg``
 (``:493-574``) and ``_residuals_dg_3d`` (``:576-653``, its fused branch),
 and gas condensate in 2D, ``_residuals_gc`` (``:694-793``, its fused
-branch ``:743-771``); ``loss_and_metrics`` (``:971-1055``, physics branch)
+branch ``:743-771``); ``loss_and_metrics`` (``:971-1055``)
 and ``pinn_batch_sse_grad`` (``:1057-1074``). :meth:`PhysicsLoss.residuals`
 dispatches on the fluid and on ``Nz > 1``, as the reference does
 (``:473-480``); the 3D gas-condensate residual is not ported yet.
@@ -260,13 +263,15 @@ class PhysicsLoss:
         self.physics_mode_fraction = float(g["physics_mode_fraction"])
         if self.fluid_type not in ("DG", "GC"):
             raise ValueError(f"Unknown fluid type: {self.fluid_type}. Use 'DG' or 'GC'.")
-        if self.physics_mode_fraction < 1.0:
-            raise NotImplementedError("only physics mode (physics_mode_fraction >= 1) is ported")
-        if g.get("td_loss_normalization") or g.get("sg_td_focus"):
-            # both rescale the label terms, which physics mode weighs 0
-            raise NotImplementedError("td_loss_normalization and sg_td_focus are not ported yet")
-        if g.get("remat_forwards") or int(g.get("dt_input_stride", 1) or 1) > 1:
-            raise NotImplementedError("remat_forwards and dt_input_stride are not ported yet")
+        # td (label) error scaling: None (raw), "balance" (the 2nd+ labels'
+        # errors rescaled to the 1st label's batch std) or "label_std" (every
+        # error over its label's batch std); the Sg td error's dropout focus
+        self.td_normalization = g.get("td_loss_normalization")
+        self.sg_td_focus = float(g.get("sg_td_focus") or 0.0)
+        # Model 2 on a spatially strided input (its field is only averaged)
+        self.dt_input_stride = int(g.get("dt_input_stride", 1) or 1)
+        if g.get("remat_forwards"):
+            raise NotImplementedError("remat_forwards is not ported yet (ROADMAP A10)")
         if np.ndim(res["porosity"]) != 0:
             raise NotImplementedError("per-cell porosity is not ported yet")
         self.optimizer_model_names_map = (optimizer_model_names_map
@@ -333,6 +338,16 @@ class PhysicsLoss:
     def _norm_dt(self, dt: torch.Tensor) -> torch.Tensor:
         return normalize_diff(dt, self.t_row, is_log=False, **self.norm)
 
+    def _time_step(self, x: torch.Tensor) -> torch.Tensor:
+        """Model 2's field on ``x``, on every ``dt_input_stride``-th cell of
+        the height and width axes of the channels-last input (never the
+        depth or the channels), as the reference strides it
+        (``srm_tpu/losses/physics_loss.py:435-443``)."""
+        s = self.dt_input_stride
+        if s > 1:
+            x = x[..., ::s, ::s, :]
+        return self.models["time_step"](x)
+
     def _stencil_fields(self, f: torch.Tensor) -> torch.Tensor:
         """A model field (B, 1, H, W, 1) or (B, 1, D, H, W, 1) as the
         stencil's contiguous (B, H, W) or (B, D, H, W)."""
@@ -348,10 +363,10 @@ class PhysicsLoss:
         kx_c = vol(self._denorm_permx(x[..., 4:5]))                 # (B, [D,] H, W)
 
         # per-sample Δt: the spatial mean of Model 2's field
-        dt0f = m["time_step"](x)
+        dt0f = self._time_step(x)
         tstep = dt0f.mean(dim=tuple(range(1, dt0f.dim() - 1)), keepdim=True)
         x1 = torch.cat([x[..., :3], x[..., 3:4] + self._norm_dt(tstep), x[..., 4:]], dim=-1)
-        dt1f = m["time_step"](x1)
+        dt1f = self._time_step(x1)
         tstep2 = dt1f.mean(dim=tuple(range(1, dt1f.dim() - 1)), keepdim=True)
         tsteps = torch.cat([tstep.reshape(-1, 1), tstep2.reshape(-1, 1)], dim=1)
 
@@ -467,26 +482,80 @@ class PhysicsLoss:
             "outputs": outputs,
         }
 
-    def loss_and_metrics(self, x: torch.Tensor, y) -> Tuple[torch.Tensor, Dict]:
-        """Total weighted SSE and the per-phase, per-term weighted MSEs
-        (physics mode: each phase's td term compares a model output at n0
-        with its label — the pressure for gas, Sg for oil — at the td
-        weight, 0 by default; :1005-1055)."""
-        res = self.residuals(x)
-        outs = res["outputs"]
+    def _data_outputs(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The model outputs of data mode: one forward, no residual
+        (``srm_tpu/losses/physics_loss.py:1000-1008``)."""
+        m = self.models
+        p0f = m["pressure"](x)
+        dt0f = self._time_step(x)
+        outputs = {"p_n0": p0f, "p_n1": p0f,
+                   "tstep": dt0f.mean(dim=tuple(range(1, dt0f.dim() - 1)), keepdim=True)}
+        if self.fluid_type == "GC":
+            outputs["Sg_n0"] = clip(m["saturation_model"](x), 0.0, self.Sgi)
+        return outputs
+
+    def _td_errors(self, outs: Dict[str, torch.Tensor], y) -> List[torch.Tensor]:
+        """Each label's error (model output at n0 − label: the pressure, and
+        for gas condensate Sg), scaled by ``td_loss_normalization`` and, for
+        Sg, by the dropout focus (:1010-1031). The label stds are ddof 0, as
+        ``jnp.std``, floored at 1e-8."""
         keys = ["PRESSURE"] if self.fluid_type == "DG" else ["PRESSURE", "SGAS"]
         labels = [y[k] for k in keys if k in y] if isinstance(y, dict) else [y]
         model_out = [outs["p_n0"]] + ([outs["Sg_n0"]] if self.fluid_type == "GC" else [])
-        td = [out - lab.reshape(out.shape) for lab, out in zip(labels, model_out)]
+        labels = [lab.reshape(out.shape) for lab, out in zip(labels, model_out)]
+        td = [out - lab for lab, out in zip(labels, model_out)]
+        if self.td_normalization in ("label_std", "balance"):
+            stds = [torch.clamp_min(lab.std(correction=0), 1e-8) for lab in labels]
+            if self.td_normalization == "label_std":
+                td = [e / s for e, s in zip(td, stds)]
+            elif len(td) > 1:
+                td = [td[0]] + [e * (stds[0] / s) for e, s in zip(td[1:], stds[1:])]
+        if self.sg_td_focus > 0.0 and len(td) > 1:
+            # mean-1 weight toward cells whose Sg label departs from Sgi;
+            # its square root, because the SSE squares it
+            dev = (labels[1] - self.Sgi).abs()
+            rel = dev / torch.clamp_min(dev.mean(), 1e-12)
+            w = (1.0 + self.sg_td_focus * rel) / (1.0 + self.sg_td_focus)
+            td[1] = td[1] * torch.sqrt(w)
+        return td
+
+    def loss_and_metrics(self, x: torch.Tensor, y) -> Tuple[torch.Tensor, Dict]:
+        """Total weighted SSE and the per-phase, per-term weighted MSEs
+        (:971-1055). Each phase's td term compares a model output at n0 with
+        its label (the pressure for gas, Sg for oil). ``physics_mode_fraction``
+        f: f >= 1 is physics mode (td weight from the config, 0 by
+        default); f == 0 is data mode (one forward, zero residuals, a td
+        weight of 0 taken as 1); 0 < f < 1 is the reference's mixed mode
+        (the physics weights scaled by f, the td weights, 0 taken as 1, by
+        1 − f)."""
+        f_raw = self.physics_mode_fraction
+        physics = f_raw >= 1.0
+        f = min(max(f_raw, 0.0), 1.0)
+        mixed = 0.0 < f < 1.0
+        if physics or f_raw > 0.0:
+            res = self.residuals(x)
+            outs = res["outputs"]
+        else:
+            outs = self._data_outputs(x)
+            zero = x.new_zeros(())
+            res = {ph: {t: zero for t in LOSS_TERMS if t != "td"} for ph in self.phases}
+        td = self._td_errors(outs, y)
         total = x.new_zeros(())
         aux: Dict[str, Dict[str, torch.Tensor]] = {ph: {} for ph in self.phases}
         for i, ph in enumerate(self.phases):
             for t in LOSS_TERMS:
+                w = self.weights[ph][t]
                 if t == "td":
                     err = td[i] if i < len(td) else x.new_zeros(())
+                    if not physics and w == 0.0:
+                        w = 1.0
+                    if mixed:
+                        w = w * (1.0 - f)
                 else:
                     err = res[ph][t]
-                wsse = self.weights[ph][t] * torch.sum(torch.square(err))
+                    if mixed:
+                        w = w * f
+                wsse = w * torch.sum(torch.square(err))
                 total = total + wsse
                 aux[ph][t] = wsse / max(float(err.numel()), 1.0)
         aux["outputs"] = outs
@@ -499,9 +568,13 @@ class PhysicsLoss:
         total, aux = self.loss_and_metrics(x, y)
         keys = self.trainable_models_keys
         params = [list(self.models[self.logical_name(k)].parameters()) for k in keys]
-        grads = torch.autograd.grad(total, [p for ps in params for p in ps])
+        flat = [p for ps in params for p in ps]
+        # data mode leaves Model 2 out of the loss: its gradient is zero, as
+        # the reference's
+        grads = torch.autograd.grad(total, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
         out, i = {}, 0
         for k, ps in zip(keys, params):
-            out[k] = list(grads[i:i + len(ps)])
+            out[k] = grads[i:i + len(ps)]
             i += len(ps)
         return aux, out, total

@@ -1,9 +1,15 @@
-"""Shared network utilities: activations, initialization, time folding.
+"""Shared network utilities: activations, initialization, time folding,
+per-layer compute dtypes.
 
 Port of ``srm_tpu/nn/common.py``. flax's ``swish`` is SiLU. The
 initializer is flax's ``glorot_normal`` (variance scaling over fan_avg with
 a normal truncated at ±2σ), drawn from an explicit ``torch.Generator``; it
 matches the reference in distribution only, since the random streams differ.
+
+:func:`apply_layer` runs a convolution under flax's rule for a layer's
+``dtype`` (the reference's ``compute_dtype``): parameters stay float32 and
+each layer casts what it computes with, which ``torch.autocast``'s per-op
+policy does not reproduce.
 """
 
 from __future__ import annotations
@@ -28,6 +34,38 @@ def get_activation(act: Union[None, str, Callable]) -> Callable[[torch.Tensor], 
     if act.lower() not in _ACTIVATIONS:
         raise ValueError(f"Unknown activation: {act}")
     return _ACTIVATIONS[act.lower()]
+
+
+def resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """The torch dtype named by a config's ``compute_dtype`` ("bfloat16",
+    "float16", ...), or None for none."""
+    if not name:
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype {name!r} is not a floating-point dtype")
+    return dtype
+
+
+def apply_layer(layer: torch.nn.Module, x: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A 2D or 3D (transposed) convolution under flax's per-layer dtype rule:
+    with ``dtype`` its input, kernel and bias are cast to ``dtype`` and so is
+    its result; with None it computes in the promoted type of its input and
+    its parameters (float32 for float32 parameters, whatever the input).
+    The parameters themselves stay as they are, so their gradients keep
+    their dtype."""
+    dt = dtype if dtype is not None else torch.promote_types(x.dtype, layer.weight.dtype)
+    w = layer.weight.to(dt)
+    b = layer.bias.to(dt) if layer.bias is not None else None
+    x = x.to(dt)
+    if isinstance(layer, torch.nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, w, b, layer.stride, layer.padding, layer.output_padding,
+                                  layer.groups, layer.dilation)
+    if isinstance(layer, torch.nn.ConvTranspose3d):
+        return F.conv_transpose3d(x, w, b, layer.stride, layer.padding, layer.output_padding,
+                                  layer.groups, layer.dilation)
+    return layer._conv_forward(x, w, b)
 
 
 def scaled_tanh_lisht(x: torch.Tensor, min_val: float = 0.1, max_val: float = 10.0,

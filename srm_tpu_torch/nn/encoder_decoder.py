@@ -28,6 +28,18 @@ reference's output then no longer depends on its input (ROADMAP C3);
 torch refuses them. The forward pass raises a ``ValueError`` naming the
 smallest valid size instead (:meth:`EncoderDecoder.check_spatial`).
 
+Precision (``compute_dtype``, ``f32_io``; the reference's ``:136-141``,
+``:170-303``): parameters are float32. With ``compute_dtype="bfloat16"``
+every layer built with that dtype in the reference (the strided and extra
+convolutions, the latent and decoder layers, the deconvolutions) casts its
+input, kernel and bias to bfloat16 and returns bfloat16; activations run in
+the dtype of their input; the output is cast to float32. With ``f32_io``
+(``precision_policy="mixed"``) the first convolution and the output chain
+(``dec_final_dense``, ``dec_final_conv``, ``output_proj``) have no dtype
+of their own and compute in float32, the promoted type of their input and
+their float32 parameters (``nn.common.apply_layer``). The resize, where the
+grid needs one, computes in float32 and rounds back to its input's dtype.
+
 Input and output are channels-last ``(B, T, *spatial, C)``; the layers run
 channels-first inside.
 """
@@ -40,7 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from srm_tpu_torch.nn.common import fold_time, get_activation, init_conv_, network_width_list
+from srm_tpu_torch.nn.common import (apply_layer, fold_time, get_activation, init_conv_,
+                                     network_width_list, resolve_dtype)
 
 
 class EncoderDecoder(nn.Module):
@@ -50,7 +63,8 @@ class EncoderDecoder(nn.Module):
                  latent_depth: int = 1, latent_width: int = 128,
                  latent_activation: Any = None, extra_conv_layers: int = 2,
                  extra_dec_conv_layers: int = 2, decoder_filter_fac: float = 1.0,
-                 spatial_dims: int = 2, generator: Optional[torch.Generator] = None):
+                 spatial_dims: int = 2, compute_dtype: Optional[str] = None,
+                 f32_io: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         if spatial_dims not in (2, 3):
             raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
@@ -60,6 +74,8 @@ class EncoderDecoder(nn.Module):
         self.depth = depth
         self.kernel_size = k
         self.spatial_dims = spatial_dims
+        self.cdt = resolve_dtype(compute_dtype)
+        self.cdt_io = None if f32_io else self.cdt
         self.act = get_activation(activation)
         self.out_act = get_activation(out_activation)
         self.latent_act = get_activation(latent_activation)
@@ -131,10 +147,10 @@ class EncoderDecoder(nn.Module):
         lat = rp.get("Latent_Layer", {}) or {}
         if ((rp.get("Skip_Connections") or {}).get("Add")
                 or (rp.get("Dropout") or {}).get("Add") or lat.get("Flatten")
-                or config.get("compute_dtype") or config.get("spatial_pad_to")):
+                or config.get("spatial_pad_to")):
             raise NotImplementedError(
-                "only the float32 encoder-decoder without skips, dropout, "
-                "latent flatten or spatial padding is ported")
+                "only the encoder-decoder without skips, dropout, latent flatten or "
+                "spatial padding is ported (spatial_pad_to: ROADMAP A10)")
         return cls(in_channels, depth=config.get("depth", 4), bottom_size=w["Bottom_Size"],
                    growth_rate=w["Growth_Rate"], output_filters=config.get("output_filters", 1),
                    kernel_size=rp.get("Kernel_Size", 3),
@@ -145,7 +161,9 @@ class EncoderDecoder(nn.Module):
                    extra_conv_layers=(rp.get("Extra_Conv_Layers") or {}).get("Count", 0),
                    extra_dec_conv_layers=(rp.get("Extra_Dec_Conv_Layers") or {}).get("Count", 0),
                    decoder_filter_fac=rp.get("Decoder_Filter_Fac", 1.0),
-                   spatial_dims=config.get("spatial_dims", 2), generator=generator)
+                   spatial_dims=config.get("spatial_dims", 2),
+                   compute_dtype=config.get("compute_dtype"),
+                   f32_io=bool(config.get("f32_io", False)), generator=generator)
 
     def _resize(self, x: torch.Tensor, target) -> torch.Tensor:
         """The reference's resize back to the input grid (``:259-277``)."""
@@ -170,7 +188,7 @@ class EncoderDecoder(nn.Module):
         return x
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        act = self.act
+        act, cdt = self.act, self.cdt
         x, unfold = fold_time(inputs)
         x = x.movedim(-1, 1)                            # channels-last → channels-first
         target = tuple(x.shape[2:])
@@ -178,20 +196,22 @@ class EncoderDecoder(nn.Module):
         for i, conv in enumerate(self.enc_convs):
             if i > 0:
                 x = F.pad(x, (1, 1) * self.spatial_dims)
-            x = act(conv(x))
+            x = act(apply_layer(conv, x, self.cdt_io if i == 0 else cdt))
         for conv in self.enc_extra:
-            x = act(conv(x))
+            x = act(apply_layer(conv, x, cdt))
         for dense in self.latent:
-            x = self.latent_act(dense(x))
+            x = self.latent_act(apply_layer(dense, x, cdt))
         x = act(x)
         for deconv in self.dec_deconvs:
-            x = act(deconv(x))
+            x = act(apply_layer(deconv, x, cdt))
         if tuple(x.shape[2:]) != target:
-            x = self._resize(x, target)
+            x = self._resize(x.float(), target).to(x.dtype)
         for conv in self.dec_extra:
-            x = act(conv(x))
-        x = act(self.dec_final_dense(x))
-        x = self.out_act(self.dec_final_conv(x))
+            x = act(apply_layer(conv, x, cdt))
+        x = act(apply_layer(self.dec_final_dense, x, self.cdt_io))
+        x = self.out_act(apply_layer(self.dec_final_conv, x, self.cdt_io))
         if self.output_proj is not None:
-            x = self.output_proj(x)
+            x = apply_layer(self.output_proj, x, self.cdt_io)
+        if cdt is not None:
+            x = x.float()
         return unfold(x.movedim(1, -1))

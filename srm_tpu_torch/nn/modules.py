@@ -1,7 +1,10 @@
 """Composition modules and the model map.
 
 Port of ``srm_tpu/nn/modules.py`` for dry gas, in 2D and 3D (``Nz > 1``),
-and gas condensate in 2D:
+and gas condensate in 2D, with the reference's ``compute_dtype`` and
+``precision_policy`` (``"mixed"``: float32 input conv and output head)
+passed to the networks; ``network_width`` and ``spatial_pad_to`` raise
+(ROADMAP A10):
 
 * :class:`CompleteTrainableModule` — a backbone with an optional HardLayer
   fed the time channel (``inputs[..., -2:-1]``).
@@ -60,9 +63,13 @@ def _encoder_decoder_config(general_config: Dict, reservoir_config: Dict) -> Dic
     rp["Latent_Layer"]["Activation"] = None
     rp["Out_Activation_Func"] = None
     rp["Skip_Connections"] = {"Add": False, "Layers": [1, 1, 1, 1]}
-    for knob in ("compute_dtype", "precision_policy", "spatial_pad_to", "network_width"):
+    for knob in ("spatial_pad_to", "network_width"):
         if general_config.get(knob):
-            raise NotImplementedError(f"general_config[{knob!r}] is not ported yet")
+            raise NotImplementedError(f"general_config[{knob!r}] is not ported yet (ROADMAP A10)")
+    # bf16 network compute with float32 params; "mixed" keeps the input conv
+    # and the output head in float32 (srm_tpu/nn/modules.py:113-114)
+    ed["compute_dtype"] = general_config.get("compute_dtype")
+    ed["f32_io"] = general_config.get("precision_policy") == "mixed"
     return ed
 
 
@@ -126,6 +133,7 @@ def build_time_step_model(sample_shape: Tuple[int, ...], general_config: Optiona
     cfg["output_distribution"] = False
     cfg["output_activation"] = partial(scaled_tanh_lisht, min_val=0.1,
                                        max_val=g["maximum_srm_timestep"])
+    cfg["compute_dtype"] = g.get("compute_dtype")
     return CompleteTrainableModule(
         ResidualNetwork.from_config(cfg, in_channels=sample_shape[-1], generator=generator))
 

@@ -8,6 +8,13 @@ then a 1×1 conv and the output activation. Input and output are
 channels-last, ``(B, T, H, W, C)`` for ``cnn`` and ``(B, T, D, H, W, C)``
 for ``cnn3d``; the convolutions run channels-first inside.
 
+With ``compute_dtype`` (the reference's ``:48-60``, ``:185-193``) every
+block convolution casts its input, kernel and bias to that dtype and
+returns it; a shortcut sum promotes, so an identity shortcut of a float32
+input keeps the sum float32, as in flax. The 1×1 head has no dtype of its
+own: it computes in float32 on the block features, so the output is
+float32 (the reference casts it, ``:192-193``).
+
 Batch norm, dropout, ``dense`` blocks and the distribution and VAE heads
 wait for a later slice.
 """
@@ -19,7 +26,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
-from srm_tpu_torch.nn.common import fold_time, get_activation, init_conv_
+from srm_tpu_torch.nn.common import (apply_layer, fold_time, get_activation, init_conv_,
+                                     resolve_dtype)
 
 
 _CONV = {"cnn": nn.Conv2d, "cnn3d": nn.Conv3d}
@@ -28,10 +36,11 @@ _CONV = {"cnn": nn.Conv2d, "cnn3d": nn.Conv3d}
 class ResidualBlock(nn.Module):
     def __init__(self, in_channels: int, filters: int, kernel_size: int = 3,
                  activation: Any = "swish", use_projection: bool = False,
-                 network_type: str = "cnn"):
+                 network_type: str = "cnn", compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         conv = _CONV[network_type]
         pad = kernel_size // 2
+        self.cdt = compute_dtype
         self.act = get_activation(activation)
         self.layer1 = conv(in_channels, filters, kernel_size, padding=pad)
         self.layer2 = conv(filters, filters, kernel_size, padding=pad)
@@ -39,8 +48,8 @@ class ResidualBlock(nn.Module):
                      if use_projection and in_channels != filters else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.layer2(self.act(self.layer1(x)))
-        shortcut = self.proj(x) if self.proj is not None else x
+        y = apply_layer(self.layer2, self.act(apply_layer(self.layer1, x, self.cdt)), self.cdt)
+        shortcut = apply_layer(self.proj, x, self.cdt) if self.proj is not None else x
         return self.act(y + shortcut)
 
 
@@ -48,13 +57,16 @@ class ResidualNetwork(nn.Module):
     def __init__(self, in_channels: int, num_blocks: int = 4, filters: int = 32,
                  kernel_size: int = 3, activation: Any = "swish",
                  output_activation: Optional[Callable] = None, output_filters: int = 1,
-                 network_type: str = "cnn", generator: Optional[torch.Generator] = None):
+                 network_type: str = "cnn", compute_dtype: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.cdt = resolve_dtype(compute_dtype)
         blocks = []
         c = in_channels
         for i in range(num_blocks):
             blocks.append(ResidualBlock(c, filters, kernel_size, activation,
-                                        use_projection=(i == 0), network_type=network_type))
+                                        use_projection=(i == 0), network_type=network_type,
+                                        compute_dtype=self.cdt))
             c = filters
         self.blocks = nn.ModuleList(blocks)
         self.output_layer = _CONV[network_type](filters, output_filters, 1)
@@ -76,12 +88,12 @@ class ResidualNetwork(nn.Module):
                    activation=config.get("hidden_activation", "swish"),
                    output_activation=config.get("output_activation"),
                    output_filters=config.get("output_filters", 1), network_type=network_type,
-                   generator=generator)
+                   compute_dtype=config.get("compute_dtype"), generator=generator)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x, unfold = fold_time(inputs)
         x = x.movedim(-1, 1)                            # channels-last → channels-first
         for block in self.blocks:
             x = block(x)
-        out = self.output_activation(self.output_layer(x))
+        out = self.output_activation(apply_layer(self.output_layer, x))
         return unfold(out.movedim(1, -1))

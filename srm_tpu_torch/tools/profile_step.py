@@ -1,25 +1,40 @@
 """Profile the port's training step and its stencil kernel on one GPU.
 
-    python -m srm_tpu_torch.tools.profile_step [--case dg2d|dg3d|gc2d ...]
-                                               [--steps 9] [--out DIR]
+    python -m srm_tpu_torch.tools.profile_step [--case NAME ...] [--steps 9]
+                                               [--batch B] [--bf16]
+                                               [--precision mixed]
+                                               [--dt-stride S] [--out DIR]
 
-For each case (the configurations ``chip_smoke.py`` trains: DG 39×39, DG
-39×39×10 with uncorrelated fields, GC 39×39; batch 32, float32 with TF32
-off, 20 realizations) it builds the case, trains one warm-up epoch (on the
-card the trainer's eager warm-up steps and its graph capture happen there),
-then measures on the card:
+For each case it builds the case at 20 realizations, trains warm-up epochs
+until the trainer's eager warm-up steps and its graph capture are behind it
+(one epoch at batch 32, two at 128, where an epoch holds 2 steps), then
+measures on the card. The cases: the configurations
+``chip_smoke.py`` trains in float32 (TF32 off) at batch 32, ``dg2d`` (DG
+39×39), ``dg3d`` (DG 39×39×10 with uncorrelated fields) and ``gc2d`` (GC
+39×39); and ``bench.py``'s production cases (``bench.py:458-480``:
+``apply_production_overrides``, i.e. bfloat16 networks and Model 2 on a 2x
+strided input), ``dg2d_production`` and ``dg3d_production`` at batch 32
+and ``dg3d_production_b128`` at 128, with ``dg2d_production_b128`` and
+``gc2d_production_b128`` beside them (``train --production``'s batch).
+``--batch``, ``--bf16`` (``compute_dtype="bfloat16"``), ``--precision``
+and ``--dt-stride`` override every case's batch and config, as
+``tools/step_profile.py``'s flags of those names do. Measured:
 
 * the step as the trainer runs it (a CUDA graph replay per step where the
-  trainer has graphs, the eager step otherwise): steps/s over one timed
-  epoch (host clock around work that ends in a synchronise), the device
-  operations and device time per step from ``torch.profiler`` over
-  ``--steps`` steps of a resident epoch (CUPTI records the kernels inside a
-  graph), the busy share (device time over the window's host-clock length,
+  trainer has graphs, the eager step otherwise): steps/s over the whole
+  epochs that hold at least ``--steps`` steps (host clock around work that
+  ends in a synchronise), the device operations and device time per step
+  from ``torch.profiler`` over as many epochs (CUPTI records the kernels
+  inside a graph), the busy share (device time over the window's host-clock length,
   and device time × the untraced steps/s), the convolution and matmul FLOP
   of one loss-and-gradient evaluation (``torch.utils.flop_counter``,
   forward and backward, eager), the peak device memory allocated and
-  reserved over both epochs (reserved includes the graph's private pool)
-  and the step's top device kernels by time (``top_kernels``);
+  reserved over the warm-up and timed epochs (reserved includes the
+  graph's private pool),
+  the step's top device kernels by time (``top_kernels``) and the achieved
+  FLOP/s (FLOP/step × steps/s) against a named peak: the card's dense
+  bfloat16 tensor-core rate for a case with bfloat16 networks, its float32
+  rate outside the tensor cores otherwise;
 * the case's stencil kernel and its plain version on the stencil inputs of
   one main-path batch: device time per call from the profiler over 100
   calls each, and the device launches each call makes; the same for its
@@ -57,10 +72,18 @@ import sys
 import tempfile
 import time
 
+_DG3D = dict(fluid="DG", kernel="dg3d_stencil_residual", nz=10, kle_method="uncorrelated")
 CASES = {
     "dg2d": dict(fluid="DG", kernel="dg_stencil_residual"),
-    "dg3d": dict(fluid="DG", kernel="dg3d_stencil_residual", nz=10, kle_method="uncorrelated"),
+    "dg3d": _DG3D,
     "gc2d": dict(fluid="GC", kernel="gc_stencil_residual"),
+    "dg2d_production": dict(fluid="DG", kernel="dg_stencil_residual", production=True),
+    "dg2d_production_b128": dict(fluid="DG", kernel="dg_stencil_residual", production=True,
+                                 batch=128),
+    "dg3d_production": dict(_DG3D, production=True),
+    "dg3d_production_b128": dict(_DG3D, production=True, batch=128),
+    "gc2d_production_b128": dict(fluid="GC", kernel="gc_stencil_residual", production=True,
+                                 batch=128),
 }
 
 
@@ -86,9 +109,10 @@ def top_kernels(prof, steps: int, top: int = 12):
             for n, t in us.most_common(top)]
 
 
-# the card's published peaks (H100 SXM, NVIDIA's data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
-HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+# the card's published peaks (H100 SXM, NVIDIA's data sheet): HBM bytes/s,
+# float32 operations/s outside the tensor cores and dense bfloat16
+# tensor-core operations/s
+HBM_BYTES_PER_S, FP32_OPS_PER_S, BF16_TENSOR_OPS_PER_S = 3.35e12, 67e12, 989e12
 
 
 # what a stencil's backward must read of its inputs: not the well rates
@@ -208,7 +232,20 @@ def profile_calls(fn, n: int, table: list = None):
     return count / n, device_us / n, window_ms
 
 
-def profile_case(name: str, base_dir: str, steps: int) -> dict:
+def case_config(production: bool, overrides: dict) -> dict:
+    """The general config of a case: the defaults, with the production
+    overrides where the case has them, then the command line's
+    ``overrides`` (those not None)."""
+    import copy
+
+    from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG, apply_production_overrides
+    g = (apply_production_overrides(DEFAULT_GENERAL_CONFIG) if production
+         else copy.deepcopy(DEFAULT_GENERAL_CONFIG))
+    g.update({k: v for k, v in overrides.items() if v is not None})
+    return g
+
+
+def profile_case(name: str, base_dir: str, steps: int, batch=None, overrides=None) -> dict:
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -218,20 +255,32 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
 
     spec = dict(CASES[name])
     fluid, kernel = spec.pop("fluid"), spec.pop("kernel")
-    case = setup_case(fluid, base_dir=base_dir, n_realizations=20, device="cuda", **spec)
+    g = case_config(spec.pop("production", False), overrides or {})
+    batch = batch or spec.pop("batch", 32)
+    spec.pop("batch", None)
+    case = setup_case(fluid, base_dir=base_dir, n_realizations=20, device="cuda",
+                      general_config=g, **spec)
     loss_fn = case["loss_fn"]
     trainer = Trainer(loss_fn)
     graphed = bool(getattr(trainer, "cuda_graph", False))
-    nb, _ = trainer.stage_dataset("train", case["train_groups"], 32)
+    nb, _ = trainer.stage_dataset("train", case["train_groups"], batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    trainer.train_epoch_resident("train")                       # warm-up (and capture)
+    # warm-up: whole epochs until the trainer's eager warm-up steps and its
+    # capture are behind it, however few batches an epoch holds
+    done = 0
+    while done < getattr(Trainer, "warmup_steps", 0) + 1:
+        trainer.train_epoch_resident("train")
+        done += nb
     torch.cuda.synchronize()
 
+    # timed and profiled: whole epochs, at least ``steps`` steps
+    epochs = -(-steps // nb)
     t0 = time.perf_counter()
-    trainer.train_epoch_resident("train")
+    for _ in range(epochs):
+        trainer.train_epoch_resident("train")
     torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
+    steps_per_s = epochs * nb / (time.perf_counter() - t0)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     reserved_mib = torch.cuda.max_memory_reserved() / 2**20
 
@@ -240,9 +289,9 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
                for i in range(nb)]
     table = []
     if graphed:
-        n = min(steps, nb)
+        n = epochs * nb
         ops, busy_us, window_ms = profile_calls(
-            lambda: trainer.train_epoch_resident("train", steps=n), 1, table)
+            lambda: [trainer.train_epoch_resident("train") for _ in range(epochs)], 1, table)
         ops_per_step, busy_us, steps = ops / n, busy_us / n, n
         for row in table:
             row["launches"], row["us"] = row["launches"] / n, row["us"] / n
@@ -273,14 +322,22 @@ def profile_case(name: str, base_dir: str, steps: int) -> dict:
     if "kernel" in calls:
         backward["kernel"].update(warm_cold_ms(calls["kernel"]))
 
+    bf16 = g.get("compute_dtype") == "bfloat16"
+    peak = (("bf16 dense tensor core, H100 SXM data sheet", BF16_TENSOR_OPS_PER_S) if bf16
+            else ("fp32 outside the tensor cores, H100 SXM data sheet", FP32_OPS_PER_S))
+    flop_per_s = flops.get_total_flops() * steps_per_s
     return {
         "case": name, "batch": bs, "features": list(x_all.shape), "graphed": graphed,
-        "replays": getattr(trainer, "replays", None), "steps_per_s": nb / epoch_s,
-        "samples_per_s": nb * bs / epoch_s, "profiled_steps": steps,
+        "compute_dtype": g.get("compute_dtype"), "precision_policy": g.get("precision_policy"),
+        "dt_input_stride": g.get("dt_input_stride", 1),
+        "achieved_flop_per_s": flop_per_s, "peak_name": peak[0], "peak_flop_per_s": peak[1],
+        "achieved_share_of_peak": flop_per_s / peak[1],
+        "replays": getattr(trainer, "replays", None), "steps_per_s": steps_per_s,
+        "samples_per_s": steps_per_s * bs, "profiled_steps": steps,
         "device_ops_per_step": ops_per_step, "device_busy_ms_per_step": busy_us / 1e3,
         "window_ms_per_step": window_ms / steps,
         "device_busy_share": busy_us / 1e3 / (window_ms / steps),
-        "busy_share_untraced": busy_us / 1e3 * nb / epoch_s / 1e3,
+        "busy_share_untraced": busy_us / 1e3 * steps_per_s / 1e3,
         "flop_per_step": flops.get_total_flops(), "peak_memory_mib": peak_mib,
         "peak_reserved_mib": reserved_mib, "top_kernels_per_step": table,
         "kernel": {"name": kernel, "device_us": k_us, "launches_per_call": k_launches,
@@ -295,8 +352,18 @@ def main(argv=None) -> int:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--case", action="append", choices=sorted(CASES))
     parser.add_argument("--steps", type=int, default=9)
+    parser.add_argument("--batch", type=int, default=None,
+                        help="batch size of every case (default: the case's)")
+    parser.add_argument("--bf16", action="store_true",
+                        help='compute_dtype="bfloat16" in every case')
+    parser.add_argument("--precision", default=None, choices=["mixed"],
+                        help="precision_policy of every case")
+    parser.add_argument("--dt-stride", type=int, default=None, dest="dt_stride",
+                        help="dt_input_stride of every case")
     parser.add_argument("--out", default=os.path.join("build", "profile"))
     args = parser.parse_args(argv)
+    overrides = {"compute_dtype": "bfloat16" if args.bf16 else None,
+                 "precision_policy": args.precision, "dt_input_stride": args.dt_stride}
 
     import torch
     if not torch.cuda.is_available():
@@ -308,7 +375,8 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="profile_data_") as tmp:
         for name in args.case or sorted(CASES):
-            result = {"card": card, "torch": torch.__version__, **profile_case(name, tmp, args.steps)}
+            result = {"card": card, "torch": torch.__version__,
+                      **profile_case(name, tmp, args.steps, args.batch, overrides)}
             print(json.dumps(result), flush=True)
             with open(os.path.join(args.out, f"profile_{name}.json"), "w") as f:
                 json.dump(result, f, indent=1)

@@ -1,26 +1,34 @@
-"""Time to accuracy: physics-mode training with the pressure RMSE against FV labels.
+"""Time to accuracy: training with the pressure RMSE against FV labels.
 
     python -m srm_tpu_torch.tools.rmse_experiment train --fluid DG|GC
         [--epochs 100] [--batch 32] [--eval-every 5] [--nx N] [--nz N]
         [--realizations K] [--decay-steps S] [--lr-scale F] [--pi P]
-        [--min-bhp P] [--device cuda|cpu]
+        [--min-bhp P] [--bf16] [--precision mixed] [--dt-stride S]
+        [--physics-fraction F] [--td-norm balance|label_std] [--sg-focus B]
+        [--sg-td-weight W] [--sat-act abs|softplus] [--device cuda|cpu]
 
 Port of the ``train`` command of ``tools/rmse_experiment.py``. It builds the
-case with the test split labelled by the port's FV simulator
-(``label_source="simulator"``), trains in physics mode (no labels in the
-loss) through the graphed ``Trainer`` on the device-resident train split,
-and every ``--eval-every`` epochs takes the pressure RMSE (and for gas
-condensate the Sg RMSE) of the test split. It prints one JSON line: the
-``trajectory`` of ``wall_s`` (training wall clock at the evaluation, the
-earlier evaluations included, as the reference counts it),
+case with FV labels from the port's simulator (``label_source="simulator"``:
+the test split's in physics mode, every split's with
+``--physics-fraction`` below 1), trains through the graphed ``Trainer`` on
+the device-resident train split (physics mode by default, no labels in the
+loss; mixed physics/data training with ``--physics-fraction``), and every
+``--eval-every`` epochs takes the pressure RMSE (and for gas condensate the
+Sg RMSE) of the test split. The reference's knob flags set the same
+config keys as there: ``--bf16`` (``compute_dtype="bfloat16"``),
+``--precision mixed``, ``--dt-stride``, ``--physics-fraction``,
+``--td-norm``, ``--sg-focus``, ``--sg-td-weight`` (the oil-phase td
+weight) and ``--sat-act``; ``--width`` and ``--pad`` name knobs that are
+not ported (ROADMAP A10): the command refuses them. It prints one JSON
+line: the ``trajectory`` of ``wall_s`` (training wall clock at the
+evaluation, the earlier evaluations included, as the reference counts it),
 ``epoch``, ``steps``, ``rmse_psia`` [, ``rmse_sg``] and, beyond the
 reference's line, ``bias_psia`` (the prediction's mean signed error) and
 ``pred_vs_pi_psia`` (the prediction's RMSE against Pi, to set beside the
 labels' ``rmse_predict_pi``), the trivial
 predict-Pi baseline ``rmse_predict_pi`` and ``setup_s`` (case build, label
 simulation included). It runs on the GPU unless ``--device cpu``; TF32 is
-off. The reference's precision, width and mixed-mode flags name knobs that
-are not ported yet: the command refuses them.
+off.
 """
 
 from __future__ import annotations
@@ -37,18 +45,35 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # the reference's flags whose knobs the port lacks, and the ROADMAP item of each
-NOT_PORTED = {"bf16": "A10", "precision": "A10", "width": "A10", "pad": "A10",
-              "dt_stride": "A10", "td_norm": "A11", "sg_focus": "A11",
-              "sg_td_weight": "A11", "sat_act": "A11"}
+NOT_PORTED = {"width": "A10", "pad": "A10"}
 
 
 def build_case(nx=None, nz=None, realizations=None, fluid="DG", pi=None, min_bhp=None,
-               device=None, base_dir=None):
+               device=None, base_dir=None, bf16=False, precision=None, dt_stride=None,
+               physics_fraction=None, td_norm=None, sg_focus=None, sg_td_weight=None,
+               sat_act=None):
+    """The case of the reference's ``build_case`` (tools/rmse_experiment.py:44-88)."""
     from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG
     from srm_tpu_torch.examples.common import setup_case
 
     g = copy.deepcopy(DEFAULT_GENERAL_CONFIG)
-    g["label_source"] = "simulator"          # FV labels for the test split
+    g["label_source"] = "simulator"          # FV labels (every split's below f = 1)
+    if physics_fraction is not None:
+        g["physics_mode_fraction"] = float(physics_fraction)
+    if sg_td_weight is not None:
+        g["default_weights"]["oil"]["td"] = float(sg_td_weight)
+    if td_norm:
+        g["td_loss_normalization"] = td_norm
+    if sg_focus:
+        g["sg_td_focus"] = float(sg_focus)
+    if sat_act:
+        g["sat_input_activation"] = sat_act
+    if bf16:
+        g["compute_dtype"] = "bfloat16"
+    if precision:
+        g["precision_policy"] = precision
+    if dt_stride:
+        g["dt_input_stride"] = int(dt_stride)
     # volumetric grids: iid log-normal fields replace the dense KLE, as the
     # reference's tool selects them
     kle_method = "uncorrelated" if (nz or 1) > 1 else None
@@ -82,8 +107,6 @@ def train(args) -> dict:
 
     refused = [f"--{k.replace('_', '-')} ({item})" for k, item in NOT_PORTED.items()
                if getattr(args, k)]
-    if args.physics_fraction is not None and args.physics_fraction < 1.0:
-        refused.append("--physics-fraction < 1 (A11)")
     if refused:
         raise SystemExit("not ported yet (ROADMAP item): " + ", ".join(refused))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -92,7 +115,11 @@ def train(args) -> dict:
     t_start = time.perf_counter()
     case = build_case(nx=args.nx, nz=args.nz, realizations=args.realizations,
                       fluid=args.fluid, pi=args.pi, min_bhp=args.min_bhp,
-                      device=args.device, base_dir=args.base_dir)
+                      device=args.device, base_dir=args.base_dir, bf16=args.bf16,
+                      precision=args.precision, dt_stride=args.dt_stride,
+                      physics_fraction=args.physics_fraction, td_norm=args.td_norm,
+                      sg_focus=args.sg_focus, sg_td_weight=args.sg_td_weight,
+                      sat_act=args.sat_act)
     device = case["device"]
     trainer = Trainer(case["loss_fn"],
                       optimizer_configs=optimizer_configs(args.lr_scale, args.decay_steps))
@@ -143,11 +170,12 @@ def train(args) -> dict:
     result = {
         "framework": "srm_tpu_torch",
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
-        "fluid": args.fluid, "nz": args.nz, "bf16": False, "precision": None,
-        "width": None, "pad": None, "dt_stride": None, "decay_steps": args.decay_steps,
-        "lr_scale": args.lr_scale, "physics_fraction": args.physics_fraction,
-        "pi": args.pi, "min_bhp": args.min_bhp, "sg_td_weight": None, "td_norm": None,
-        "sg_focus": None, "sat_act": None,
+        "fluid": args.fluid, "nz": args.nz, "bf16": args.bf16, "precision": args.precision,
+        "width": None, "pad": None, "dt_stride": args.dt_stride,
+        "decay_steps": args.decay_steps, "lr_scale": args.lr_scale,
+        "physics_fraction": args.physics_fraction, "pi": args.pi, "min_bhp": args.min_bhp,
+        "sg_td_weight": args.sg_td_weight, "td_norm": args.td_norm, "sg_focus": args.sg_focus,
+        "sat_act": args.sat_act,
         "batch": args.batch, "steps_per_epoch": nb,
         "setup_s": round(t_setup, 1),
         "rmse_predict_pi": round(rmse_pi, 3),
@@ -184,14 +212,26 @@ def main(argv=None):
     pt.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pt.add_argument("--base-dir", default=None,
                     help="dataset cache directory (default: _srm_data in the checkout)")
+    pt.add_argument("--bf16", action="store_true",
+                    help="bfloat16 network compute with float32 parameters")
+    pt.add_argument("--precision", default=None, choices=["mixed"],
+                    help="'mixed': bfloat16 bulk with a float32 input conv and output head")
+    pt.add_argument("--dt-stride", type=int, default=None, dest="dt_stride",
+                    help="spatial stride of the time-step network's input (e.g. 2)")
+    pt.add_argument("--physics-fraction", type=float, default=None, dest="physics_fraction",
+                    help="physics_mode_fraction; below 1, mixed physics/data training on FV "
+                         "labels of every split (0: data only)")
+    pt.add_argument("--td-norm", default=None, dest="td_norm", choices=["balance", "label_std"],
+                    help="td error scaling (td_loss_normalization)")
+    pt.add_argument("--sg-focus", type=float, default=None, dest="sg_focus",
+                    help="dropout-focus beta of the Sg td error (sg_td_focus)")
+    pt.add_argument("--sg-td-weight", type=float, default=None, dest="sg_td_weight",
+                    help="the oil-phase (Sg label) td weight")
+    pt.add_argument("--sat-act", default=None, dest="sat_act", choices=["abs", "softplus"],
+                    help="the saturation HardLayer's departure rectifier")
     # the reference's flags for knobs that are not ported: refused when given
-    pt.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--precision", "--td-norm", "--sat-act"):
-        pt.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--width", "--pad", "--dt-stride"):
+    for flag in ("--width", "--pad"):
         pt.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
-    for flag in ("--physics-fraction", "--sg-focus", "--sg-td-weight"):
-        pt.add_argument(flag, type=float, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     train(args)
 

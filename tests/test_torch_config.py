@@ -58,10 +58,13 @@ def test_spline_source_is_the_same_table():
                                       np.asarray(want["spline_config"].lookup(col), np.float32))
 
 
-def _case(fluid, nx=None, nz=None, n=None, pi=None, min_bhp=None):
+def _case(fluid, nx=None, nz=None, n=None, pi=None, min_bhp=None, drawdown=False):
     """(general, reservoir, wells) configs resized as setup_case resizes
-    them (srm_tpu/examples/common.py:40-74)."""
+    them (srm_tpu/examples/common.py:40-74); ``drawdown``: the drawdown
+    recipe's general config."""
     g = copy.deepcopy(jcfg.DEFAULT_GENERAL_CONFIG)
+    if drawdown:
+        g = jcfg.apply_drawdown_overrides(g)
     g["fluid_type"] = fluid
     res = copy.deepcopy(jcfg.DEFAULT_RESERVOIR_CONFIG)
     wells = copy.deepcopy(jcfg.DEFAULT_WELLS_CONFIG)
@@ -86,10 +89,13 @@ def _case(fluid, nx=None, nz=None, n=None, pi=None, min_bhp=None):
 @pytest.mark.parametrize("case", [
     dict(fluid="DG"), dict(fluid="DG", nx=9, n=6), dict(fluid="DG", nx=39, nz=10, n=20),
     dict(fluid="GC"), dict(fluid="GC", nx=9, n=6), dict(fluid="GC", n=20),
-    dict(fluid="GC", pi=4200.0, min_bhp=2500.0)])
+    dict(fluid="GC", pi=4200.0, min_bhp=2500.0),
+    dict(fluid="GC", drawdown=True, **jcfg.GC_DRAWDOWN_CASE),
+    dict(fluid="GC", nx=9, n=6, drawdown=True, **jcfg.GC_DRAWDOWN_CASE)])
 def test_config_hash_agrees(case):
     """The dataset cache is shared only while the two hashes agree: DG 2D,
-    DG 3D and GC, at the default, test and chip sizes."""
+    DG 3D and GC, at the default, test and chip sizes, and the drawdown
+    recipe's case (mixed mode with simulator labels: both enter the hash)."""
     g, res, wells = _case(**case)
     want = jcfg.generate_full_config_hash(g, res, wells)
     got = tcfg.generate_full_config_hash(copy.deepcopy(g), copy.deepcopy(res),
@@ -102,3 +108,50 @@ def test_config_hash_tells_the_fluids_apart():
     g_gc = dict(g, fluid_type="GC")
     assert tcfg.generate_full_config_hash(g, res, wells) != \
         tcfg.generate_full_config_hash(g_gc, res, wells)
+
+
+def test_drawdown_hash_differs_from_the_physics_case():
+    """The drawdown dataset (every split simulated) never shares a cache
+    with the physics-mode case at the same Pi and BHP floor."""
+    g, res, wells = _case("GC", drawdown=True, **jcfg.GC_DRAWDOWN_CASE)
+    g_phys = copy.deepcopy(jcfg.DEFAULT_GENERAL_CONFIG)
+    g_phys["fluid_type"] = "GC"
+    assert tcfg.generate_full_config_hash(g, res, wells) != \
+        tcfg.generate_full_config_hash(g_phys, res, wells)
+
+
+# ROADMAP C7: two of the reference's config behaviours (ADVICE r5) that the
+# port keeps, so that both packages' presets give the same configs.
+def test_production_overrides_replace_a_value_set_to_its_default():
+    """C7, first behaviour: ``apply_production_overrides`` treats a value
+    equal to its default as unset, so a caller's explicit batch of 32 (the
+    default) becomes 128 (srm_tpu/config/defaults.py:161-170). The port
+    matches the reference."""
+    for cfg in (jcfg, tcfg):
+        g = copy.deepcopy(cfg.DEFAULT_GENERAL_CONFIG)
+        g["training_batch_size"] = 32
+        g["dt_input_stride"] = 3
+        out = cfg.apply_production_overrides(g)
+        assert out["training_batch_size"] == 128 and out["dt_input_stride"] == 3
+    g = copy.deepcopy(jcfg.DEFAULT_GENERAL_CONFIG)
+    g["training_batch_size"] = 32
+    assert tcfg.apply_production_overrides(copy.deepcopy(g)) == jcfg.apply_production_overrides(g)
+
+
+def _decay_steps(cfgs):
+    return {c["exponential_decay"]["learning_rate"]["decay_steps"] for c in cfgs.values()
+            if c.get("exponential_decay", {}).get("learning_rate", {}).get("enabled")}
+
+
+@pytest.mark.parametrize("kw,want", [({}, 62), ({"batch_size": 32}, 250),
+                                     ({"batch_size": 128}, 62), ({"batch_size": 64}, 125),
+                                     ({"decay_steps": 250}, 250)])
+def test_production_schedule_matches_the_reference(kw, want):
+    """C7, second behaviour: ``production_optimizer_configs()`` with no
+    argument scales the ~8000-sample decay to the production batch, 62
+    steps, not the b32 form's 250 (srm_tpu/config/defaults.py:173-187).
+    The port matches the reference at every batch."""
+    got, ref = tcfg.production_optimizer_configs(**kw), jcfg.production_optimizer_configs(**kw)
+    assert got == ref
+    assert _decay_steps(got) == {want}
+    assert _decay_steps(tcfg.drawdown_optimizer_configs()) == {250}

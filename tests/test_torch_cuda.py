@@ -286,9 +286,9 @@ def _cotangents(outs, seed=1):
 
 def _as_3d(shape):
     """The 3D case of a 2D test shape: the main path's depth of 10 for
-    (32, 39, 39), else a few layers (one for a single row)."""
+    (B, 39, 39), else a few layers (one for a single row)."""
     B, H, W = shape
-    return (B, 10 if shape == (32, 39, 39) else 1 if H == 1 else 3, H, W)
+    return (B, 10 if (H, W) == (39, 39) else 1 if H == 1 else 3, H, W)
 
 
 BACKWARD = {
@@ -540,3 +540,40 @@ def test_predictor_graph_matches_eager_and_the_bundle(small_cases, fluid, tmp_pa
         np.testing.assert_allclose(got, live[f], rtol=0, atol=1e-5 * np.abs(live[f]).max())
     Pi = float(proc.reservoir_config["initialization"]["Pi"])
     assert np.all(srv("pressure", permx, np.zeros(permx.shape[0], np.float32)) == Pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(BACKWARD))
+def test_kernels_at_the_production_batch(cuda, kind):
+    """B1, B2 and B3 at batch 128 (the production profile's; the main paths
+    before ran batch 32 only): the forward kernel against its plain version,
+    the backward kernel against the explicit adjoint, and the gradient
+    through the autograd Function against autograd through the plain
+    version (B3's p0 gradient, a difference of large terms, within
+    CANCELLING_TOL of its scale)."""
+    make, name, qwell, counter = BACKWARD[kind]
+    args, cfg = make((128, 39, 39), cuda)
+    fused, plain = getattr(st, name), getattr(st, f"{name}_reference")
+    with torch.no_grad():
+        got, want = fused(*args, cfg), plain(*args, cfg)
+        cots = _cotangents(want)
+    assert got[0].shape[0] == 128
+    for g, w in zip(got, want):
+        _close(g, w)
+    before = getattr(st, counter)
+    got = getattr(st, f"{name}_backward")(*args, *cots, cfg)
+    want = getattr(st, f"{name}_backward_reference")(*args, *cots, cfg)
+    torch.cuda.synchronize()
+    assert getattr(st, counter) == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i != qwell:
+            _close(g, w)
+    got = _square_loss_grads(fused, args, cfg, qwell)
+    want = _square_loss_grads(plain, args, cfg, qwell)
+    p0 = st.GC_ARGS.index("p0") if kind == "gc" else None
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == p0:
+            assert torch.isfinite(g).all()
+            assert float((g - w).abs().max()) <= CANCELLING_TOL * float(w.abs().max())
+        else:
+            _close(g, w)

@@ -108,8 +108,12 @@ def test_collapse_groups_matches_batch_generator(both):
 
 
 def test_non_physics_modes_are_refused(tmp_path):
+    """Data and mixed modes are ported (ROADMAP A11); what they would need
+    and the port lacks, labels re-sliced in time (A15), is refused before
+    any work."""
     g = copy.deepcopy(DEFAULT_GENERAL_CONFIG)
     g["physics_mode_fraction"] = 0.5
+    g["array_pipeline"] = {"slices": [0, 10]}
     proc = _resize(SRMDataProcessor(base_dir=str(tmp_path), general_config=g))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A15"):
         proc.get_or_generate_training_data()

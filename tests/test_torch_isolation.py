@@ -1,6 +1,7 @@
 """The port stands alone: it never imports JAX nor anything of the JAX
-package (its training steps, its simulator labels and its RMSE, its
-predictor and serving bundle), its entry points run on the GPU unless the
+package (its training steps, the production and drawdown presets among
+them, its simulator labels and its RMSE, its predictor and serving
+bundle), its entry points run on the GPU unless the
 caller asks for the CPU,
 and its chip check imports nothing of the JAX package and refuses to run,
 and prints no result, without a GPU or outside a checkout."""
@@ -27,9 +28,9 @@ def _run(args, cwd, env_extra=None, timeout=300):
 
 def _isolated_step(base_dir, case_kwargs: str, fluid: str = "DG") -> str:
     """A script that imports every module of the port, builds a case with
-    ``setup_case(fluid, ..., <case_kwargs>)``, takes one CPU train step and
-    fails if JAX or any module of the JAX package (``srm_tpu``,
-    ``srm_tpu.*``) was loaded."""
+    ``setup_case(fluid, ..., <case_kwargs>)`` (which may name the port's
+    config module ``cfg``), takes one CPU train step and fails if JAX or any
+    module of the JAX package (``srm_tpu``, ``srm_tpu.*``) was loaded."""
     return textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import torch
@@ -37,6 +38,7 @@ def _isolated_step(base_dir, case_kwargs: str, fluid: str = "DG") -> str:
         import srm_tpu_torch
         for mod in pkgutil.walk_packages(srm_tpu_torch.__path__, "srm_tpu_torch."):
             importlib.import_module(mod.name)
+        import srm_tpu_torch.config as cfg
         from srm_tpu_torch.examples.common import setup_case
         from srm_tpu_torch.training.trainer import Trainer
         case = setup_case({fluid!r}, base_dir={str(base_dir)!r}, n_realizations=6,
@@ -73,6 +75,27 @@ def test_port_gc_never_imports_jax(tmp_path):
     """The gas-condensate path (the saturation model, the seven-property
     PVT, the two-phase stencil) stands alone as well."""
     proc = _run([sys.executable, "-c", _isolated_step(tmp_path, "nx=9", fluid="GC")], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+def test_production_step_never_imports_jax(tmp_path):
+    """The production profile (bfloat16 networks, Model 2 on a strided
+    input) stands alone as well."""
+    script = _isolated_step(
+        tmp_path, "nx=9, general_config=cfg.apply_production_overrides(cfg.DEFAULT_GENERAL_CONFIG)")
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+def test_drawdown_step_never_imports_jax(tmp_path):
+    """The drawdown recipe (every split labelled by the simulator, the
+    mixed loss with balanced td errors) stands alone as well."""
+    script = _isolated_step(
+        tmp_path, "nx=9, general_config=cfg.apply_drawdown_overrides(cfg.DEFAULT_GENERAL_CONFIG), "
+                  "**cfg.GC_DRAWDOWN_CASE", fluid="GC")
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "isolated" in proc.stdout
 

@@ -204,11 +204,13 @@ def test_cli_predict_restores_the_trained_weights(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("command", [["predict"], ["export", "--out-dir", "bundle"]])
-def test_cli_refuses_drawdown(command, tmp_path):
-    """The reference's ``--drawdown`` preset is not ported (A11): refused
-    before anything is built."""
+def test_cli_refuses_drawdown(command, tmp_path, monkeypatch):
+    """The ``--drawdown`` preset (ported, A11) runs on the card by default:
+    without one and without ``--device cpu`` it is refused before anything
+    is built (tests/test_torch_production.py runs it on the CPU)."""
     from srm_tpu_torch.__main__ import main
 
-    with pytest.raises(SystemExit, match="A11"):
-        main([*command, "--drawdown", "--device", "cpu", "--base-dir", str(tmp_path)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main([*command, "--drawdown", "--base-dir", str(tmp_path)])
     assert not list(tmp_path.iterdir())
