@@ -26,12 +26,13 @@ easy to find:
 
 The package imports ``torch`` and ``numpy``, never JAX and nothing of the
 JAX package: ``config/`` and ``data/assets/pvt_table.csv`` are its own
-copies. What is ported so far is the physics-mode training step of dry gas
-in 2D and in 3D (Nz > 1, through ``examples.common.setup_case(nz=...)``)
-and of gas condensate in 2D, the FV simulator that labels the test split,
-the RMSE against those labels, and the serving path (the predictor, the
-``torch.export`` bundle, the CLI's ``predict`` and ``export``);
-``ROADMAP.md`` lists what remains. The entry
+copies. What is ported so far is every training configuration of the JAX
+package: the physics-, data- and mixed-mode training step of dry gas and of
+gas condensate in 2D and in 3D (Nz > 1, through
+``examples.common.setup_case(nz=...)``), the production knobs and per-cell
+porosity; the FV simulator that labels the splits, the RMSE against those
+labels, and the serving path (the predictor, the ``torch.export`` bundle,
+the CLI's ``predict`` and ``export``); ``ROADMAP.md`` lists what remains. The entry
 points run on the GPU unless the caller asks for the CPU.
 """
 

@@ -98,8 +98,7 @@ DEFAULT_GENERAL_CONFIG: Dict[str, Any] = {
 
 # The JAX package's production profile for its TPU (bf16 networks, a 2x
 # strided Δt input, batch 128 with a batch-scaled LR decay). Its measured
-# effects are the JAX package's, on its hardware; none of these knobs is
-# ported yet (ROADMAP A10).
+# effects are the JAX package's, on its hardware; the port's are in PERF.md.
 TPU_PRODUCTION_OVERRIDES: Dict[str, Any] = {
     "compute_dtype": "bfloat16",
     "dt_input_stride": 2,
@@ -134,7 +133,7 @@ def apply_production_overrides(general_config: Dict[str, Any]) -> Dict[str, Any]
 
 # The GC below-dew-point (drawdown) recipe: mixed physics/data training on
 # FV-simulator labels, balanced td errors and the 'abs' saturation-departure
-# rectifier. Not ported yet (it needs FV labels, ROADMAP A16).
+# rectifier (``train --drawdown``).
 GC_DRAWDOWN_OVERRIDES: Dict[str, Any] = {
     "fluid_type": "GC",
     "label_source": "simulator",

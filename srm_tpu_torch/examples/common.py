@@ -6,8 +6,10 @@ physics-mode dataset, its statistics, the model map on ``device`` and the
 PhysicsLoss, as one dict bundle. ``nx``, ``nz`` and ``n_realizations``
 resize the problem, and ``kle_method="uncorrelated"`` selects iid log-normal
 permeability fields, as in the reference; ``nz > 1`` gives the 3D
-(7-point) dry-gas case, which needs ``nz >= 9`` at the default encoder depth
-(``EncoderDecoder``). ``pi`` and ``min_bhp`` set the initial pressure and
+(7-point) case of either fluid, which needs ``nz >= 9`` at the default
+encoder depth (``EncoderDecoder``). For gas condensate in 3D,
+``general_config["label_source"] = "files"`` gives zero labels, which the
+physics-mode loss never reads, so that no split is simulated. ``pi`` and ``min_bhp`` set the initial pressure and
 the wells' BHP floor (the reference's drawdown scenarios); both enter the
 config hash.
 

@@ -1,37 +1,41 @@
 """PhysicsLoss: finite-volume PDE residual loss over the multi-model SRM.
 
-Port of ``srm_tpu/losses/physics_loss.py`` with a scalar porosity, in
-physics, data and mixed mode (``physics_mode_fraction``, with
-``td_loss_normalization`` and ``sg_td_focus``) and with Model 2 on a
-strided input (``dt_input_stride``): dry gas in 2D (Nz = 1) and 3D
-(Nz > 1), ``_residuals_dg``
+Port of ``srm_tpu/losses/physics_loss.py`` in physics, data and mixed mode
+(``physics_mode_fraction``, with ``td_loss_normalization`` and
+``sg_td_focus``), with Model 2 on a strided input (``dt_input_stride``),
+rematerialized network forwards (``remat_forwards``) and a scalar or
+per-cell porosity: dry gas in 2D (Nz = 1) and 3D (Nz > 1), ``_residuals_dg``
 (``:493-574``) and ``_residuals_dg_3d`` (``:576-653``, its fused branch),
 and gas condensate in 2D, ``_residuals_gc`` (``:694-793``, its fused
-branch ``:743-771``); ``loss_and_metrics`` (``:971-1055``)
-and ``pinn_batch_sse_grad`` (``:1057-1074``). :meth:`PhysicsLoss.residuals`
-dispatches on the fluid and on ``Nz > 1``, as the reference does
-(``:473-480``); the 3D gas-condensate residual is not ported yet.
+branch ``:743-771``), and in 3D, ``_residuals_gc_3d`` (``:795-960``);
+``loss_and_metrics`` (``:971-1055``), ``pinn_batch_sse_grad``
+(``:1057-1074``) and ``per_term_grad_norms`` (``:1076-1107``).
+:meth:`PhysicsLoss.residuals` dispatches on the fluid and on ``Nz > 1``,
+as the reference does (``:473-480``).
 
 One evaluation: Model 2 gives the per-sample Δt1 on ``x`` and Δt2 on ``x1``
 (``x`` with its time channel shifted by the normalized Δt1); Model 1 (and,
 for gas condensate, Model 1S with its Sg clipped to [0, Sgi]) and the PVT
 run once on the doubled batch ``[x; x1]``; the well model gives rates and
 BHP at n1; the fused stencil (``srm_tpu_torch.kernels.stencil``: B1 for dry
-gas in 2D, B2 in 3D, B3 for gas condensate) gives the residual fields and
-tank balances; the weighted SSE sums the terms of each phase (gas, and oil
-for gas condensate). In 3D the vertical permeability is
+gas in 2D, B2 in 3D, B3 for gas condensate in 2D) gives the residual fields
+and tank balances; the weighted SSE sums the terms of each phase (gas, and
+oil for gas condensate). In 3D the vertical permeability is
 ``vertical_anisotropy · kx``, padded and passed to the stencil pre-scaled.
+Every network forward goes through :meth:`PhysicsLoss._net`.
 
 ``use_cuda_stencil`` mirrors the reference's ``use_pallas_stencil``
-(``:269-275``): it is on where the models live on a GPU and off on the CPU,
-as the reference's is on a TPU only. On, the residual goes through the
-fused op, which launches the CUDA kernel. Off, each fluid runs the port
-of the reference's unfused residual, which sums the well rates and the
-accumulation of each tank balance apart: :func:`dg_residual_from_fields`
+(``:269-275``, ``:321-328``): it is on where the models live on a GPU and
+off on the CPU, as the reference's is on a TPU only, and off with a
+per-cell porosity (the kernels take a scalar one; logged) and for gas
+condensate in 3D (no fused op in either package). On, the residual goes
+through the fused op, which launches the CUDA kernel. Off, each fluid runs
+the port of the reference's unfused residual, which sums the well rates and
+the accumulation of each tank balance apart: :func:`dg_residual_from_fields`
 (``:73-125``) for dry gas in 2D, :func:`dg3d_residual_from_fields` (the
-inline branch ``:655-685``) in 3D and :func:`gc_residual_from_fields`
-(``:128-249``) for gas condensate. These take a porosity field, but
-per-cell porosity still raises ``NotImplementedError`` (ROADMAP A2).
+inline branch ``:655-685``) in 3D, :func:`gc_residual_from_fields`
+(``:128-249``) for gas condensate in 2D and :func:`gc3d_residual_from_fields`
+(``:795-960``) in 3D, each with the loss's porosity field.
 
 Feature layout: ``x`` is the woven normalized tensor, ``(B, 1, H, W, 5)``
 in 2D and ``(B, 1, D, H, W, 5)`` in 3D, with channels
@@ -40,10 +44,12 @@ in 2D and ``(B, 1, D, H, W, 5)`` in 3D, with channels
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from srm_tpu_torch.config import (
     DEFAULT_GENERAL_CONFIG,
@@ -59,10 +65,13 @@ from srm_tpu_torch.kernels.stencil import (EPSILON, GC_ARGS, GC_PADDED, GCStenci
 from srm_tpu_torch.ops.stencil import (average_faces, average_faces_3d, five_point_divergence,
                                        harmonic_faces, harmonic_faces_3d, neighbors,
                                        neighbors_3d, pad_symmetric, pad_symmetric_3d,
-                                       seven_point_divergence, upstream_faces)
+                                       seven_point_divergence, upstream_faces,
+                                       upstream_faces_3d)
 from srm_tpu_torch.physics.relperm import RelativePermeability, clip
 from srm_tpu_torch.physics.wells import scatter_to_grid
 from srm_tpu_torch.utils.stats import denormalize, normalize_diff
+
+log = logging.getLogger(__name__)
 
 # loss-term order (the reference's LOSS_TERMS)
 LOSS_TERMS = ("dom", "dbc", "nbc", "ibc", "ic", "mbc", "cmbc", "tde", "td")
@@ -152,8 +161,47 @@ def gc_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, 
     fused op, each tank balance sums the well rates and the accumulation
     apart, so the small accumulation is not rounded into the large well
     rate cell by cell."""
+    return _gc_residual(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1, invug1,
+                        invuo1, Rs1, Rv1, dinvBg0, dinvBo0, dRs0, dRv0, krgo1, krog1,
+                        (qfg1c, qdg1c, qfo1c, qvo1c), q_well, kx_c, None, phi_c, t1, t2,
+                        C, D, dx, dy, dz, Swmin)
+
+
+def gc3d_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1,
+                              invug1, invuo1, Rs1, Rv1, dinvBg0, dinvBo0, dRs0, dRv0, krgo1,
+                              krog1, qfg1c, qdg1c, qfo1c, qvo1c, q_well, kx_c, kz_c, phi_c, t1,
+                              t2, C: float, D: float, dx: float, dy: float, dz: float,
+                              Swmin: float):
+    """Gas-condensate two-phase 7-point residual from centred (B, D, H, W)
+    fields, the reference's ``_residuals_gc_3d`` (``:795-960``) with its
+    operation order: as :func:`gc_residual_from_fields`, with the four
+    upstream-weighted fluxes over six faces, ``kz_c`` the vertical
+    permeability (vertical_anisotropy·kx) and ``t1``, ``t2`` (B, 1, 1, 1)."""
+    return _gc_residual(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1, invug1,
+                        invuo1, Rs1, Rv1, dinvBg0, dinvBo0, dRs0, dRv0, krgo1, krog1,
+                        (qfg1c, qdg1c, qfo1c, qvo1c), q_well, kx_c, kz_c, phi_c, t1, t2,
+                        C, D, dx, dy, dz, Swmin)
+
+
+def _gc_residual(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1, invug1, invuo1,
+                 Rs1, Rv1, dinvBg0, dinvBo0, dRs0, dRv0, krgo1, krog1, rates, q_well, kx_c,
+                 kz_c, phi_c, t1, t2, C, D, dx, dy, dz, Swmin):
+    """The two-phase residual of :func:`gc_residual_from_fields` (2D,
+    ``kz_c`` None) and :func:`gc3d_residual_from_fields` (3D): the cell-local
+    statements are the same in the reference's two branches, the faces and
+    the divergence are the 5- or 7-point ones."""
     dv = dx * dy * dz
-    kx_ih, kx_i_h, ky_jh, ky_j_h = harmonic_faces(neighbors(pad_symmetric(kx_c)))
+    if kz_c is None:
+        pad, nb, div = pad_symmetric, neighbors, five_point_divergence
+        kfaces = harmonic_faces(nb(pad(kx_c)))
+        faces, upstream = average_faces, upstream_faces
+        inv_d = (1.0 / (dx * dx),) * 2 + (1.0 / (dy * dy),) * 2
+    else:
+        pad, nb, div = pad_symmetric_3d, neighbors_3d, seven_point_divergence
+        kfaces = harmonic_faces_3d(nb(pad(kx_c)), nb(pad(kz_c)))
+        faces, upstream = average_faces_3d, upstream_faces_3d
+        inv_d = ((1.0 / (dx * dx),) * 2 + (1.0 / (dy * dy),) * 2
+                 + (1.0 / (dz * dz),) * 2)
     cf = 97.32e-6 / (1.0 + 55.8721 * phi_c**1.428586)
     So0 = 1.0 - Swmin - Sg0
     So1 = 1.0 - Swmin - Sg1
@@ -173,12 +221,12 @@ def gc_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, 
     trn_g = (dv / D) * (rte / t1 + (t2 * mg0 + t1 * mg2 - (t1 + t2) * mg1) / denom_t)
     trn_o = (dv / D) * (rte / t1 + (t2 * mo0 + t1 * mo2 - (t1 + t2) * mo1) / denom_t)
 
-    pn = neighbors(pad_symmetric(p1))
-    kr_g = upstream_faces(neighbors(pad_symmetric(krgo1)), pn)
-    kr_o = upstream_faces(neighbors(pad_symmetric(krog1)), pn)
+    pn = nb(pad(p1))
+    kr_g = upstream(nb(pad(krgo1)), pn)
+    kr_o = upstream(nb(pad(krog1)), pn)
 
     def favg(f):
-        return average_faces(neighbors(pad_symmetric(f)))
+        return faces(nb(pad(f)))
 
     bgug_faces = favg(invBg1 * invug1)
     bouo_faces = favg(invBo1 * invuo1)
@@ -200,14 +248,9 @@ def gc_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, 
     cproo = phi_c * cf * invBo0
     cprog = phi_c * cf * RvinvBg0
 
-    inv_dxx = 1.0 / (dx * dx)
-    inv_dyy = 1.0 / (dy * dy)
-
     def trans(kr_faces, prop_faces):
-        kr_ih, kr_i_h, kr_jh, kr_j_h = kr_faces
-        pr_ih, pr_i_h, pr_jh, pr_j_h = prop_faces
-        return (C * kx_ih * kr_ih * pr_ih * inv_dxx, C * kx_i_h * kr_i_h * pr_i_h * inv_dxx,
-                C * ky_jh * kr_jh * pr_jh * inv_dyy, C * ky_j_h * kr_j_h * pr_j_h * inv_dyy)
+        return tuple(C * kf * kr * pr * iv
+                     for kf, kr, pr, iv in zip(kfaces, kr_faces, prop_faces, inv_d))
 
     agg = trans(kr_g, bgug_faces)
     ago = trans(kr_o, rsbouo_faces)
@@ -220,22 +263,55 @@ def gc_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, 
     cpoo = inv_Dt * (phi_c * invBo1 * d_So + So0 * (phi_c * dinvBo0 + cproo)) * dp
     cpog = inv_Dt * (phi_c * RvinvBg1 * d_Sg + Sg0 * (phi_c * d_RvinvBg + cprog)) * dp
 
-    divq_gg = five_point_divergence(*agg, pn, qfg1c / dv, dv)
-    divq_go = five_point_divergence(*ago, pn, qdg1c / dv, dv)
-    divq_oo = five_point_divergence(*aoo, pn, qfo1c / dv, dv)
-    divq_og = five_point_divergence(*aog, pn, qvo1c / dv, dv)
+    qfg1c, qdg1c, qfo1c, qvo1c = rates
+    divq_gg = div(*agg, pn, qfg1c / dv, dv)
+    divq_go = div(*ago, pn, qdg1c / dv, dv)
+    divq_oo = div(*aoo, pn, qfo1c / dv, dv)
+    divq_og = div(*aog, pn, qvo1c / dv, dv)
 
     dom_g = (divq_gg + dv * cpgg) + (divq_go + dv * cpgo)
     dom_o = (divq_oo + dv * cpoo) + (divq_og + dv * cpog)
     ibc = q_well * ((divq_gg + divq_go) + (divq_oo + divq_og))
 
+    axes = tuple(range(1, qfg1c.dim()))
     mbc_gg = dv * inv_Dt * phi_c * (Sg1 * invBg1 - Sg0 * invBg0)
     mbc_go = dv * inv_Dt * phi_c * (So1 * RsinvBo1 - So0 * RsinvBo0)
     mbc_oo = dv * inv_Dt * phi_c * (So1 * invBo1 - So0 * invBo0)
     mbc_og = dv * inv_Dt * phi_c * (Sg1 * RvinvBg1 - Sg0 * RvinvBg0)
-    mbc_g = -(qfg1c + qdg1c).sum(dim=(1, 2)) - (mbc_gg + mbc_go).sum(dim=(1, 2))
-    mbc_o = -(qfo1c + qvo1c).sum(dim=(1, 2)) - (mbc_oo + mbc_og).sum(dim=(1, 2))
+    mbc_g = -(qfg1c + qdg1c).sum(dim=axes) - (mbc_gg + mbc_go).sum(dim=axes)
+    mbc_o = -(qfo1c + qvo1c).sum(dim=axes) - (mbc_oo + mbc_og).sum(dim=axes)
     return dom_g, dom_o, ibc, mbc_g, mbc_o, trn_g, trn_o
+
+
+def porosity_field(res: Dict) -> Optional[np.ndarray]:
+    """None for a scalar porosity, else the per-cell field as float32
+    (Nz, Ny, Nx), from any array of the grid's cell count, (Ny, Nx),
+    (Nz, Ny, Nx) or flat (``srm_tpu/losses/physics_loss.py:315-329``); a
+    field of another cell count raises, as the simulator's
+    ``_phi_from_config`` does."""
+    poro = np.asarray(res["porosity"], np.float32)
+    if poro.ndim == 0:
+        return None
+    n = res["Nz"] * res["Ny"] * res["Nx"]
+    if poro.size != n:
+        raise ValueError(f"porosity field has {poro.size} cells, grid has {n}")
+    return poro.reshape(res["Nz"], res["Ny"], res["Nx"])
+
+
+def fused_stencil_selected(device: torch.device, phi_field=None) -> bool:
+    """Whether the loss computes its residual through the fused op (kernels
+    B1-B3): on a CUDA device, unless the porosity is a per-cell field. The
+    kernels take a scalar porosity, so a field runs the unfused residual on
+    the card too, as the reference turns its Pallas stencil off
+    (``srm_tpu/losses/physics_loss.py:325-328``); that choice is logged."""
+    if device.type != "cuda":
+        return False
+    if phi_field is not None:
+        log.info("per-cell porosity: fused CUDA stencil disabled (scalar-phi kernel); "
+                 "using the unfused residual")
+        return False
+    return True
+
 
 _LOGICAL_NAMES = {"pressure": "pressure", "time_step": "time_step",
                   "fluid_property": "pvt_model", "well_rate_bhp": "well_rate_bhp_model",
@@ -270,22 +346,26 @@ class PhysicsLoss:
         self.sg_td_focus = float(g.get("sg_td_focus") or 0.0)
         # Model 2 on a spatially strided input (its field is only averaged)
         self.dt_input_stride = int(g.get("dt_input_stride", 1) or 1)
-        if g.get("remat_forwards"):
-            raise NotImplementedError("remat_forwards is not ported yet (ROADMAP A10)")
-        if np.ndim(res["porosity"]) != 0:
-            raise NotImplementedError("per-cell porosity is not ported yet")
+        # every network forward recomputed in the backward pass (_net)
+        self.remat_forwards = bool(g.get("remat_forwards", False))
         self.optimizer_model_names_map = (optimizer_model_names_map
                                           or get_optimizer_model_mapping(self.fluid_type))
 
         self.device = next(models["pressure"].parameters()).device
-        self.use_cuda_stencil = self.device.type == "cuda"
+        # porosity: a scalar, or a per-cell field stored as (Nz, Ny, Nx) on
+        # the device, phi0 its mean (:315-329)
+        field = porosity_field(res)
+        self.phi0 = float(res["porosity"]) if field is None else float(field.mean())
+        self.phi_field = None if field is None else torch.from_numpy(field).to(self.device)
+        # the 3D gas-condensate residual has no fused op, in either package
+        self.use_cuda_stencil = (fused_stencil_selected(self.device, self.phi_field)
+                                 and not (self.fluid_type == "GC" and res["Nz"] > 1))
 
         units = get_conversion_constants(g["srm_units"])
         self.C, self.D = units["C"], units["D"]
         self.dx = res["length"] / res["Nx"]
         self.dy = res["width"] / res["Ny"]
         self.dz = res["thickness"] / res["Nz"]
-        self.phi0 = float(res["porosity"])
         self.Swmin = self.scal_config["end_points"]["Swmin"]
         self.Sgi = 1.0 - self.Swmin
         self.relperm = RelativePermeability.from_config(
@@ -298,6 +378,10 @@ class PhysicsLoss:
             self.stencil_cfg = StencilConfig(C=self.C, D=self.D, dx=self.dx, dy=self.dy,
                                              dz=self.dz, Sgi=self.Sgi, krgo=krgo_sgi,
                                              phi=self.phi0)
+            # the unfused residual's krgo, a device tensor made here: a step
+            # captured in a CUDA graph may not copy from the host
+            self.krgo_sgi = self.relperm(torch.tensor(self.Sgi, dtype=torch.float32,
+                                                      device=self.device))[1]
 
         # well-cell indicator: (H, W) in 2D, (D, H, W) in 3D (:356-365)
         conn = models["well_rate_bhp_model"].well_data["connection_index"]
@@ -338,15 +422,32 @@ class PhysicsLoss:
     def _norm_dt(self, dt: torch.Tensor) -> torch.Tensor:
         return normalize_diff(dt, self.t_row, is_log=False, **self.norm)
 
-    def _time_step(self, x: torch.Tensor) -> torch.Tensor:
-        """Model 2's field on ``x``, on every ``dt_input_stride``-th cell of
-        the height and width axes of the channels-last input (never the
-        depth or the channels), as the reference strides it
-        (``srm_tpu/losses/physics_loss.py:435-443``)."""
+    def _phi(self, like: torch.Tensor) -> torch.Tensor:
+        """The porosity on the field ``like``'s (B, [D,] H, W) shape: the
+        scalar filled in, or the per-cell field broadcast (:405-411)."""
+        if self.phi_field is None:
+            return torch.full_like(like, self.phi0)
+        phi = self.phi_field.reshape(self.phi_field.shape[-(like.dim() - 1):])
+        return phi.to(like.dtype).expand(like.shape)
+
+    def _net(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """One trainable model's forward (network and HardLayer), the
+        reference's ``_net`` (``srm_tpu/losses/physics_loss.py:425-447``).
+        Model 2 runs on every ``dt_input_stride``-th cell of the height and
+        width axes of the channels-last input (never the depth or the
+        channels). With ``remat_forwards`` the call is checkpointed as
+        ``jax.checkpoint`` wraps ``mod.apply``: the backward pass recomputes
+        the forward (its dtype casts included) instead of keeping its
+        activations. No ported network draws random numbers, so the RNG
+        state is neither saved nor restored, which a CUDA graph capture
+        would not allow."""
+        mod = self.models[name]
         s = self.dt_input_stride
-        if s > 1:
+        if name == "time_step" and s > 1:
             x = x[..., ::s, ::s, :]
-        return self.models["time_step"](x)
+        if self.remat_forwards:
+            return checkpoint(mod, x, use_reentrant=False, preserve_rng_state=False)
+        return mod(x)
 
     def _stencil_fields(self, f: torch.Tensor) -> torch.Tensor:
         """A model field (B, 1, H, W, 1) or (B, 1, D, H, W, 1) as the
@@ -355,25 +456,28 @@ class PhysicsLoss:
 
     def stencil_inputs(self, x: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], Dict]:
         """The network forwards of one evaluation: the fused stencil's tensor
-        arguments (ten for B1, eleven for B2, twenty-seven for B3) and the
-        model outputs (srm_tpu/losses/physics_loss.py:496-552, :600-644,
-        :706-759)."""
+        arguments (ten for B1, eleven for B2, twenty-seven for B3, and in
+        the B3 layout with 3D padding for the 3D gas-condensate residual,
+        which has no fused op) and the model outputs
+        (srm_tpu/losses/physics_loss.py:496-552, :600-644, :706-759,
+        :820-856)."""
         m = self.models
         vol = self._stencil_fields
         kx_c = vol(self._denorm_permx(x[..., 4:5]))                 # (B, [D,] H, W)
+        pad = pad_symmetric_3d if self.Nz > 1 else pad_symmetric
 
         # per-sample Δt: the spatial mean of Model 2's field
-        dt0f = self._time_step(x)
+        dt0f = self._net("time_step", x)
         tstep = dt0f.mean(dim=tuple(range(1, dt0f.dim() - 1)), keepdim=True)
         x1 = torch.cat([x[..., :3], x[..., 3:4] + self._norm_dt(tstep), x[..., 4:]], dim=-1)
-        dt1f = self._time_step(x1)
+        dt1f = self._net("time_step", x1)
         tstep2 = dt1f.mean(dim=tuple(range(1, dt1f.dim() - 1)), keepdim=True)
         tsteps = torch.cat([tstep.reshape(-1, 1), tstep2.reshape(-1, 1)], dim=1)
 
         # pressure, saturation and PVT at n0 and n1 as one doubled-batch forward
         B = x.shape[0]
         x01 = torch.cat([x, x1], dim=0)
-        p01 = m["pressure"](x01)
+        p01 = self._net("pressure", x01)
         pvt01 = m["pvt_model"](p01)
         p0f, p1f = p01[:B], p01[B:]
         pvt0, pvt1 = pvt01[:, :, :B], pvt01[:, :, B:]
@@ -383,7 +487,7 @@ class PhysicsLoss:
         if self.fluid_type == "GC":
             # Sg is pinned to Sgi at t0 by its HardLayer; clipped to the
             # physical range with JAX's gradient at the bounds (:717-718)
-            Sg01 = clip(m["saturation_model"](x01), 0.0, self.Sgi)
+            Sg01 = clip(self._net("saturation_model", x01), 0.0, self.Sgi)
             Sg0f, Sg1f = Sg01[:B], Sg01[B:]
             q1, pwf1 = well.compute_rates_and_bhp(x1, p1f, m["pvt_model"], Sg_n1=Sg1f)
             # PVT rows (invBg, invBo, invug, invuo, Rs, Rv, Vro)
@@ -392,7 +496,6 @@ class PhysicsLoss:
             dinvBg0, dinvBo0, dRs0, dRv0 = (vol(pvt0[1, i]) for i in (0, 1, 4, 5))
             Sg0, Sg1 = vol(Sg0f), vol(Sg1f)
             krog1, krgo1 = self.relperm(Sg1)
-            pad = pad_symmetric
             args = (vol(p0f), pad(vol(p1f)), pad(kx_c), Sg0, Sg1, pad(krgo1), pad(krog1),
                     invBg0, invBo0, Rs0, Rv0, dinvBg0, dinvBo0, dRs0, dRv0,
                     pad(invBg1), pad(invBo1), pad(invug1), pad(invuo1), pad(Rs1), pad(Rv1),
@@ -403,62 +506,66 @@ class PhysicsLoss:
         q1, pwf1 = well.compute_rates_and_bhp(x1, p1f, m["pvt_model"])
         invBg0, dinvBg0 = vol(pvt0[0, 0]), vol(pvt0[1, 0])
         invBg1, invug1 = vol(pvt1[0, 0]), vol(pvt1[0, 1])
-        if self.Nz > 1:
-            pad = pad_symmetric_3d
-            perm = (pad(kx_c), pad(self.kv_kh * kx_c))
-        else:
-            pad = pad_symmetric
-            perm = (pad(kx_c),)
+        perm = (pad(kx_c), pad(self.kv_kh * kx_c)) if self.Nz > 1 else (pad(kx_c),)
         args = (pad(vol(p0f)), pad(vol(p1f))) + perm + (
             pad(invBg1 * invug1), invBg0, invBg1, dinvBg0, vol(q1), self.q_well_idx, tsteps)
         outputs.update(q=q1, pwf=pwf1)
         return args, outputs
 
     def _gc_unfused(self, *args):
-        """:func:`gc_residual_from_fields` on the fused op's arguments, whose
-        padded fields it takes back to their centres (it pads them itself)."""
-        f = {n: a[:, 1:-1, 1:-1] if n in GC_PADDED else a for n, a in zip(GC_ARGS, args)}
+        """:func:`gc_residual_from_fields` (2D) or
+        :func:`gc3d_residual_from_fields` (3D, with kz = vertical_anisotropy
+        · kx) on the fused op's arguments, whose padded fields they take
+        back to their centres (they pad them themselves), with the loss's
+        porosity."""
         qwell, tsteps = args[len(GC_ARGS):]
+        inner = (slice(None),) + (slice(1, -1),) * qwell.dim()
+        f = {n: a[inner] if n in GC_PADDED else a for n, a in zip(GC_ARGS, args)}
+        shape = (-1,) + (1,) * qwell.dim()
+        perm = (f["kxp"], self.kv_kh * f["kxp"]) if qwell.dim() == 3 else (f["kxp"],)
+        fn = gc3d_residual_from_fields if qwell.dim() == 3 else gc_residual_from_fields
         cfg = self.stencil_cfg
-        return gc_residual_from_fields(
+        return fn(
             *(f[n] for n in ("p0", "p1p", "Sg0", "Sg1", "invBg0", "invBo0", "Rs0", "Rv0",
                              "invBg1p", "invBo1p", "invug1p", "invuo1p", "Rs1p", "Rv1p",
                              "dinvBg0", "dinvBo0", "dRs0", "dRv0", "krgo1p", "krog1p",
                              "qfg", "qdg", "qfo", "qvo")),
-            qwell, f["kxp"], torch.full_like(f["p0"], cfg.phi), tsteps[:, 0].reshape(-1, 1, 1),
-            tsteps[:, 1].reshape(-1, 1, 1), cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz, cfg.Swmin)
+            qwell, *perm, self._phi(f["p0"]), tsteps[:, 0].reshape(shape),
+            tsteps[:, 1].reshape(shape), cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz, cfg.Swmin)
 
     def _dg_unfused(self, *args):
         """:func:`dg_residual_from_fields` (2D) or
         :func:`dg3d_residual_from_fields` (3D) on the fused op's arguments,
         whose padded fields they take back to their centres (they pad them
-        themselves), with the reference's krgo from the relperm at Sgi."""
+        themselves), with the reference's krgo from the relperm at Sgi and
+        the loss's porosity."""
         cfg = self.stencil_cfg
         *padded, invBg0, invBg1, dinvBg0, q, qwell, tsteps = args
         inner = (slice(None),) + (slice(1, -1),) * (q.dim() - 1)
         p0, p1, kx, *kz, bgug1 = (f[inner] for f in padded)
         shape = (-1,) + (1,) * (q.dim() - 1)
-        krgo = self.relperm(torch.tensor(self.Sgi, dtype=torch.float32, device=q.device))[1]
         fn = dg3d_residual_from_fields if kz else dg_residual_from_fields
         return fn(p0, p1, invBg0, invBg1, bgug1, dinvBg0, q, qwell, kx, *kz,
-                  torch.full_like(p0, cfg.phi), tsteps[:, 0].reshape(shape),
-                  tsteps[:, 1].reshape(shape), krgo, cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz,
+                  self._phi(p0), tsteps[:, 0].reshape(shape),
+                  tsteps[:, 1].reshape(shape), self.krgo_sgi, cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz,
                   cfg.Sgi)
 
     def residuals(self, x: torch.Tensor) -> Dict[str, Any]:
         """Residual fields per phase (srm_tpu/losses/physics_loss.py:473-480,
-        :493-574, :576-653, :694-793). In 3D, dom, ibc and tde take the
-        pressure field's (B, 1, D, H, W) layout, as the reference returns
-        them."""
-        if self.fluid_type == "GC" and self.Nz > 1:
-            raise NotImplementedError("the 3D gas-condensate residual is not ported yet")
+        :493-574, :576-653, :694-793, :795-960). In 3D, dom, ibc and tde
+        take the pressure field's (B, 1, D, H, W) layout, as the reference
+        returns them."""
         args, outputs = self.stencil_inputs(x)
+        shape = tuple(outputs["p_n0"].shape[:-1])
         if self.fluid_type == "GC":
             if self.use_cuda_stencil:
                 dom_g, dom_o, ibc, trn_g, trn_o, mbc_g, mbc_o = gc_stencil_residual(
                     *args, self.stencil_cfg)
             else:
                 dom_g, dom_o, ibc, mbc_g, mbc_o, trn_g, trn_o = self._gc_unfused(*args)
+            if self.Nz > 1:
+                dom_g, dom_o, ibc, trn_g, trn_o = (f.reshape(shape) for f in (
+                    dom_g, dom_o, ibc, trn_g, trn_o))
             zeros = torch.zeros_like(dom_g)
             return {
                 "gas": {"dom": dom_g, "dbc": zeros, "nbc": zeros, "ibc": ibc, "ic": zeros,
@@ -473,7 +580,6 @@ class PhysicsLoss:
         else:
             dom, ibc, mbc, tde = self._dg_unfused(*args)
         if self.Nz > 1:
-            shape = tuple(outputs["p_n0"].shape[:-1])
             dom, ibc, tde = (f.reshape(shape) for f in (dom, ibc, tde))
         zeros = torch.zeros_like(dom)
         return {
@@ -485,13 +591,12 @@ class PhysicsLoss:
     def _data_outputs(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The model outputs of data mode: one forward, no residual
         (``srm_tpu/losses/physics_loss.py:1000-1008``)."""
-        m = self.models
-        p0f = m["pressure"](x)
-        dt0f = self._time_step(x)
+        p0f = self._net("pressure", x)
+        dt0f = self._net("time_step", x)
         outputs = {"p_n0": p0f, "p_n1": p0f,
                    "tstep": dt0f.mean(dim=tuple(range(1, dt0f.dim() - 1)), keepdim=True)}
         if self.fluid_type == "GC":
-            outputs["Sg_n0"] = clip(m["saturation_model"](x), 0.0, self.Sgi)
+            outputs["Sg_n0"] = clip(self._net("saturation_model", x), 0.0, self.Sgi)
         return outputs
 
     def _td_errors(self, outs: Dict[str, torch.Tensor], y) -> List[torch.Tensor]:
@@ -578,3 +683,30 @@ class PhysicsLoss:
             out[k] = grads[i:i + len(ps)]
             i += len(ps)
         return aux, out, total
+
+    def per_term_grad_norms(self, x: torch.Tensor, y) -> Dict[str, Dict[str, float]]:
+        """The L2 norm of each loss term's gradient with respect to each
+        trainable model's parameters, ``{"<phase>/<term>": {<model>: norm}}``
+        with the terms' weighted MSEs as in ``loss_and_metrics``'s aux (the
+        reference's ``per_term_grad_norms``, ``:1076-1107``). One backward
+        per (phase, term), eager: a diagnostic, never part of the training
+        step. A term that does not depend on a model (a zero residual, an
+        unused label) has norm 0."""
+        _, aux = self.loss_and_metrics(x, y)
+        names = sorted({self.logical_name(k) for k in self.trainable_models_keys})
+        params = {n: list(self.models[n].parameters()) for n in names}
+        flat = [p for n in names for p in params[n]]
+        out: Dict[str, Dict[str, float]] = {}
+        for ph in self.phases:
+            for t in LOSS_TERMS:
+                term = aux[ph][t]
+                grads = (torch.autograd.grad(term, flat, retain_graph=True, allow_unused=True)
+                         if term.requires_grad else [None] * len(flat))
+                row, i = {}, 0
+                for n in names:
+                    sq = sum(float((g.double() ** 2).sum()) for g in grads[i:i + len(params[n])]
+                             if g is not None)
+                    row[n] = float(np.sqrt(sq))
+                    i += len(params[n])
+                out[f"{ph}/{t}"] = row
+        return out

@@ -68,6 +68,17 @@ def apply_layer(layer: torch.nn.Module, x: torch.Tensor,
     return layer._conv_forward(x, w, b)
 
 
+def pad_height_width(x: torch.Tensor, size: Optional[int]) -> torch.Tensor:
+    """A channels-first (N, C, [D,] H, W) tensor with zeros appended to its
+    height and width up to ``size`` (the reference's ``spatial_pad_to``;
+    an axis already that large is left as it is); ``x`` itself without a
+    size."""
+    if not size:
+        return x
+    pad_h, pad_w = (max(int(size) - n, 0) for n in x.shape[-2:])
+    return F.pad(x, (0, pad_w, 0, pad_h)) if pad_h or pad_w else x
+
+
 def scaled_tanh_lisht(x: torch.Tensor, min_val: float = 0.1, max_val: float = 10.0,
                       steepness: float = 1.0) -> torch.Tensor:
     """x·tanh(x) squashed into (min_val, max_val] — the adaptive time-step

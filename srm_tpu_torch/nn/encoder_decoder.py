@@ -40,6 +40,12 @@ of their own and compute in float32, the promoted type of their input and
 their float32 parameters (``nn.common.apply_layer``). The resize, where the
 grid needs one, computes in float32 and rounds back to its input's dtype.
 
+``spatial_pad_to`` (the reference's ``:84``, ``:153-166``, ``:285-291``)
+zero-pads the height and width (never the depth) at their ends up to that
+size before the first convolution; the decoder resizes to the padded grid,
+and the padding is cropped off after the extra decoder convolutions, before
+the output chain, so the output has the input's grid.
+
 Input and output are channels-last ``(B, T, *spatial, C)``; the layers run
 channels-first inside.
 """
@@ -53,7 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from srm_tpu_torch.nn.common import (apply_layer, fold_time, get_activation, init_conv_,
-                                     network_width_list, resolve_dtype)
+                                     network_width_list, pad_height_width, resolve_dtype)
 
 
 class EncoderDecoder(nn.Module):
@@ -64,7 +70,8 @@ class EncoderDecoder(nn.Module):
                  latent_activation: Any = None, extra_conv_layers: int = 2,
                  extra_dec_conv_layers: int = 2, decoder_filter_fac: float = 1.0,
                  spatial_dims: int = 2, compute_dtype: Optional[str] = None,
-                 f32_io: bool = False, generator: Optional[torch.Generator] = None):
+                 f32_io: bool = False, spatial_pad_to: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if spatial_dims not in (2, 3):
             raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
@@ -74,6 +81,7 @@ class EncoderDecoder(nn.Module):
         self.depth = depth
         self.kernel_size = k
         self.spatial_dims = spatial_dims
+        self.spatial_pad_to = spatial_pad_to
         self.cdt = resolve_dtype(compute_dtype)
         self.cdt_io = None if f32_io else self.cdt
         self.act = get_activation(activation)
@@ -146,11 +154,9 @@ class EncoderDecoder(nn.Module):
         w = config.get("width", {"Bottom_Size": 32, "Growth_Rate": 1.5})
         lat = rp.get("Latent_Layer", {}) or {}
         if ((rp.get("Skip_Connections") or {}).get("Add")
-                or (rp.get("Dropout") or {}).get("Add") or lat.get("Flatten")
-                or config.get("spatial_pad_to")):
+                or (rp.get("Dropout") or {}).get("Add") or lat.get("Flatten")):
             raise NotImplementedError(
-                "only the encoder-decoder without skips, dropout, latent flatten or "
-                "spatial padding is ported (spatial_pad_to: ROADMAP A10)")
+                "only the encoder-decoder without skips, dropout or latent flatten is ported")
         return cls(in_channels, depth=config.get("depth", 4), bottom_size=w["Bottom_Size"],
                    growth_rate=w["Growth_Rate"], output_filters=config.get("output_filters", 1),
                    kernel_size=rp.get("Kernel_Size", 3),
@@ -163,7 +169,8 @@ class EncoderDecoder(nn.Module):
                    decoder_filter_fac=rp.get("Decoder_Filter_Fac", 1.0),
                    spatial_dims=config.get("spatial_dims", 2),
                    compute_dtype=config.get("compute_dtype"),
-                   f32_io=bool(config.get("f32_io", False)), generator=generator)
+                   f32_io=bool(config.get("f32_io", False)),
+                   spatial_pad_to=config.get("spatial_pad_to"), generator=generator)
 
     def _resize(self, x: torch.Tensor, target) -> torch.Tensor:
         """The reference's resize back to the input grid (``:259-277``)."""
@@ -191,6 +198,8 @@ class EncoderDecoder(nn.Module):
         act, cdt = self.act, self.cdt
         x, unfold = fold_time(inputs)
         x = x.movedim(-1, 1)                            # channels-last → channels-first
+        true_hw = tuple(x.shape[-2:])
+        x = pad_height_width(x, self.spatial_pad_to)
         target = tuple(x.shape[2:])
         self.check_spatial(target)
         for i, conv in enumerate(self.enc_convs):
@@ -208,6 +217,8 @@ class EncoderDecoder(nn.Module):
             x = self._resize(x.float(), target).to(x.dtype)
         for conv in self.dec_extra:
             x = act(apply_layer(conv, x, cdt))
+        if tuple(x.shape[-2:]) != true_hw:              # the alignment padding off
+            x = x[..., :true_hw[0], :true_hw[1]]
         x = act(apply_layer(self.dec_final_dense, x, self.cdt_io))
         x = self.out_act(apply_layer(self.dec_final_conv, x, self.cdt_io))
         if self.output_proj is not None:

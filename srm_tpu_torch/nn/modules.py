@@ -1,10 +1,10 @@
 """Composition modules and the model map.
 
-Port of ``srm_tpu/nn/modules.py`` for dry gas, in 2D and 3D (``Nz > 1``),
-and gas condensate in 2D, with the reference's ``compute_dtype`` and
-``precision_policy`` (``"mixed"``: float32 input conv and output head)
-passed to the networks; ``network_width`` and ``spatial_pad_to`` raise
-(ROADMAP A10):
+Port of ``srm_tpu/nn/modules.py`` for dry gas and gas condensate, in 2D
+and 3D (``Nz > 1``), with the reference's ``compute_dtype``,
+``precision_policy`` (``"mixed"``: float32 input conv and output head) and
+``spatial_pad_to`` passed to the networks, and ``network_width`` as the
+encoder–decoders' ``Bottom_Size`` (Models 1 and 1S, not Model 2):
 
 * :class:`CompleteTrainableModule` — a backbone with an optional HardLayer
   fed the time channel (``inputs[..., -2:-1]``).
@@ -63,9 +63,11 @@ def _encoder_decoder_config(general_config: Dict, reservoir_config: Dict) -> Dic
     rp["Latent_Layer"]["Activation"] = None
     rp["Out_Activation_Func"] = None
     rp["Skip_Connections"] = {"Add": False, "Layers": [1, 1, 1, 1]}
-    for knob in ("spatial_pad_to", "network_width"):
-        if general_config.get(knob):
-            raise NotImplementedError(f"general_config[{knob!r}] is not ported yet (ROADMAP A10)")
+    # H/W alignment padding, and the channels of Models 1 and 1S only
+    # (srm_tpu/nn/modules.py:115-117, :163-165)
+    ed["spatial_pad_to"] = general_config.get("spatial_pad_to")
+    if general_config.get("network_width"):
+        ed["width"]["Bottom_Size"] = int(general_config["network_width"])
     # bf16 network compute with float32 params; "mixed" keeps the input conv
     # and the output head in float32 (srm_tpu/nn/modules.py:113-114)
     ed["compute_dtype"] = general_config.get("compute_dtype")
@@ -134,6 +136,7 @@ def build_time_step_model(sample_shape: Tuple[int, ...], general_config: Optiona
     cfg["output_activation"] = partial(scaled_tanh_lisht, min_val=0.1,
                                        max_val=g["maximum_srm_timestep"])
     cfg["compute_dtype"] = g.get("compute_dtype")
+    cfg["spatial_pad_to"] = g.get("spatial_pad_to")
     return CompleteTrainableModule(
         ResidualNetwork.from_config(cfg, in_channels=sample_shape[-1], generator=generator))
 

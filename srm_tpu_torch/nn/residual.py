@@ -15,6 +15,10 @@ input keeps the sum float32, as in flax. The 1×1 head has no dtype of its
 own: it computes in float32 on the block features, so the output is
 float32 (the reference casts it, ``:192-193``).
 
+``spatial_pad_to`` (the reference's ``:133-158``) zero-pads the height and
+width at their ends up to that size before the blocks and crops the
+padding off after them, before the head.
+
 Batch norm, dropout, ``dense`` blocks and the distribution and VAE heads
 wait for a later slice.
 """
@@ -27,7 +31,7 @@ import torch
 from torch import nn
 
 from srm_tpu_torch.nn.common import (apply_layer, fold_time, get_activation, init_conv_,
-                                     resolve_dtype)
+                                     pad_height_width, resolve_dtype)
 
 
 _CONV = {"cnn": nn.Conv2d, "cnn3d": nn.Conv3d}
@@ -58,9 +62,11 @@ class ResidualNetwork(nn.Module):
                  kernel_size: int = 3, activation: Any = "swish",
                  output_activation: Optional[Callable] = None, output_filters: int = 1,
                  network_type: str = "cnn", compute_dtype: Optional[str] = None,
+                 spatial_pad_to: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cdt = resolve_dtype(compute_dtype)
+        self.spatial_pad_to = spatial_pad_to
         blocks = []
         c = in_channels
         for i in range(num_blocks):
@@ -88,12 +94,17 @@ class ResidualNetwork(nn.Module):
                    activation=config.get("hidden_activation", "swish"),
                    output_activation=config.get("output_activation"),
                    output_filters=config.get("output_filters", 1), network_type=network_type,
-                   compute_dtype=config.get("compute_dtype"), generator=generator)
+                   compute_dtype=config.get("compute_dtype"),
+                   spatial_pad_to=config.get("spatial_pad_to"), generator=generator)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x, unfold = fold_time(inputs)
         x = x.movedim(-1, 1)                            # channels-last → channels-first
+        true_hw = tuple(x.shape[-2:])
+        x = pad_height_width(x, self.spatial_pad_to)
         for block in self.blocks:
             x = block(x)
+        if tuple(x.shape[-2:]) != true_hw:              # the alignment padding off
+            x = x[..., :true_hw[0], :true_hw[1]]
         out = self.output_activation(apply_layer(self.output_layer, x))
         return unfold(out.movedim(1, -1))

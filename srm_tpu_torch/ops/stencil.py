@@ -132,6 +132,18 @@ def harmonic_faces_3d(k: Neighbors3D, kz: Neighbors3D) -> Tuple[torch.Tensor, ..
     return kx_ih, kx_i_h, ky_jh, ky_j_h, kz_kh, kz_k_h
 
 
+def upstream_faces_3d(kr: Neighbors3D, pot: Neighbors3D) -> Tuple[torch.Tensor, ...]:
+    """Upstream-weighted values at the six faces: (kr_ih, kr_i_h, kr_jh,
+    kr_j_h, kr_kh, kr_k_h), as :func:`upstream_faces` (ties take the
+    centre's value, and only the selected branch receives the gradient)."""
+    return (torch.where(pot.i1 - pot.ij <= 0.0, kr.ij, kr.i1),
+            torch.where(pot.ij - pot.i_1 <= 0.0, kr.ij, kr.i_1),
+            torch.where(pot.j1 - pot.ij <= 0.0, kr.ij, kr.j1),
+            torch.where(pot.ij - pot.j_1 <= 0.0, kr.ij, kr.j_1),
+            torch.where(pot.k1 - pot.ij <= 0.0, kr.ij, kr.k1),
+            torch.where(pot.ij - pot.k_1 <= 0.0, kr.ij, kr.k_1))
+
+
 def average_faces_3d(f: Neighbors3D) -> Tuple[torch.Tensor, ...]:
     """Arithmetic face averages: (f_ih, f_i_h, f_jh, f_j_h, f_kh, f_k_h)."""
     return (0.5 * (f.i1 + f.ij), 0.5 * (f.ij + f.i_1),

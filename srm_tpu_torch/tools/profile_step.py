@@ -15,7 +15,15 @@ measures on the card. The cases: the configurations
 ``apply_production_overrides``, i.e. bfloat16 networks and Model 2 on a 2x
 strided input), ``dg2d_production`` and ``dg3d_production`` at batch 32
 and ``dg3d_production_b128`` at 128, with ``dg2d_production_b128`` and
-``gc2d_production_b128`` beside them (``train --production``'s batch).
+``gc2d_production_b128`` beside them (``train --production``'s batch);
+and ``bench.py``'s cases of the last configurations ported: ``gc3d`` (GC
+39×39×10, uncorrelated, f32 at batch 32; no stencil kernel, so no kernel
+section), ``gc3d_production`` (the same with bfloat16 networks and the
+strided Model 2), ``dg3d_production_b256_remat`` (``dg3d_production`` at
+batch 256 with ``remat_forwards``) and ``dg3d_production_b256`` (without
+it, the comparison that decides remat), and ``dg2d_large`` (DG 117×117,
+uncorrelated, f32 at batch 128). At batch 256 an epoch of the 20
+realizations holds one step.
 ``--batch``, ``--bf16`` (``compute_dtype="bfloat16"``), ``--precision``
 and ``--dt-stride`` override every case's batch and config, as
 ``tools/step_profile.py``'s flags of those names do. Measured:
@@ -73,6 +81,8 @@ import tempfile
 import time
 
 _DG3D = dict(fluid="DG", kernel="dg3d_stencil_residual", nz=10, kle_method="uncorrelated")
+# gas condensate in 3D has no stencil kernel (kernel None)
+_GC3D = dict(fluid="GC", kernel=None, nz=10, kle_method="uncorrelated")
 CASES = {
     "dg2d": dict(fluid="DG", kernel="dg_stencil_residual"),
     "dg3d": _DG3D,
@@ -84,6 +94,17 @@ CASES = {
     "dg3d_production_b128": dict(_DG3D, production=True, batch=128),
     "gc2d_production_b128": dict(fluid="GC", kernel="gc_stencil_residual", production=True,
                                  batch=128),
+    # bench.py's cases of the JAX package's last training configurations:
+    # gc3d (:492), gc3d_production (:467-470: bf16 and the strided Model 2,
+    # batch 32), dg3d_production_b256_remat (:480-486) and the same without
+    # remat beside it, and dg2d_large (:497-500: 117x117, batch 128)
+    "gc3d": _GC3D,
+    "gc3d_production": dict(_GC3D, config={"compute_dtype": "bfloat16", "dt_input_stride": 2}),
+    "dg3d_production_b256": dict(_DG3D, production=True, batch=256),
+    "dg3d_production_b256_remat": dict(_DG3D, production=True, batch=256,
+                                       config={"remat_forwards": True}),
+    "dg2d_large": dict(fluid="DG", kernel="dg_stencil_residual", nx=117, batch=128,
+                       kle_method="uncorrelated"),
 }
 
 
@@ -232,15 +253,16 @@ def profile_calls(fn, n: int, table: list = None):
     return count / n, device_us / n, window_ms
 
 
-def case_config(production: bool, overrides: dict) -> dict:
+def case_config(production: bool, overrides: dict, config: dict = None) -> dict:
     """The general config of a case: the defaults, with the production
-    overrides where the case has them, then the command line's
-    ``overrides`` (those not None)."""
+    overrides where the case has them, then the case's own ``config``, then
+    the command line's ``overrides`` (those not None)."""
     import copy
 
     from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG, apply_production_overrides
     g = (apply_production_overrides(DEFAULT_GENERAL_CONFIG) if production
          else copy.deepcopy(DEFAULT_GENERAL_CONFIG))
+    g.update(config or {})
     g.update({k: v for k, v in overrides.items() if v is not None})
     return g
 
@@ -255,7 +277,7 @@ def profile_case(name: str, base_dir: str, steps: int, batch=None, overrides=Non
 
     spec = dict(CASES[name])
     fluid, kernel = spec.pop("fluid"), spec.pop("kernel")
-    g = case_config(spec.pop("production", False), overrides or {})
+    g = case_config(spec.pop("production", False), overrides or {}, spec.pop("config", None))
     batch = batch or spec.pop("batch", 32)
     spec.pop("batch", None)
     case = setup_case(fluid, base_dir=base_dir, n_realizations=20, device="cuda",
@@ -302,6 +324,25 @@ def profile_case(name: str, base_dir: str, steps: int, batch=None, overrides=Non
     with FlopCounterMode(display=False) as flops:
         loss_fn.pinn_batch_sse_grad(*batches[0])
     torch.cuda.synchronize()
+    result = {
+        "case": name, "batch": bs, "features": list(x_all.shape), "graphed": graphed,
+        "compute_dtype": g.get("compute_dtype"), "precision_policy": g.get("precision_policy"),
+        "dt_input_stride": g.get("dt_input_stride", 1),
+        "remat_forwards": bool(g.get("remat_forwards")),
+        "fused_stencil": bool(getattr(loss_fn, "use_cuda_stencil", kernel is not None)),
+        **_rates(flops.get_total_flops(), steps_per_s, g.get("compute_dtype") == "bfloat16"),
+        "replays": getattr(trainer, "replays", None), "steps_per_s": steps_per_s,
+        "samples_per_s": steps_per_s * bs, "profiled_steps": steps,
+        "device_ops_per_step": ops_per_step, "device_busy_ms_per_step": busy_us / 1e3,
+        "window_ms_per_step": window_ms / steps,
+        "device_busy_share": busy_us / 1e3 / (window_ms / steps),
+        "busy_share_untraced": busy_us / 1e3 * steps_per_s / 1e3,
+        "flop_per_step": flops.get_total_flops(), "peak_memory_mib": peak_mib,
+        "peak_reserved_mib": reserved_mib, "top_kernels_per_step": table,
+        "kernel": None,
+    }
+    if kernel is None:
+        return result
 
     with torch.no_grad():
         args, _ = loss_fn.stencil_inputs(batches[0][0])
@@ -322,28 +363,21 @@ def profile_case(name: str, base_dir: str, steps: int, batch=None, overrides=Non
     if "kernel" in calls:
         backward["kernel"].update(warm_cold_ms(calls["kernel"]))
 
-    bf16 = g.get("compute_dtype") == "bfloat16"
+    result["kernel"] = {"name": kernel, "device_us": k_us, "launches_per_call": k_launches,
+                        **k_events, "plain_device_us": p_us,
+                        "plain_launches_per_call": p_launches, "backward": backward}
+    return result
+
+
+def _rates(flop_per_step: float, steps_per_s: float, bf16: bool) -> dict:
+    """The achieved FLOP/s and its share of the named peak: the dense
+    bfloat16 tensor-core rate for bfloat16 networks, else the float32 rate
+    outside the tensor cores."""
     peak = (("bf16 dense tensor core, H100 SXM data sheet", BF16_TENSOR_OPS_PER_S) if bf16
             else ("fp32 outside the tensor cores, H100 SXM data sheet", FP32_OPS_PER_S))
-    flop_per_s = flops.get_total_flops() * steps_per_s
-    return {
-        "case": name, "batch": bs, "features": list(x_all.shape), "graphed": graphed,
-        "compute_dtype": g.get("compute_dtype"), "precision_policy": g.get("precision_policy"),
-        "dt_input_stride": g.get("dt_input_stride", 1),
-        "achieved_flop_per_s": flop_per_s, "peak_name": peak[0], "peak_flop_per_s": peak[1],
-        "achieved_share_of_peak": flop_per_s / peak[1],
-        "replays": getattr(trainer, "replays", None), "steps_per_s": steps_per_s,
-        "samples_per_s": steps_per_s * bs, "profiled_steps": steps,
-        "device_ops_per_step": ops_per_step, "device_busy_ms_per_step": busy_us / 1e3,
-        "window_ms_per_step": window_ms / steps,
-        "device_busy_share": busy_us / 1e3 / (window_ms / steps),
-        "busy_share_untraced": busy_us / 1e3 * steps_per_s / 1e3,
-        "flop_per_step": flops.get_total_flops(), "peak_memory_mib": peak_mib,
-        "peak_reserved_mib": reserved_mib, "top_kernels_per_step": table,
-        "kernel": {"name": kernel, "device_us": k_us, "launches_per_call": k_launches,
-                   **k_events, "plain_device_us": p_us, "plain_launches_per_call": p_launches,
-                   "backward": backward},
-    }
+    flop_per_s = flop_per_step * steps_per_s
+    return {"achieved_flop_per_s": flop_per_s, "peak_name": peak[0], "peak_flop_per_s": peak[1],
+            "achieved_share_of_peak": flop_per_s / peak[1]}
 
 
 def main(argv=None) -> int:

@@ -5,7 +5,8 @@
         [--realizations K] [--decay-steps S] [--lr-scale F] [--pi P]
         [--min-bhp P] [--bf16] [--precision mixed] [--dt-stride S]
         [--physics-fraction F] [--td-norm balance|label_std] [--sg-focus B]
-        [--sg-td-weight W] [--sat-act abs|softplus] [--device cuda|cpu]
+        [--sg-td-weight W] [--sat-act abs|softplus] [--width W] [--pad N]
+        [--device cuda|cpu]
 
 Port of the ``train`` command of ``tools/rmse_experiment.py``. It builds the
 case with FV labels from the port's simulator (``label_source="simulator"``:
@@ -18,8 +19,8 @@ Sg RMSE) of the test split. The reference's knob flags set the same
 config keys as there: ``--bf16`` (``compute_dtype="bfloat16"``),
 ``--precision mixed``, ``--dt-stride``, ``--physics-fraction``,
 ``--td-norm``, ``--sg-focus``, ``--sg-td-weight`` (the oil-phase td
-weight) and ``--sat-act``; ``--width`` and ``--pad`` name knobs that are
-not ported (ROADMAP A10): the command refuses them. It prints one JSON
+weight), ``--sat-act``, ``--width`` (``network_width``) and ``--pad``
+(``spatial_pad_to``). It prints one JSON
 line: the ``trajectory`` of ``wall_s`` (training wall clock at the
 evaluation, the earlier evaluations included, as the reference counts it),
 ``epoch``, ``steps``, ``rmse_psia`` [, ``rmse_sg``] and, beyond the
@@ -44,14 +45,10 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# the reference's flags whose knobs the port lacks, and the ROADMAP item of each
-NOT_PORTED = {"width": "A10", "pad": "A10"}
-
-
 def build_case(nx=None, nz=None, realizations=None, fluid="DG", pi=None, min_bhp=None,
                device=None, base_dir=None, bf16=False, precision=None, dt_stride=None,
                physics_fraction=None, td_norm=None, sg_focus=None, sg_td_weight=None,
-               sat_act=None):
+               sat_act=None, width=None, pad=None):
     """The case of the reference's ``build_case`` (tools/rmse_experiment.py:44-88)."""
     from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG
     from srm_tpu_torch.examples.common import setup_case
@@ -72,6 +69,10 @@ def build_case(nx=None, nz=None, realizations=None, fluid="DG", pi=None, min_bhp
         g["compute_dtype"] = "bfloat16"
     if precision:
         g["precision_policy"] = precision
+    if width:
+        g["network_width"] = int(width)
+    if pad:
+        g["spatial_pad_to"] = int(pad)
     if dt_stride:
         g["dt_input_stride"] = int(dt_stride)
     # volumetric grids: iid log-normal fields replace the dense KLE, as the
@@ -105,10 +106,6 @@ def train(args) -> dict:
     from srm_tpu_torch.eval.plotting import predictions_and_labels, saturation_rmse
     from srm_tpu_torch.training.trainer import Trainer
 
-    refused = [f"--{k.replace('_', '-')} ({item})" for k, item in NOT_PORTED.items()
-               if getattr(args, k)]
-    if refused:
-        raise SystemExit("not ported yet (ROADMAP item): " + ", ".join(refused))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -119,7 +116,7 @@ def train(args) -> dict:
                       precision=args.precision, dt_stride=args.dt_stride,
                       physics_fraction=args.physics_fraction, td_norm=args.td_norm,
                       sg_focus=args.sg_focus, sg_td_weight=args.sg_td_weight,
-                      sat_act=args.sat_act)
+                      sat_act=args.sat_act, width=args.width, pad=args.pad)
     device = case["device"]
     trainer = Trainer(case["loss_fn"],
                       optimizer_configs=optimizer_configs(args.lr_scale, args.decay_steps))
@@ -171,7 +168,7 @@ def train(args) -> dict:
         "framework": "srm_tpu_torch",
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
         "fluid": args.fluid, "nz": args.nz, "bf16": args.bf16, "precision": args.precision,
-        "width": None, "pad": None, "dt_stride": args.dt_stride,
+        "width": args.width, "pad": args.pad, "dt_stride": args.dt_stride,
         "decay_steps": args.decay_steps, "lr_scale": args.lr_scale,
         "physics_fraction": args.physics_fraction, "pi": args.pi, "min_bhp": args.min_bhp,
         "sg_td_weight": args.sg_td_weight, "td_norm": args.td_norm, "sg_focus": args.sg_focus,
@@ -229,9 +226,10 @@ def main(argv=None):
                     help="the oil-phase (Sg label) td weight")
     pt.add_argument("--sat-act", default=None, dest="sat_act", choices=["abs", "softplus"],
                     help="the saturation HardLayer's departure rectifier")
-    # the reference's flags for knobs that are not ported: refused when given
-    for flag in ("--width", "--pad"):
-        pt.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    pt.add_argument("--width", type=int, default=None,
+                    help="network_width: Bottom_Size of the encoder-decoders (e.g. 64)")
+    pt.add_argument("--pad", type=int, default=None,
+                    help="spatial_pad_to: the networks' height and width padding (e.g. 48)")
     args = ap.parse_args(argv)
     train(args)
 

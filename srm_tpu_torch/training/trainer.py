@@ -332,6 +332,9 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
     sees each); at the end the snapshot with the least min–max-normalized
     summed loss is written back into the live parameters and returned as
     ``best_model_variables`` (None without a watched epoch). With
+    ``general_config["log_term_grad_norms"]`` each watched epoch also logs
+    every loss term's gradient norm per model on the first training batch
+    of the staged split (``PhysicsLoss.per_term_grad_norms``). With
     ``checkpoint_dir`` the training state is saved every
     ``checkpoint_every`` epochs and after the restore; ``resume`` continues
     from the latest checkpoint there. Unlike the reference, whose resumed
@@ -407,6 +410,16 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
         # watched-epoch snapshots (ref :708-718)
         if epoch >= log_start_epoch:
             snap = trainer.snapshot()
+            if g.get("log_term_grad_norms"):
+                # per-term gradient norms on one fixed batch, eager, outside
+                # the graph (a diagnostic; ref :376-386)
+                x_all, y_all = trainer._resident["train"][:2]
+                norms = loss_fn.per_term_grad_norms(
+                    x_all[:training_batch_size],
+                    {k: v[:training_batch_size] for k, v in y_all.items()})
+                for term, row in norms.items():
+                    log.info("grad-norms epoch %d %s: %s", epoch + 1, term,
+                             {m: f"{v:.3e}" for m, v in row.items()})
             if log_variables_callback is not None:
                 log_variables_callback(epoch, snap, total_train)
             for ph in loss_keys:

@@ -551,13 +551,27 @@ def test_kernels_at_the_production_batch(cuda, kind):
     through the autograd Function against autograd through the plain
     version (B3's p0 gradient, a difference of large terms, within
     CANCELLING_TOL of its scale)."""
+    _check_kernels_at(kind, (128, 39, 39), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, shape", [("dg", (128, 117, 117)), ("dg3d", (256, 39, 39))],
+                         ids=["dg2d_large", "dg3d_b256"])
+def test_kernels_at_the_last_configurations_shapes(cuda, kind, shape):
+    """B1 on bench.py's dg2d_large grid (117×117 at batch 128, its first grid
+    other than 39×39) and B2 at batch 256 (dg3d_production_b256, 39×39×10),
+    held as at the production batch."""
+    _check_kernels_at(kind, shape, cuda)
+
+
+def _check_kernels_at(kind, shape, cuda):
     make, name, qwell, counter = BACKWARD[kind]
-    args, cfg = make((128, 39, 39), cuda)
+    args, cfg = make(shape, cuda)
     fused, plain = getattr(st, name), getattr(st, f"{name}_reference")
     with torch.no_grad():
         got, want = fused(*args, cfg), plain(*args, cfg)
         cots = _cotangents(want)
-    assert got[0].shape[0] == 128
+    assert got[0].shape[0] == shape[0]
     for g, w in zip(got, want):
         _close(g, w)
     before = getattr(st, counter)
@@ -577,3 +591,85 @@ def test_kernels_at_the_production_batch(cuda, kind):
             assert float((g - w).abs().max()) <= CANCELLING_TOL * float(w.abs().max())
         else:
             _close(g, w)
+
+
+# -- the last configurations on the card ----------------------------------------
+@pytest.fixture(scope="module")
+def gc3d_case(tmp_path_factory):
+    """Gas condensate 9×9×9 on the card (6 realizations, zero labels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA graph has no CPU mode")
+    from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG
+    from srm_tpu_torch.examples.common import setup_case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = dict(DEFAULT_GENERAL_CONFIG, label_source="files")
+    return setup_case("GC", base_dir=str(tmp_path_factory.mktemp("gc3d")), nx=9, nz=9,
+                      kle_method="uncorrelated", n_realizations=6, general_config=g,
+                      device="cuda")
+
+
+def _updates_apart(a, b, key, start):
+    with torch.no_grad():
+        got = [p - s for p, s in zip(a.optimizers[key].params, start)]
+        want = [p - s for p, s in zip(b.optimizers[key].params, start)]
+        return float(torch.sqrt(sum(((g - w).double() ** 2).sum() for g, w in zip(got, want))
+                                / sum((w.double() ** 2).sum() for w in want)))
+
+
+@pytest.mark.cuda
+def test_gc3d_graph_replay_matches_the_eager_step(gc3d_case, monkeypatch):
+    """GC 3D (no stencil kernel: the unfused 7-point residual inside the
+    graph) replayed against the eager step from the same weights: no kernel
+    launches, the step losses up to the first replayed step within 1e-3,
+    and Model 1's update over two epochs within 0.1: this path's backward
+    is not deterministic on the card (the replicate pads' and the resize's
+    backward add with atomics), and Adam turns the ulps into updates where
+    GC 3D's float32 gradients are noise (its float32 three-step update lies
+    0.27 from float64, tests/test_torch_slice_gc3d.py). Measured on the
+    card after 6 steps: a second eager run 1.3e-2 from the first, the
+    replay 3.0e-2 and 3.8e-2; a replay that dropped or repeated an update
+    would be O(0.5) apart."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    assert not gc3d_case["loss_fn"].use_cuda_stencil
+    for c in st.COUNTERS:
+        monkeypatch.setattr(st, c, 0)
+    runs = {"graphed": _trainer(gc3d_case), "eager": _trainer(gc3d_case, cuda_graph=False)}
+    losses = {name: np.concatenate([t.train_epoch_resident("train")["total"] for _ in range(2)])
+              for name, t in runs.items()}
+    graphed, eager = runs["graphed"], runs["eager"]
+    nb, warm = graphed._resident["train"][2], graphed.warmup_steps
+    assert graphed.replays["train"] == 2 * nb - warm
+    assert all(getattr(st, c) == 0 for c in st.COUNTERS)
+    np.testing.assert_allclose(losses["graphed"][:warm + 1], losses["eager"][:warm + 1], rtol=1e-3)
+    assert np.all(np.isfinite(losses["graphed"]))
+    key = graphed.optimizer_keys[0]
+    start = [p.detach() for p in gc3d_case["models"][key].parameters()]
+    assert _updates_apart(graphed, eager, key, start) <= 0.1
+
+
+@pytest.mark.cuda
+def test_remat_graph_replay_matches_the_step_without_it(small_cases, monkeypatch):
+    """``remat_forwards`` inside the captured step: the replayed remat step
+    and the replayed plain one give the same step losses up to the first
+    replayed step (1e-3) and Model 1 update (1e-2) from the same weights, and B1 and its backward kernel
+    count one launch per step under the recompute."""
+    import copy
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    case = small_cases["DG"]
+    remat = dict(case, loss_fn=copy.copy(case["loss_fn"]))
+    remat["loss_fn"].remat_forwards = True
+    plain = _trainer(case)
+    for c in st.COUNTERS:
+        monkeypatch.setattr(st, c, 0)
+    graphed = _trainer(remat)
+    losses = {name: np.concatenate([t.train_epoch_resident("train")["total"] for _ in range(2)])
+              for name, t in (("remat", graphed), ("plain", plain))}
+    nb, warm = graphed._resident["train"][2], graphed.warmup_steps
+    assert graphed.replays["train"] == plain.replays["train"] == 2 * nb - warm
+    assert st.launches_bwd == 4 * nb and st.launches == 4 * nb   # both trainers
+    np.testing.assert_allclose(losses["remat"][:warm + 1], losses["plain"][:warm + 1], rtol=1e-3)
+    assert np.all(np.isfinite(losses["remat"]))
+    key = graphed.optimizer_keys[0]
+    start = [p.detach() for p in case["models"][key].parameters()]
+    assert _updates_apart(graphed, plain, key, start) <= 1e-2

@@ -26,10 +26,11 @@ def _run(args, cwd, env_extra=None, timeout=300):
                           timeout=timeout)
 
 
-def _isolated_step(base_dir, case_kwargs: str, fluid: str = "DG") -> str:
+def _isolated_step(base_dir, case_kwargs: str, fluid: str = "DG", loss_code: str = "") -> str:
     """A script that imports every module of the port, builds a case with
     ``setup_case(fluid, ..., <case_kwargs>)`` (which may name the port's
-    config module ``cfg``), takes one CPU train step and fails if JAX or any
+    config module ``cfg``), runs ``loss_code`` (which may rebind ``loss``,
+    the case's loss), takes one CPU train step and fails if JAX or any
     module of the JAX package (``srm_tpu``, ``srm_tpu.*``) was loaded."""
     return textwrap.dedent(f"""
         import importlib, pkgutil, sys
@@ -43,7 +44,9 @@ def _isolated_step(base_dir, case_kwargs: str, fluid: str = "DG") -> str:
         from srm_tpu_torch.training.trainer import Trainer
         case = setup_case({fluid!r}, base_dir={str(base_dir)!r}, n_realizations=6,
                           device="cpu", {case_kwargs})
-        trainer = Trainer(case["loss_fn"])
+        loss = case["loss_fn"]
+        {loss_code}
+        trainer = Trainer(loss)
         nb, n = trainer.stage_dataset("train", case["train_groups"], 8)
         x, y, _, bs = trainer._resident["train"]
         metrics = trainer.train_step(x[:bs], {{k: v[:bs] for k, v in y.items()}})
@@ -84,6 +87,48 @@ def test_production_step_never_imports_jax(tmp_path):
     input) stands alone as well."""
     script = _isolated_step(
         tmp_path, "nx=9, general_config=cfg.apply_production_overrides(cfg.DEFAULT_GENERAL_CONFIG)")
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+def test_gc3d_step_never_imports_jax(tmp_path):
+    """Gas condensate in 3D (the two-phase 7-point residual, the 3D
+    saturation model, zero labels) stands alone as well."""
+    script = _isolated_step(
+        tmp_path, 'nx=9, nz=9, kle_method="uncorrelated", '
+                  'general_config=dict(cfg.DEFAULT_GENERAL_CONFIG, label_source="files")',
+        fluid="GC")
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+def test_porosity_field_step_never_imports_jax(tmp_path):
+    """A per-cell porosity field (the unfused residual with a field)
+    stands alone as well."""
+    loss_code = ("import copy, numpy as np; "
+                 "from srm_tpu_torch.losses.physics_loss import PhysicsLoss; "
+                 "res = copy.deepcopy(case['processor'].reservoir_config); "
+                 "res['porosity'] = np.full((res['Nz'], res['Ny'], res['Nx']), 0.2, np.float32); "
+                 "res['porosity'][..., :4] = 0.05; "
+                 "loss = PhysicsLoss(case['models'], case['data_summary'], "
+                 "general_config=case['general_config'], reservoir_config=res, "
+                 "wells_config=case['processor'].wells_config); "
+                 "assert loss.phi_field is not None")
+    script = _isolated_step(tmp_path, "nx=9", loss_code=loss_code)
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+def test_remat_step_never_imports_jax(tmp_path):
+    """Rematerialized forwards (``torch.utils.checkpoint``) with the padded
+    and widened networks stand alone as well."""
+    script = _isolated_step(
+        tmp_path, "nx=9, general_config=dict(cfg.DEFAULT_GENERAL_CONFIG, remat_forwards=True, "
+                  "spatial_pad_to=16, network_width=48)",
+        loss_code="assert loss.remat_forwards")
     proc = _run([sys.executable, "-c", script], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "isolated" in proc.stdout
