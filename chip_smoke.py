@@ -27,11 +27,12 @@ the process exits non-zero:
    version (the explicit adjoint, ``*_backward_reference``) and against
    autograd through the plain forward, within the forward's tolerance
    (B3's p0 gradient, a difference of large terms, within CANCELLING_TOL),
-   and bitwise the same over three runs; at the main path's shape the device time (profiler) and the
-   host-inclusive time (CUDA events) of the backward kernel, the explicit
-   adjoint and ``_plain_backward`` (autograd through the recomputed plain
-   version, what the backward was before), warm and cold L2 as above, and
-   the kernel's bound.
+   and bitwise the same over three runs; at the timed shapes the device
+   time (profiler) and the host-inclusive time (CUDA events) of the
+   backward kernel, the explicit adjoint and ``_plain_backward`` (autograd
+   through the recomputed plain version, what the backward was before),
+   warm and cold L2 as above, and the kernel's bound; each backward kernel
+   must show one device launch per call.
 4. main path DG 2D — the dry-gas 2D case at the full 39×39 grid and full
    model widths, trained for two epochs at batch 32 through the port's
    Trainer.
@@ -150,9 +151,9 @@ RTOL, ATOL_REL = 1e-4, 1e-5
 # check's "before" numbers).
 GRAPH_LOSS_RTOL, GRAPH_WEIGHT_REL, GRAPH_MODEL2_REL = 1e-3, 1e-2, 1e-2
 # the same for the weights on gas condensate 3D, which has no kernel: its
-# unfused residual's backward is not deterministic on the card (the
-# replicate pads' backward adds with atomics), and its float32 gradients
-# are largely noise (the three-step float32 update lies 0.27 from float64
+# unfused residual's backward was not deterministic on the card until the
+# pads' backward became fixed-order (ROADMAP C16; the bound below was set
+# before that), and its float32 gradients are largely noise (the three-step float32 update lies 0.27 from float64
 # on the CPU, tests/test_torch_slice_gc3d.py), which Adam turns into
 # updates: measured at 9x9x9 on the card, eager vs eager 1.3e-2 and replay
 # vs eager 3.0e-2 and 3.8e-2 after 6 steps; a replay that dropped or
@@ -233,22 +234,25 @@ KERNELS = {
 # the backward kernels: the forward they differentiate, the reference's
 # custom-vjp backward they replace, their launch counter, qwell's index (no
 # gradient), the inputs whose gradient is a difference of large terms (held
-# to autograd within CANCELLING_TOL) and their floating-point operations per cell, counted from the
-# source as the header of the source states them (the recomputed forward,
-# the adjoint, the gather's adds and the Δt block sums)
+# to autograd within CANCELLING_TOL), their floating-point operations per
+# cell, counted from the source as the header of the source states them (the
+# recomputed forward, the adjoint, the gather's adds and the Δt sums; B1's
+# and B3's with the recompute of their tiles' rings, 1.103 cells computed
+# per cell at 39×39 and 117×117), and their device name: one launch per
+# call each
 BACKWARD = {
     "dg_stencil_residual_backward": dict(
         forward="dg_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:568",
-        counter="launches_bwd", qwell=8, cancelling=(), ops_per_cell=257,
-        device_name="dg_stencil_bwd_cells"),
+        counter="launches_bwd", qwell=8, cancelling=(), ops_per_cell=282,
+        device_name="dg_stencil_bwd"),
     "dg3d_stencil_residual_backward": dict(
         forward="dg3d_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:313",
         counter="launches_3d_bwd", qwell=9, cancelling=(), ops_per_cell=291,
         device_name="dg3d_stencil_bwd"),
     "gc_stencil_residual_backward": dict(
         forward="gc_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:533",
-        counter="launches_gc_bwd", qwell=25, cancelling=(0,), ops_per_cell=1016,
-        device_name="gc_stencil_bwd_cells"),
+        counter="launches_gc_bwd", qwell=25, cancelling=(0,), ops_per_cell=1115,
+        device_name="gc_stencil_bwd"),
 }
 
 
@@ -516,6 +520,12 @@ def phase_backward(name: str) -> dict:
             f"bitwise the same over three runs")
 
     timed = [_time_backward(name, shape) for shape in _timed_shapes(fwd)]
+    # one launch per call (the profiler's count per call, rounded: a second
+    # kernel shows as 2)
+    for shape, t in zip(_timed_shapes(fwd), timed):
+        if round(t["launches_per_call"]) != 1:
+            raise AssertionError(f"{name} {shape}: the profiler shows {t['launches_per_call']} "
+                                 f"device launches per call, expected 1")
     return {"max_abs_err": max_err, **timed[0], "at_b128": timed[1], **_extra_shapes(fwd, timed)}
 
 
@@ -837,7 +847,9 @@ def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) ->
        on one step only: its float32 gradient is rounding noise once the
        weights move, ROADMAP C2), or on a path without a kernel within
        GRAPH_UNFUSED_WEIGHT_REL; with ``spread`` the eager step against a
-       second eager run is logged beside it;
+       second eager run is logged beside it and must agree bit for bit
+       (losses and weights): since the pads' backward is fixed-order
+       (ROADMAP C16) no op of a step adds in a varying order;
     3. a best-epoch restore (``load_snapshot``, in place) is seen by the next
        replay: the replayed eval losses on the restored weights equal the
        eager eval step's; before the restore the weights are trained (whole
@@ -920,6 +932,9 @@ def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) ->
             f"up to the first "
             f"replayed step, {l9:.3e} over all 9 (relative); {m1} weights after 9 steps "
             f"{w1:.3e} and {m2} after the first replayed step {w2:.3e} of their update")
+    if spread and any(v != 0.0 for v in compared[1][1]):
+        raise AssertionError(f"two eager runs from the same weights differ: {compared[1][1]} "
+                             f"(each op of the step is deterministic; ROADMAP C16)")
     l1, _, w1, w2 = got
     bounds = (GRAPH_WEIGHT_REL, GRAPH_MODEL2_REL)
     if kernel is None:

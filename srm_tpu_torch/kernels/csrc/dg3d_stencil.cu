@@ -60,18 +60,21 @@
 // on an SM.
 //
 // Per-sample sums (the forward's mbc, the backward's dL/dt1 and dL/dt2) are
-// deterministic and take no second launch: the block sums its threads' (a
-// backward thread first sums its column in depth order) with a fixed
-// shuffle tree in each warp and then the warps in index order, and writes
+// deterministic and take no second launch (stencil_adjoint.cuh's
+// sum_per_sample, shared with B1's and B3's backward kernels): the block
+// sums its threads' (a backward thread first sums its column in depth
+// order) with a fixed shuffle tree in each warp and then the warps in
+// index order, and writes
 // one partial per block; one integer atomicAdd per block on a per-sample
 // ticket tells the last block of the sample, which sums the partials in
 // block order and resets the ticket to 0 for the next launch. No atomics
 // touch a value, so the result is the same bit for bit from run to run.
 // The tickets (one int per sample, zero between launches) belong to the
-// caller and serve both kernels, which run in stream order.
+// caller and serve every launch of B1's, B2's and B3's kernels that take
+// them, in stream order.
 //
-// Backward: the pull form, not the push form of B1 and B3
-// (stencil_adjoint.cuh). The divergence is a sum over faces of a_f·(p_c −
+// Backward: the pull form, not the push form that B1 and B3 keep in shared
+// memory (stencil_adjoint.cuh). The divergence is a sum over faces of a_f·(p_c −
 // p_n), and a face's transmissibility a = C·kf·krgo·bf/d² is computed by
 // the two cells beside it with the same float operations (2·k1·k0/(k1+k0)
 // from the cell below equals 2·k0·k2/(k0+k2) from the cell above, the sum
@@ -98,6 +101,10 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "stencil_adjoint.cuh"
+
+namespace sa = stencil_adjoint;
 
 // Scalars of StencilConfig, folded on the host in double as JAX folds them.
 // Outside the unnamed namespace: the exported C functions take it by value,
@@ -192,44 +199,6 @@ Tiling make_tiling(int B, int depth, int ext_h, int ext_w) {
   t.n_slabs = cdiv(depth, t.slab);
   t.threads = cdiv(t.tw * t.tj, 32) * 32;
   return t;
-}
-
-// Sums each v[n] over the block (a fixed shuffle tree in each warp, then
-// the warps in index order) into partial[(b, blk, n)]; the last block of
-// sample b to finish, told by its ticket, sums the sample's partials in
-// block order into out[b * N + n] (times sign; out may be null) and resets
-// the ticket. blockDim.x is a multiple of 32.
-template <int N>
-__device__ void sum_per_sample(float (&v)[N], float* partial, unsigned* tickets, int b, int blk,
-                               int n_blk, float* out, float sign) {
-  __shared__ float warp_sums[kMaxBlock / 32][N];
-  __shared__ bool last;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    for (int off = 16; off > 0; off >>= 1) v[n] += __shfl_down_sync(0xffffffffu, v[n], off);
-    if (lane == 0) warp_sums[warp][n] = v[n];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int n = 0; n < N; ++n) {
-      float s = 0.0f;
-      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += warp_sums[w][n];
-      partial[((long)b * n_blk + blk) * N + n] = s;
-    }
-    __threadfence();                      // the partial is visible before the ticket
-    last = atomicAdd(&tickets[b], 1u) == (unsigned)(n_blk - 1);
-  }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    __threadfence();
-    for (int n = 0; n < N; ++n) {
-      float s = 0.0f;
-      for (int k = 0; k < n_blk; ++k) s += __ldcg(&partial[((long)b * n_blk + k) * N + n]);
-      if (out != nullptr) out[(long)b * N + n] = sign * s;
-    }
-    tickets[b] = 0u;
-  }
 }
 
 // A tile's padded origin and a thread's place in it, for a block of
@@ -341,7 +310,7 @@ dg3d_stencil_cells(const float* __restrict__ p0p, const float* __restrict__ p1p,
   }
 
   float v[1] = {mbc_cell};
-  sum_per_sample<1>(v, partial, tickets, b, blockIdx.x, gridDim.x, mbc, -1.0f);
+  sa::sum_per_sample<1, kMaxBlock>(v, partial, tickets, b, blockIdx.x, gridDim.x, mbc, -1.0f);
 }
 
 // ---------------------------------------------------------------------------
@@ -605,8 +574,8 @@ dg3d_stencil_bwd(DG3DStencilBwdArgs a, int D, int H, int W, Tiling t, DG3DStenci
     if (a.grad_bgugp != nullptr) a.grad_bgugp[at] = gb;
   }
 
-  sum_per_sample<2>(gt, a.partial, a.tickets, b, blockIdx.y * gridDim.x + blockIdx.x, t.blocks(),
-                    a.grad_tsteps, 1.0f);
+  sa::sum_per_sample<2, kMaxBlock>(gt, a.partial, a.tickets, b, blockIdx.y * gridDim.x + blockIdx.x,
+                                  t.blocks(), a.grad_tsteps, 1.0f);
 }
 
 }  // namespace

@@ -14,7 +14,7 @@
 // padded and four centred float fields plus the well mask) and writes
 // ~0.6 MB, a few microseconds at HBM rate, so the launch dominates.
 //
-// Design, deliberately simple for this first version:
+// Forward design, deliberately simple for this first version:
 //  * one thread per interior cell; blockIdx.y is the sample and blockIdx.x
 //    tiles the H*W cells of that sample;
 //  * each thread reads its four neighbours straight from the padded inputs
@@ -35,25 +35,38 @@
 //
 // Backward (dg_stencil_backward). Replaces the reference's custom-vjp
 // backward srm_tpu/kernels/stencil_pallas.py::_bwd (:568), which lets XLA
-// differentiate the jnp twin; before it the port differentiated its plain
-// version with autograd, ~210 small launches per call. Its plain version is
+// differentiate the jnp twin. Its plain version is
 // srm_tpu_torch/kernels/stencil.py::dg_stencil_residual_backward_reference,
-// the adjoint derived by hand, whose operation order it keeps. Two launches,
-// no atomics (stencil_adjoint.cuh): one thread per cell recomputes the
-// cell's forward intermediates in registers, applies the adjoint, writes the
-// gradients of the centred inputs and of p0p (read at the centre only; the
-// edge cells zero its halo), its contributions to the gradients of p1p, kxp
-// and bgugp at the cell and its four neighbours into a (B, 5, H, W) scratch
-// per input, and its block's dL/dt1, dL/dt2; the gather sums them.
-// Bound at the main path's shape (B=32, 39x39): it must read what the
-// gradient needs of the inputs (~1.43 MB: not q, whose gradient is
-// G/dv + g_cell, and only p0p's interior) and the cotangents (~0.58 MB), and
-// write the gradients (~1.64 MB): 3,654,468 B, 1.09 us at 3.35 TB/s. It does
-// 257 floating-point operations per cell (counted from this source: the
-// recomputed forward, the adjoint, the gather's adds and the dL/dt block
-// sums), 12.5 MFLOP, 0.19 us at the float32 peak, so bytes set the bound.
-// The design also writes and reads back ~2.9 MB of scratch, and its two
-// launches, not bytes, set its time.
+// the adjoint derived by hand, whose operation order it keeps.
+// What bounds it: at the main path's shape (B=32, 39x39) it must read what
+// the gradient needs of the inputs (~1.43 MB: not q, whose gradient is
+// G/dv + g_cell, and only p0p's interior) and the cotangents (~0.58 MB),
+// and write the gradients (~1.64 MB): 3,654,468 B, 1.09 us at 3.35 TB/s.
+// Counted from this source it does 240 floating-point operations per cell
+// computed (the recomputed forward and the adjoint), 15 per padded position
+// (the gather's adds) and 2 per cell (dL/dt); the ring recompute below
+// computes 1.103 cells per cell at 39x39 (21x21 tiles) and 117x117 (30x30),
+// so 282 per cell, 13.7 MFLOP, 0.20 us at the float32 peak: bytes set the
+// bound. In practice latency does: one block's chain (its staging, the
+// cell adjoint's dependent divisions, a barrier, the gather, the ticketed
+// dL/dt sum) is most of a call at B=32, where the grid is one wave.
+// Design: one launch, the push form kept inside the block
+// (stencil_adjoint.cuh). A block owns a tile of one sample's padded plane;
+// p1p, kxp and bgugp are staged in shared memory with cp.async over the
+// tile and a two-position ring; its 320 threads compute the cell adjoint
+// of the tile's cells and of the one-cell ring around it, a cell each in
+// turn, put each contribution that lands in the tile into shared-memory
+// slots, and after one __syncthreads sum each position's slots in the
+// plain adjoint's order. Tiles of up to 32x32 positions measured fastest
+// (srm_tpu_torch/tools/bwd_variants.py: 16x16 tiles took 1.3-1.5x as long;
+// an earlier form with a thread per cell and 16x16 tiles measured the same
+// as this one). The first version wrote the contributions to a (3, B, 5, H, W)
+// scratch in device memory and gathered them in a second launch: 2.9 MB
+// written and read back at B=32, more than the bound's bytes; now the
+// device memory sees each input, cotangent and gradient once (the ring's
+// centred inputs and cotangents twice, through L2). dL/dt1 and dL/dt2 are
+// summed per sample in the same launch (sum_per_sample). No atomics touch a
+// value: the same bits from run to run.
 
 #include <cuda_runtime.h>
 
@@ -81,10 +94,8 @@ struct DGStencilScalars {
 };
 
 // The backward's device pointers: the forward's inputs, the cotangents of
-// its outputs, and the gradients of p0p (padded, read at the centre only)
-// and of the centred inputs (null: not asked for). The gradients of the
-// padded inputs read at five points, the scratch and dL/dtsteps are in
-// sa::Gather, in the order p1p, kxp, bgugp.
+// its outputs, the gradients (null: not asked for; qwell has none), the
+// (B, n_blocks, 2) partial sums of dL/dt1, dL/dt2 and the per-sample tickets.
 struct DGStencilBwdArgs {
   const float* p0p;
   const float* p1p;
@@ -101,10 +112,16 @@ struct DGStencilBwdArgs {
   const float* g_tde;
   const float* g_mbc;
   float* grad_p0p;
+  float* grad_p1p;
+  float* grad_kxp;
+  float* grad_bgugp;
   float* grad_invBg0;
   float* grad_invBg1;
   float* grad_dinvBg0;
   float* grad_q;
+  float* grad_tsteps;
+  float* partial;
+  unsigned* tickets;
 };
 
 namespace {
@@ -194,42 +211,96 @@ __global__ void dg_stencil_mbc(const float* __restrict__ partial, int B, int n_b
   mbc[b] = -sum;
 }
 
-// One thread per cell: the forward's intermediates, then the adjoint of
-// dg_stencil_residual_backward_reference, statement for statement.
-__global__ void __launch_bounds__(kBlock)
-dg_stencil_bwd_cells(DGStencilBwdArgs a, sa::Gather g, int B, int H, int W, DGStencilScalars s) {
-  const int b = blockIdx.y;
-  const int cell = blockIdx.x * kBlock + threadIdx.x;
-  const int HW = H * W;
-  float gt1 = 0.0f, gt2 = 0.0f;
+// Blocks resident per SM the backward is compiled for (its register cap):
+// 1 and 2 measured alike (88 and 86 registers, no spills; PERF.md), and
+// srm_tpu_torch/tools/bwd_variants.py builds others with
+// -DSRM_BWD_MIN_BLOCKS=N
+#ifndef SRM_BWD_MIN_BLOCKS
+#define SRM_BWD_MIN_BLOCKS 2
+#endif
+constexpr int kBwdMinBlocks = SRM_BWD_MIN_BLOCKS;
 
-  if (cell < HW) {
-    const int i = cell % W;
-    const int j = cell / W;
-    const int Wp = W + 2;
-    const long c = (long)b * (H + 2) * Wp + (long)(j + 1) * Wp + (i + 1);
-    const long o = (long)b * HW + cell;
-    const float t1 = a.tsteps[2 * b];
-    const float t2 = a.tsteps[2 * b + 1];
+// A cell's centred inputs and cotangents, loaded while the staging copies
+// are in flight.
+struct DGCellIn {
+  float p0, ib0, ib1, dib, g_dom, g_ibc, g_tde, qw;
+};
+
+// One block per tile of one sample's padded plane (stencil_adjoint.cuh),
+// one thread per cell of the tile and of its ring: the cell adjoint of
+// dg_stencil_residual_backward_reference, statement for statement; the
+// tile's own cells also write the centred inputs' gradients, p0p's and
+// their dL/dt, the ring's keep their contributions to the tile's positions
+// alone. Then each of the tile's threads gathers its own position. Shared
+// memory: p1p, kxp and bgugp staged over the tile and a two-position ring,
+// then the three inputs' slots.
+__global__ void __launch_bounds__(sa::kMaxThreads, kBwdMinBlocks)
+dg_stencil_bwd(DGStencilBwdArgs a, int H, int W, sa::TilePlan plan, DGStencilScalars s) {
+  extern __shared__ float sh[];
+  const sa::Tile t(plan, H, W);
+  const int b = t.b;
+  const int Wp = W + 2;
+  const long pbase = (long)b * (H + 2) * Wp;
+  const int n_stage = (t.tj + 2 * sa::kStageRing) * (t.tw + 2 * sa::kStageRing);
+  const int n_pos = t.positions();
+  float* const sp = sh;
+  float* const sk = sh + n_stage;
+  float* const sb = sh + 2 * n_stage;
+  float* const slots = sh + 3 * n_stage;
+  sa::stage(sp, a.p1p, t, pbase);
+  sa::stage(sk, a.kxp, t, pbase);
+  sa::stage(sb, a.bgugp, t, pbase);
+  __pipeline_commit();
+
+  const int n_cells = sa::tile_cells(plan);
+  const float t1 = a.tsteps[2 * b];
+  const float t2 = a.tsteps[2 * b + 1];
+  const float g_cell = -a.g_mbc[b];
+  auto load = [&](int lj, int li) {
+    const int j = t.cell_j(lj), i = t.cell_i(li);
+    const long o = (long)b * H * W + (long)j * W + i;
+    return DGCellIn{a.p0p[pbase + (long)(j + 1) * Wp + (i + 1)], a.invBg0[o], a.invBg1[o],
+                    a.dinvBg0[o], a.g_dom[o], a.g_ibc[o], a.g_tde[o], a.qwell[(long)j * W + i]};
+  };
+  // the first cell's inputs load while the staging copies are in flight
+  int n = threadIdx.x, lj = 0, li = 0;
+  bool has_cell = t.place(n, lj, li);
+  DGCellIn in{};
+  if (has_cell) in = load(lj, li);
+  const sa::Staged staged(t);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  float gt[2] = {0.0f, 0.0f};
+  for (; n < n_cells; n += blockDim.x) {
+    if (n != (int)threadIdx.x) {
+      has_cell = t.place(n, lj, li);
+      if (has_cell) in = load(lj, li);
+    }
+    if (!has_cell) continue;
+    const bool own = n < n_pos;
+    const int j = t.cell_j(lj), i = t.cell_i(li);
+    const long o = (long)b * H * W + (long)j * W + i;
+    const int e = staged.at(lj, li), sw = staged.sw;
 
     // the forward, as dg_stencil_cells computes it
-    const float k_ij = a.kxp[c], k_i1 = a.kxp[c + 1], k_i_1 = a.kxp[c - 1];
-    const float k_j1 = a.kxp[c + Wp], k_j_1 = a.kxp[c - Wp];
+    const float k_ij = sk[e], k_i1 = sk[e + 1], k_i_1 = sk[e - 1];
+    const float k_j1 = sk[e + sw], k_j_1 = sk[e - sw];
     const float kx_ih = 2.0f * k_i1 * k_ij / (k_i1 + k_ij);
     const float kx_i_h = 2.0f * k_ij * k_i_1 / (k_ij + k_i_1);
     const float ky_jh = 2.0f * k_j1 * k_ij / (k_j1 + k_ij);
     const float ky_j_h = 2.0f * k_ij * k_j_1 / (k_ij + k_j_1);
-    const float b_ij = a.bgugp[c], b_i1 = a.bgugp[c + 1], b_i_1 = a.bgugp[c - 1];
-    const float b_j1 = a.bgugp[c + Wp], b_j_1 = a.bgugp[c - Wp];
+    const float b_ij = sb[e], b_i1 = sb[e + 1], b_i_1 = sb[e - 1];
+    const float b_j1 = sb[e + sw], b_j_1 = sb[e - sw];
     const float b_ih = 0.5f * (b_i1 + b_ij);
     const float b_i_h = 0.5f * (b_ij + b_i_1);
     const float b_jh = 0.5f * (b_j1 + b_ij);
     const float b_j_h = 0.5f * (b_ij + b_j_1);
-    const float p_ij = a.p1p[c], p_i1 = a.p1p[c + 1], p_i_1 = a.p1p[c - 1];
-    const float p_j1 = a.p1p[c + Wp], p_j_1 = a.p1p[c - Wp];
-    const float p0 = a.p0p[c];
-    const float ib0 = a.invBg0[o];
-    const float cp1 = s.Sgi * (s.phi * a.dinvBg0[o] + s.phi_cf * ib0);
+    const float p_ij = sp[e], p_i1 = sp[e + 1], p_i_1 = sp[e - 1];
+    const float p_j1 = sp[e + sw], p_j_1 = sp[e - sw];
+    const float p0 = in.p0;
+    const float ib0 = in.ib0;
+    const float cp1 = s.Sgi * (s.phi * in.dib + s.phi_cf * ib0);
     const float a1 = s.C * kx_i_h * s.krgo * b_i_h * s.inv_dxx;
     const float a2 = s.C * ky_j_h * s.krgo * b_j_h * s.inv_dyy;
     const float a3 = s.C * kx_ih * s.krgo * b_ih * s.inv_dxx;
@@ -243,12 +314,10 @@ dg_stencil_bwd_cells(DGStencilBwdArgs a, sa::Gather g, int B, int H, int W, DGSt
     const float num = t2 * p0 + t1 * p2 - (t1 + t2) * p_ij;
     const float den = t1 * t2 + t2 * t2;
     const float X = s.two_eps / t1 + num / den;
-    const float dB = a.invBg1[o] - ib0;
-    const float Dt = s.D * t1;
 
     // divq = dv*(sum + q/dv), read by dom and ibc
-    const float g_dom = a.g_dom[o], g_tde = a.g_tde[o];
-    const float G = (g_dom + a.qwell[cell] * a.g_ibc[o]) * s.dv;
+    const float g_dom = in.g_dom, g_tde = in.g_tde;
+    const float G = (g_dom + in.qw * in.g_ibc) * s.dv;
     const float w_ih = (G * (p_ij - p_i1)) * s.inv_dxx, w_i_h = (G * (p_ij - p_i_1)) * s.inv_dxx;
     const float w_jh = (G * (p_ij - p_j1)) * s.inv_dyy, w_j_h = (G * (p_ij - p_j_1)) * s.inv_dyy;
     // a = (((C*kf)*krgo)*bf)*inv_d
@@ -261,7 +330,7 @@ dg_stencil_bwd_cells(DGStencilBwdArgs a, sa::Gather g, int B, int H, int W, DGSt
     float g_dp = g_dom * (s.dv * a5);
     const float g_q5 = ((g_dom * dp) * s.dv) * s.inv_D;
     float g_cp1 = g_q5 / t1;
-    gt1 = -(g_q5 * cp1) / (t1 * t1);
+    float gt1 = -(g_q5 * cp1) / (t1 * t1);
 
     // tde = ((dv/D)*cp1)*X, X = 2eps/t1 + num/den
     const float g_X = g_tde * (s.dv_over_D * cp1);
@@ -270,7 +339,7 @@ dg_stencil_bwd_cells(DGStencilBwdArgs a, sa::Gather g, int B, int H, int W, DGSt
     const float g_num = g_X / den;
     const float g_den = -(g_X * num) / (den * den);
     gt1 = gt1 + g_num * p2 - g_num * p_ij + g_den * t2;
-    gt2 = g_num * p0 - g_num * p_ij + ((g_den * t1 + g_den * t2) + g_den * t2);
+    float gt2 = g_num * p0 - g_num * p_ij + ((g_den * t1 + g_den * t2) + g_den * t2);
     float g_p0 = g_num * t2;
     const float g_p2 = g_num * t1;
     float g_pij = -(g_num * (t1 + t2));
@@ -284,36 +353,53 @@ dg_stencil_bwd_cells(DGStencilBwdArgs a, sa::Gather g, int B, int H, int W, DGSt
     g_pij = g_pij + g_dp;
     g_p0 = g_p0 - g_dp;
 
-    // cp1 = Sgi*(phi*dinvBg0 + phi_cf*invBg0)
-    const float g_in = g_cp1 * s.Sgi;
-    float g_invBg0 = g_in * s.phi_cf;
-    if (a.grad_dinvBg0 != nullptr) a.grad_dinvBg0[o] = g_in * s.phi;
+    if (own) {
+      // cp1 = Sgi*(phi*dinvBg0 + phi_cf*invBg0)
+      const float g_in = g_cp1 * s.Sgi;
+      float g_invBg0 = g_in * s.phi_cf;
+      if (a.grad_dinvBg0 != nullptr) a.grad_dinvBg0[o] = g_in * s.phi;
+      // mbc = -sum(q + K*dB/(D*t1))
+      if (a.grad_q != nullptr) a.grad_q[o] = G / s.dv + g_cell;
+      const float Dt = s.D * t1;
+      const float g_KdB = g_cell / Dt;
+      if (a.grad_invBg1 != nullptr) a.grad_invBg1[o] = g_KdB * s.dv_Sgi_phi;
+      g_invBg0 = g_invBg0 - g_KdB * s.dv_Sgi_phi;
+      if (a.grad_invBg0 != nullptr) a.grad_invBg0[o] = g_invBg0;
+      const float dB = in.ib1 - ib0;
+      gt1 = gt1 - ((g_cell * (s.dv_Sgi_phi * dB)) / (Dt * Dt)) * s.D;
+      gt[0] += gt1;
+      gt[1] += gt2;
+      if (a.grad_p0p != nullptr) a.grad_p0p[pbase + (long)(j + 1) * Wp + (i + 1)] = g_p0;
+    }
 
-    // mbc = -sum(q + K*dB/(D*t1))
-    const float g_cell = -a.g_mbc[b];
-    if (a.grad_q != nullptr) a.grad_q[o] = G / s.dv + g_cell;
-    const float g_KdB = g_cell / Dt;
-    if (a.grad_invBg1 != nullptr) a.grad_invBg1[o] = g_KdB * s.dv_Sgi_phi;
-    g_invBg0 = g_invBg0 - g_KdB * s.dv_Sgi_phi;
-    if (a.grad_invBg0 != nullptr) a.grad_invBg0[o] = g_invBg0;
-    gt1 = gt1 - ((g_cell * (s.dv_Sgi_phi * dB)) / (Dt * Dt)) * s.D;
-
-    // the padded inputs: p0p at the centre, p1p, kxp, bgugp at all five points
-    sa::put_centre(a.grad_p0p, c, j, i, H, W, g_p0);
-    sa::put5(g, 0, b, j, i, B, H, W, G * total + g_pij, -(G * a3), -(G * a1), -(G * a4),
-             -(G * a2));
+    // p1p, kxp and bgugp at the cell and its four neighbours
+    const sa::Slots sl{slots, n_pos, t.tw, t.tj, lj, li};
+    sl.put(0, G * total + g_pij, -(G * a3), -(G * a1), -(G * a4), -(G * a2));
     float dc_ih, dn_ih, dc_i_h, dn_i_h, dc_jh, dn_jh, dc_j_h, dn_j_h;
     sa::harmonic_parts(k_ij, k_i1, dc_ih, dn_ih);
     sa::harmonic_parts(k_ij, k_i_1, dc_i_h, dn_i_h);
     sa::harmonic_parts(k_ij, k_j1, dc_jh, dn_jh);
     sa::harmonic_parts(k_ij, k_j_1, dc_j_h, dn_j_h);
-    sa::put5(g, 1, b, j, i, B, H, W,
-             ((gk_ih * dc_ih + gk_i_h * dc_i_h) + gk_jh * dc_jh) + gk_j_h * dc_j_h,
-             gk_ih * dn_ih, gk_i_h * dn_i_h, gk_jh * dn_jh, gk_j_h * dn_j_h);
-    sa::put5(g, 2, b, j, i, B, H, W, 0.5f * (((gb_ih + gb_i_h) + gb_jh) + gb_j_h), 0.5f * gb_ih,
-             0.5f * gb_i_h, 0.5f * gb_jh, 0.5f * gb_j_h);
+    sl.put(1, ((gk_ih * dc_ih + gk_i_h * dc_i_h) + gk_jh * dc_jh) + gk_j_h * dc_j_h,
+           gk_ih * dn_ih, gk_i_h * dn_i_h, gk_jh * dn_jh, gk_j_h * dn_j_h);
+    sl.put(2, 0.5f * (((gb_ih + gb_i_h) + gb_jh) + gb_j_h), 0.5f * gb_ih, 0.5f * gb_i_h,
+           0.5f * gb_jh, 0.5f * gb_j_h);
   }
-  sa::block_partials<kBlock>(g, b, gt1, gt2);
+  __syncthreads();
+
+  // the tile's positions that lie in the plane
+  for (int q = threadIdx.x; q < n_pos; q += blockDim.x) {
+    const int pj = q / t.tw, pi = q % t.tw;
+    if (t.r0 + pj >= H + 2 || t.c0 + pi >= Wp) continue;
+    const long at = pbase + (long)(t.r0 + pj) * Wp + (t.c0 + pi);
+    if (a.grad_p0p != nullptr && !t.is_cell(pj, pi)) a.grad_p0p[at] = 0.0f;   // the halo
+    float* const grads[3] = {a.grad_p1p, a.grad_kxp, a.grad_bgugp};
+#pragma unroll
+    for (int f = 0; f < 3; ++f)
+      if (grads[f] != nullptr) grads[f][at] = sa::gather(slots, f, n_pos, t, pj, pi);
+  }
+  sa::sum_per_sample<2, sa::kMaxThreads>(gt, a.partial, a.tickets, b, blockIdx.x, gridDim.x,
+                                         a.grad_tsteps, 1.0f);
 }
 
 }  // namespace
@@ -346,21 +432,25 @@ int dg_stencil_forward(const float* p0p, const float* p1p, const float* kxp,
   return (int)cudaGetLastError();
 }
 
-// Launches the backward's two kernels on `stream`; returns
-// cudaGetLastError() (0 = success). `g` holds the gradients of p1p, kxp and
-// bgugp (n_padded = 3), a (3, B, 5, H, W) scratch, a
-// (B, dg_stencil_num_blocks(H, W), 2) partial scratch and dL/dtsteps. Both
-// structs are read on the host before the launch.
-int dg_stencil_backward(const DGStencilBwdArgs* args, const sa::Gather* g, int B, int H, int W,
+// Launches the backward on `stream`; returns cudaGetLastError() (0 =
+// success). `args` (read on the host before the launch) holds the inputs as
+// dg_stencil_forward takes them, the cotangents g_dom, g_ibc, g_tde
+// (B, H, W) and g_mbc (B,), the gradients (null: not asked for; qwell has
+// none), partial (B, plan.n_ti * plan.n_tj, 2) and the tickets (B unsigned
+// ints, 0 on entry and on return). `plan` cuts the padded (H+2, W+2) plane
+// into tiles (stencil_adjoint.cuh).
+int dg_stencil_backward(const DGStencilBwdArgs* args, int B, int H, int W, sa::TilePlan plan,
                         DGStencilScalars s, void* stream) {
-  if (args == nullptr || g == nullptr || B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
-      g->n_padded != 3 || g->n_blocks != dg_stencil_num_blocks(H, W))
+  if (args == nullptr || B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
+      !sa::plan_fits(plan, H + 2, W + 2))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dg_stencil_bwd_cells<<<dim3(g->n_blocks, B), kBlock, 0, st>>>(*args, *g, B, H, W, s);
-  cudaError_t err = cudaGetLastError();
+  static size_t allowed = 0;
+  const size_t shared = sizeof(float) * sa::tile_shared_floats(plan, 3, 3);
+  const cudaError_t err = sa::allow_shared(dg_stencil_bwd, shared, allowed);
   if (err != cudaSuccess) return (int)err;
-  return sa::launch_gather(*g, B, H, W, st);
+  dg_stencil_bwd<<<dim3(plan.n_ti * plan.n_tj, B), sa::tile_threads(plan), shared,
+                   static_cast<cudaStream_t>(stream)>>>(*args, H, W, plan, s);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

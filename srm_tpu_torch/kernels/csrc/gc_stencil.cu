@@ -20,7 +20,7 @@
 // HBM rate, for ~380 floating-point operations per cell (~18 MFLOP, 0.3 us
 // at the float32 peak), so the two launches dominate.
 //
-// Design, deliberately simple for this first version:
+// Forward design, deliberately simple for this first version:
 //  * one thread per interior cell; blockIdx.y is the sample and blockIdx.x
 //    tiles the H*W cells of that sample;
 //  * each thread reads its five-point neighbourhood of the ten padded fields
@@ -45,27 +45,43 @@
 //
 // Backward (gc_stencil_backward). Replaces the reference's custom-vjp
 // backward srm_tpu/kernels/stencil_pallas.py::_gc_bwd (:533), which lets XLA
-// differentiate the jnp twin; before it the port differentiated its plain
-// version with autograd, ~1,170 small launches per call (the recompute
-// included). Its plain version is srm_tpu_torch/kernels/stencil.py::
-// gc_stencil_residual_backward_reference, the adjoint derived by hand, whose
-// operation order it keeps: the upstream faces pass their cotangent to the
-// side they took their value from (ties to the centre), the chord slopes pass
-// none where dp = 0, max(t1, 1e-12) none below its bound. Two launches, no
-// atomics (stencil_adjoint.cuh): one thread per cell recomputes the cell's
-// forward intermediates in registers, applies the adjoint, writes the fifteen
-// centred inputs' gradients and its contributions to the ten padded inputs'
-// gradients at the cell and its four neighbours into a (B, 5, H, W) scratch
-// per padded input, and its block's dL/dt1, dL/dt2; the gather sums them.
-// Bound at the main path's shape (B=32, 39x39): it must read what the
-// gradient needs of the inputs (~4.30 MB: not the four well rates, whose
-// gradients are images of the cotangents alone) and the cotangents
+// differentiate the jnp twin. Its plain version is
+// srm_tpu_torch/kernels/stencil.py::gc_stencil_residual_backward_reference,
+// the adjoint derived by hand, whose operation order it keeps: the upstream
+// faces pass their cotangent to the side they took their value from (ties
+// to the centre), the chord slopes pass none where dp = 0, max(t1, 1e-12)
+// none below its bound.
+// What bounds it: at the main path's shape (B=32, 39x39) it must read what
+// the gradient needs of the inputs (~4.30 MB: not the four well rates,
+// whose gradients are images of the cotangents alone) and the cotangents
 // (~0.97 MB), and write the gradients (~5.07 MB): 10,345,540 B, 3.09 us at
-// 3.35 TB/s. It does 1,016 floating-point operations per cell (counted from
-// this source: the recomputed forward, the adjoint, the gather's adds and
-// the dL/dt block sums), 49.5 MFLOP, 0.74 us at the float32 peak, so bytes
-// set the bound. The design also writes and reads back ~9.7 MB of scratch,
-// and its two launches, not bytes, set its time.
+// 3.35 TB/s. Counted from this source it does 964 floating-point
+// operations per cell computed (the recomputed forward and the adjoint), 50
+// per padded position (the gather's adds) and 2 per cell (dL/dt); the ring
+// recompute below computes 1.103 cells per cell at 39x39 (21x21 tiles), so
+// 1,115 per cell, 54.3 MFLOP, 0.81 us at the float32 peak: bytes set the
+// bound. In practice registers and latency do: the cell adjoint holds 168
+// registers (the whole forward is recomputed per cell), so an SM holds one
+// block of 320 threads, and each thread's chain of dependent divisions,
+// two cells long at 39x39, is most of a call.
+// Design: one launch, the push form kept inside the block
+// (stencil_adjoint.cuh). A block owns a tile of one sample's padded plane;
+// the ten padded inputs are staged in shared memory with cp.async over the
+// tile and a two-position ring; its 320 threads compute the cell adjoint
+// of the tile's cells and of the one-cell ring around it, a cell each in
+// turn, put each contribution that lands in the tile into shared-memory
+// slots (ten inputs' five slots: 113 KB with the staging for a 21x21 tile,
+// 226 KB for 30x30 at 117x117, so the launcher raises the kernel's dynamic
+// shared-memory limit), and after one __syncthreads sum each position's
+// slots in the plain adjoint's order. Tiles of up to 32x32 positions
+// measured fastest (srm_tpu_torch/tools/bwd_variants.py: 16x16 tiles, nine
+// blocks a sample at 39x39 against four, took 1.4-1.8x as long). The first
+// version wrote the contributions to a (10, B, 5, H, W) scratch in device
+// memory and gathered them in a second launch: 9.7 MB written and read back
+// at B=32, nearly the bound's bytes again. The upstream choice is unchanged:
+// each cell, own or ring, compares its own faces. dL/dt1 and dL/dt2 are
+// summed per sample in the same launch (sum_per_sample). No atomics touch a
+// value: the same bits from run to run.
 
 #include <cuda_runtime.h>
 
@@ -134,9 +150,10 @@ struct GCStencilArgs {
 };
 
 // The backward's device pointers: the forward's inputs, the cotangents of
-// its seven outputs and the gradients of the fifteen centred inputs, in
-// GC_ARGS order (null: not asked for). The ten padded inputs' gradients, the
-// scratch and dL/dtsteps are in sa::Gather, in GC_ARGS order.
+// its seven outputs, the gradients of the fifteen centred inputs and of the
+// ten padded ones, each in GC_ARGS order (null: not asked for), dL/dtsteps,
+// the (B, n_blocks, 2) partial sums of dL/dt1, dL/dt2 and the per-sample
+// tickets.
 struct GCStencilBwdArgs {
   GCStencilArgs x;         // only its inputs are read
   const float* g_dom_g;
@@ -161,6 +178,10 @@ struct GCStencilBwdArgs {
   float* grad_qdg;
   float* grad_qfo;
   float* grad_qvo;
+  float* grad_padded[10];
+  float* grad_tsteps;
+  float* partial;
+  unsigned* tickets;
 };
 
 namespace {
@@ -377,46 +398,103 @@ __device__ __forceinline__ Point5 divergence_adjoint(float G, const Faces& a, fl
 
 __device__ __forceinline__ float total(const Faces& a) { return a.i_h + a.j_h + a.ih + a.jh; }
 
-__device__ __forceinline__ void put(const sa::Gather& g, int f, int b, int j, int i, int B, int H,
-                                    int W, const Point5& c) {
-  sa::put5(g, f, b, j, i, B, H, W, c.ij, c.i1, c.i_1, c.j1, c.j_1);
-}
-
 __device__ __forceinline__ void store(float* grad, long o, float v) {
   if (grad != nullptr) grad[o] = v;
 }
 
-__global__ void __launch_bounds__(kBlock)
-gc_stencil_bwd_cells(GCStencilBwdArgs a, sa::Gather g, int B, int H, int W, GCStencilScalars s) {
-  const int b = blockIdx.y;
-  const int cell = blockIdx.x * kBlock + threadIdx.x;
-  const int HW = H * W;
-  float gt1 = 0.0f, gt2 = 0.0f;
+// A staged input's value at a cell and its four neighbours (stencil_adjoint.cuh).
+__device__ __forceinline__ Point5 load5s(const float* sf, int e, int sw) {
+  return {sf[e], sf[e + 1], sf[e - 1], sf[e + sw], sf[e - sw]};
+}
 
-  if (cell < HW) {
-    const GCStencilArgs& x = a.x;
-    const int i = cell % W;
-    const int j = cell / W;
-    const int Wp = W + 2;
-    const long c = (long)b * (H + 2) * Wp + (long)(j + 1) * Wp + (i + 1);
-    const long o = (long)b * HW + cell;
-    const float t1 = x.tsteps[2 * b];
-    const float t2 = x.tsteps[2 * b + 1];
+constexpr int kPadded = 10;       // the padded inputs, in GC_ARGS order
+// Blocks resident per SM the backward is compiled for (its register cap):
+// 1 measured fastest; 2 and 3 cap it at 96 and 64 registers, spill 456 and
+// 836 bytes and took 1.3x and 2.2-3.3x as long (PERF.md);
+// srm_tpu_torch/tools/bwd_variants.py builds others with
+// -DSRM_BWD_MIN_BLOCKS=N
+#ifndef SRM_BWD_MIN_BLOCKS
+#define SRM_BWD_MIN_BLOCKS 1
+#endif
+constexpr int kBwdMinBlocks = SRM_BWD_MIN_BLOCKS;
+
+// A cell's centred inputs and cotangents, loaded while the staging copies
+// are in flight.
+struct GCCellIn {
+  float p0, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, dinvBg0, dinvBo0, dRs0, dRv0;
+  float qw, g_ibc, g_dom_g, g_dom_o, g_trn_g, g_trn_o;
+};
+
+// One block per tile of one sample's padded plane (stencil_adjoint.cuh),
+// one thread per cell of the tile and of its ring: the cell adjoint of
+// gc_stencil_residual_backward_reference, statement for statement; the
+// tile's own cells also write the fifteen centred inputs' gradients and
+// their dL/dt, the ring's keep their contributions to the tile's positions
+// alone. Then each of the tile's threads gathers its own position of the
+// ten padded inputs. Shared memory: the ten padded inputs staged over the
+// tile and a two-position ring, then their slots.
+__global__ void __launch_bounds__(sa::kMaxThreads, kBwdMinBlocks)
+gc_stencil_bwd(GCStencilBwdArgs a, int H, int W, sa::TilePlan plan, GCStencilScalars s) {
+  extern __shared__ float sh[];
+  const GCStencilArgs& x = a.x;
+  const sa::Tile t(plan, H, W);
+  const int b = t.b;
+  const int Wp = W + 2;
+  const long pbase = (long)b * (H + 2) * Wp;
+  const int n_stage = (t.tj + 2 * sa::kStageRing) * (t.tw + 2 * sa::kStageRing);
+  const int n_pos = t.positions();
+  const float* const padded[kPadded] = {x.p1p, x.kxp, x.krgo1p, x.krog1p, x.invBg1p,
+                                        x.invBo1p, x.invug1p, x.invuo1p, x.Rs1p, x.Rv1p};
+#pragma unroll
+  for (int f = 0; f < kPadded; ++f) sa::stage(sh + f * n_stage, padded[f], t, pbase);
+  __pipeline_commit();
+  float* const slots = sh + kPadded * n_stage;
+
+  const int n_cells = sa::tile_cells(plan);
+  const float t1 = x.tsteps[2 * b];
+  const float t2 = x.tsteps[2 * b + 1];
+  const float g_mg = -a.g_mbc_g[b], g_mo = -a.g_mbc_o[b];
+  auto load = [&](int lj, int li) {
+    const long cell = (long)t.cell_j(lj) * W + t.cell_i(li);
+    const long o = (long)b * H * W + cell;
+    return GCCellIn{x.p0[o], x.Sg0[o], x.Sg1[o], x.invBg0[o], x.invBo0[o], x.Rs0[o], x.Rv0[o],
+                    x.dinvBg0[o], x.dinvBo0[o], x.dRs0[o], x.dRv0[o], x.qwell[cell], a.g_ibc[o],
+                    a.g_dom_g[o], a.g_dom_o[o], a.g_trn_g[o], a.g_trn_o[o]};
+  };
+  // the first cell's inputs load while the staging copies are in flight
+  int n = threadIdx.x, lj = 0, li = 0;
+  bool has_cell = t.place(n, lj, li);
+  GCCellIn in{};
+  if (has_cell) in = load(lj, li);
+  const sa::Staged staged(t);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  float gt[2] = {0.0f, 0.0f};
+  for (; n < n_cells; n += blockDim.x) {
+    if (n != (int)threadIdx.x) {
+      has_cell = t.place(n, lj, li);
+      if (has_cell) in = load(lj, li);
+    }
+    if (!has_cell) continue;
+    const bool own = n < n_pos;
+    const long o = (long)b * H * W + (long)t.cell_j(lj) * W + t.cell_i(li);
+    const int e = staged.at(lj, li), sw = staged.sw;
 
     // the forward's intermediates, as gc_stencil_cells has them
-    const Point5 k = load5(x.kxp, c, Wp);
+    const Point5 k = load5s(sh + 1 * n_stage, e, sw);
     const Faces kf = harmonic(k);
-    const Point5 p = load5(x.p1p, c, Wp);
-    const Point5 bg = load5(x.invBg1p, c, Wp), bo = load5(x.invBo1p, c, Wp);
-    const Point5 ug = load5(x.invug1p, c, Wp), uo = load5(x.invuo1p, c, Wp);
-    const Point5 rs = load5(x.Rs1p, c, Wp), rv = load5(x.Rv1p, c, Wp);
-    const float p0 = x.p0[o];
-    const float Sg0 = x.Sg0[o], Sg1 = x.Sg1[o];
+    const Point5 p = load5s(sh + 0 * n_stage, e, sw);
+    const Point5 bg = load5s(sh + 4 * n_stage, e, sw), bo = load5s(sh + 5 * n_stage, e, sw);
+    const Point5 ug = load5s(sh + 6 * n_stage, e, sw), uo = load5s(sh + 7 * n_stage, e, sw);
+    const Point5 rs = load5s(sh + 8 * n_stage, e, sw), rv = load5s(sh + 9 * n_stage, e, sw);
+    const float p0 = in.p0;
+    const float Sg0 = in.Sg0, Sg1 = in.Sg1;
     const float So0 = s.So_max - Sg0, So1 = s.So_max - Sg1;
-    const float invBg0 = x.invBg0[o], invBo0 = x.invBo0[o];
-    const float Rs0 = x.Rs0[o], Rv0 = x.Rv0[o];
-    const float dinvBg0 = x.dinvBg0[o], dinvBo0 = x.dinvBo0[o];
-    const float dRs0 = x.dRs0[o], dRv0 = x.dRv0[o];
+    const float invBg0 = in.invBg0, invBo0 = in.invBo0;
+    const float Rs0 = in.Rs0, Rv0 = in.Rv0;
+    const float dinvBg0 = in.dinvBg0, dinvBo0 = in.dinvBo0;
+    const float dRs0 = in.dRs0, dRv0 = in.dRv0;
     const float invBg1 = bg.ij, invBo1 = bo.ij, Rs1 = rs.ij, Rv1 = rv.ij;
     const float RsinvBo0 = Rs0 * invBo0, RvinvBg0 = Rv0 * invBg0;
     const float RsinvBo1 = Rs1 * invBo1, RvinvBg1 = Rv1 * invBg1;
@@ -432,8 +510,8 @@ gc_stencil_bwd_cells(GCStencilBwdArgs a, sa::Gather g, int B, int H, int W, GCSt
     const float num_g = t2 * mg0 + t1 * mg2 - (t1 + t2) * mg1;
     const float num_o = t2 * mo0 + t1 * mo2 - (t1 + t2) * mo1;
 
-    const Faces kgo = upstream(load5(x.krgo1p, c, Wp), p);
-    const Faces kog = upstream(load5(x.krog1p, c, Wp), p);
+    const Faces kgo = upstream(load5s(sh + 2 * n_stage, e, sw), p);
+    const Faces kog = upstream(load5s(sh + 3 * n_stage, e, sw), p);
     const Point5 rvbg = mul(rv, bg), rsbo = mul(rs, bo);
     const Faces bgug = average(mul(bg, ug));
     const Faces bouo = average(mul(bo, uo));
@@ -462,8 +540,8 @@ gc_stencil_bwd_cells(GCStencilBwdArgs a, sa::Gather g, int B, int H, int W, GCSt
 
     // the four divergences dv*(sum + q/dv): the gas pair read by dom_g, the
     // oil pair by dom_o, all four by ibc
-    const float g_ibc_cell = x.qwell[cell] * a.g_ibc[o];
-    const float g_dom_g = a.g_dom_g[o], g_dom_o = a.g_dom_o[o];
+    const float g_ibc_cell = in.qw * in.g_ibc;
+    const float g_dom_g = in.g_dom_g, g_dom_o = in.g_dom_o;
     const float G_g = (g_dom_g + g_ibc_cell) * s.dv;
     const float G_o = (g_dom_o + g_ibc_cell) * s.dv;
     Point5 c_p = add(add(add(divergence_adjoint(G_g, agg, total(agg)),
@@ -550,7 +628,6 @@ gc_stencil_bwd_cells(GCStencilBwdArgs a, sa::Gather g, int B, int H, int W, GCSt
     g_dp = g_dp - (moving ? (q_Sg * dSg) / dp + (q_So * dSo) / dp : 0.0f);
 
     // mbc = -sum((q + q') + K*E), K = (dv*inv_Dt)*phi
-    const float g_mg = -a.g_mbc_g[b], g_mo = -a.g_mbc_o[b];
     float g_E = g_mg * K;
     g_Sg1 = g_Sg1 + g_E * invBg1;
     g_invBg1 = g_invBg1 + g_E * Sg1;
@@ -570,14 +647,15 @@ gc_stencil_bwd_cells(GCStencilBwdArgs a, sa::Gather g, int B, int H, int W, GCSt
     g_Sg0 = g_Sg0 - g_E * RvinvBg0;
     g_RvinvBg0 = g_RvinvBg0 - g_E * Sg0;
     g_invDt = g_invDt + ((g_mg * E_g + g_mo * E_o) * s.phi) * s.dv;
-    gt1 = -((g_invDt * inv_Dt) * inv_Dt) * s.D;
+    float gt1 = -((g_invDt * inv_Dt) * inv_Dt) * s.D;
+    float gt2 = 0.0f;
 
     // trn = S*(rte/t1 + num/den), num = t2*m0 + t1*m2 - (t1+t2)*m1,
     // m2 = (m1 - m0)*ratio + m0
     float g_ratio = 0.0f;
     float g_mg0, g_mg1, g_mo0, g_mo1;
     {
-      const float gS = a.g_trn_g[o] * s.dv_over_D;
+      const float gS = in.g_trn_g * s.dv_over_D;
       const float g_num = gS / den;
       const float g_den = -(gS * num_g) / (den * den);
       gt1 = gt1 - (gS * s.rte) / (t1 * t1) + g_num * mg2 - g_num * mg1 + g_den * t2;
@@ -588,7 +666,7 @@ gc_stencil_bwd_cells(GCStencilBwdArgs a, sa::Gather g, int B, int H, int W, GCSt
       g_mg1 = -(g_num * (t1 + t2)) + g_m2 * ratio;
     }
     {
-      const float gS = a.g_trn_o[o] * s.dv_over_D;
+      const float gS = in.g_trn_o * s.dv_over_D;
       const float g_num = gS / den;
       const float g_den = -(gS * num_o) / (den * den);
       gt1 = gt1 - (gS * s.rte) / (t1 * t1) + g_num * mo2 - g_num * mo1 + g_den * t2;
@@ -635,49 +713,68 @@ gc_stencil_bwd_cells(GCStencilBwdArgs a, sa::Gather g, int B, int H, int W, GCSt
     g_Sg0 = g_Sg0 - g_So0;
     g_Sg1 = g_Sg1 - g_So1;
 
-    store(a.grad_p0, o, -g_dp);
-    store(a.grad_Sg0, o, g_Sg0);
-    store(a.grad_Sg1, o, g_Sg1);
-    store(a.grad_invBg0, o, g_invBg0);
-    store(a.grad_invBo0, o, g_invBo0);
-    store(a.grad_Rs0, o, g_Rs0);
-    store(a.grad_Rv0, o, g_Rv0);
-    store(a.grad_dinvBg0, o, g_dinvBg0);
-    store(a.grad_dinvBo0, o, g_dinvBo0);
-    store(a.grad_dRs0, o, g_dRs0);
-    store(a.grad_dRv0, o, g_dRv0);
-    store(a.grad_qfg, o, G_g / s.dv + g_mg);
-    store(a.grad_qdg, o, G_g / s.dv + g_mg);
-    store(a.grad_qfo, o, G_o / s.dv + g_mo);
-    store(a.grad_qvo, o, G_o / s.dv + g_mo);
+    if (own) {
+      store(a.grad_p0, o, -g_dp);
+      store(a.grad_Sg0, o, g_Sg0);
+      store(a.grad_Sg1, o, g_Sg1);
+      store(a.grad_invBg0, o, g_invBg0);
+      store(a.grad_invBo0, o, g_invBo0);
+      store(a.grad_Rs0, o, g_Rs0);
+      store(a.grad_Rv0, o, g_Rv0);
+      store(a.grad_dinvBg0, o, g_dinvBg0);
+      store(a.grad_dinvBo0, o, g_dinvBo0);
+      store(a.grad_dRs0, o, g_dRs0);
+      store(a.grad_dRv0, o, g_dRv0);
+      store(a.grad_qfg, o, G_g / s.dv + g_mg);
+      store(a.grad_qdg, o, G_g / s.dv + g_mg);
+      store(a.grad_qfo, o, G_o / s.dv + g_mo);
+      store(a.grad_qvo, o, G_o / s.dv + g_mo);
+      gt[0] += gt1;
+      gt[1] += gt2;
+    }
 
     // the padded inputs, in GC_ARGS order: the face products at each point,
     // then the terms read at the centre only
+    const sa::Slots sl{slots, n_pos, t.tw, t.tj, lj, li};
+    auto put = [&](int f, const Point5& c) { sl.put(f, c.ij, c.i1, c.i_1, c.j1, c.j_1); };
     const Point5 pg0 = average_adjoint({gpr[0][0], gpr[0][1], gpr[0][2], gpr[0][3]});
     const Point5 pg1 = average_adjoint({gpr[1][0], gpr[1][1], gpr[1][2], gpr[1][3]});
     const Point5 pg2 = average_adjoint({gpr[2][0], gpr[2][1], gpr[2][2], gpr[2][3]});
     const Point5 pg3 = average_adjoint({gpr[3][0], gpr[3][1], gpr[3][2], gpr[3][3]});
     c_p.ij = c_p.ij + g_dp;
-    put(g, 0, b, j, i, B, H, W, c_p);
-    put(g, 1, b, j, i, B, H, W, harmonic_adjoint(k, {gkf[0], gkf[1], gkf[2], gkf[3]}));
-    put(g, 2, b, j, i, B, H, W, upstream_adjoint(p, {gkgo[0], gkgo[1], gkgo[2], gkgo[3]}));
-    put(g, 3, b, j, i, B, H, W, upstream_adjoint(p, {gkog[0], gkog[1], gkog[2], gkog[3]}));
+    put(0, c_p);
+    put(1, harmonic_adjoint(k, {gkf[0], gkf[1], gkf[2], gkf[3]}));
+    put(2, upstream_adjoint(p, {gkgo[0], gkgo[1], gkgo[2], gkgo[3]}));
+    put(3, upstream_adjoint(p, {gkog[0], gkog[1], gkog[2], gkog[3]}));
     Point5 g_bg = add(mul(pg0, ug), mul(mul(pg3, ug), rv));
     g_bg.ij = g_bg.ij + g_invBg1;
-    put(g, 4, b, j, i, B, H, W, g_bg);
+    put(4, g_bg);
     Point5 g_bo = add(mul(pg2, uo), mul(mul(pg1, uo), rs));
     g_bo.ij = g_bo.ij + g_invBo1;
-    put(g, 5, b, j, i, B, H, W, g_bo);
-    put(g, 6, b, j, i, B, H, W, add(mul(pg0, bg), mul(pg3, rvbg)));
-    put(g, 7, b, j, i, B, H, W, add(mul(pg2, bo), mul(pg1, rsbo)));
+    put(5, g_bo);
+    put(6, add(mul(pg0, bg), mul(pg3, rvbg)));
+    put(7, add(mul(pg2, bo), mul(pg1, rsbo)));
     Point5 g_rs = mul(mul(pg1, uo), bo);
     g_rs.ij = g_rs.ij + g_Rs1;
-    put(g, 8, b, j, i, B, H, W, g_rs);
+    put(8, g_rs);
     Point5 g_rv = mul(mul(pg3, ug), bg);
     g_rv.ij = g_rv.ij + g_Rv1;
-    put(g, 9, b, j, i, B, H, W, g_rv);
+    put(9, g_rv);
   }
-  sa::block_partials<kBlock>(g, b, gt1, gt2);
+  __syncthreads();
+
+  // the tile's positions that lie in the plane
+  for (int q = threadIdx.x; q < n_pos; q += blockDim.x) {
+    const int pj = q / t.tw, pi = q % t.tw;
+    if (t.r0 + pj >= H + 2 || t.c0 + pi >= Wp) continue;
+    const long at = pbase + (long)(t.r0 + pj) * Wp + (t.c0 + pi);
+#pragma unroll
+    for (int f = 0; f < kPadded; ++f)
+      if (a.grad_padded[f] != nullptr)
+        a.grad_padded[f][at] = sa::gather(slots, f, n_pos, t, pj, pi);
+  }
+  sa::sum_per_sample<2, sa::kMaxThreads>(gt, a.partial, a.tickets, b, blockIdx.x, gridDim.x,
+                                         a.grad_tsteps, 1.0f);
 }
 
 }  // namespace
@@ -704,21 +801,24 @@ int gc_stencil_forward(const GCStencilArgs* args, int B, int H, int W, GCStencil
   return (int)cudaGetLastError();
 }
 
-// Launches the backward's two kernels on `stream`; returns
-// cudaGetLastError() (0 = success). `g` holds the ten padded inputs'
-// gradients (n_padded = 10), a (10, B, 5, H, W) scratch, a
-// (B, gc_stencil_num_blocks(H, W), 2) partial scratch and dL/dtsteps. Both
-// structs are read on the host before the launch.
-int gc_stencil_backward(const GCStencilBwdArgs* args, const sa::Gather* g, int B, int H, int W,
+// Launches the backward on `stream`; returns cudaGetLastError() (0 =
+// success). `args` (read on the host before the launch) holds the inputs,
+// the output cotangents, the gradients (null: not asked for; qwell has
+// none), partial (B, plan.n_ti * plan.n_tj, 2) and the tickets (B unsigned
+// ints, 0 on entry and on return). `plan` cuts the padded (H+2, W+2) plane
+// into tiles (stencil_adjoint.cuh).
+int gc_stencil_backward(const GCStencilBwdArgs* args, int B, int H, int W, sa::TilePlan plan,
                         GCStencilScalars s, void* stream) {
-  if (args == nullptr || g == nullptr || B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
-      g->n_padded != 10 || g->n_blocks != gc_stencil_num_blocks(H, W))
+  if (args == nullptr || B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
+      !sa::plan_fits(plan, H + 2, W + 2))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  gc_stencil_bwd_cells<<<dim3(g->n_blocks, B), kBlock, 0, st>>>(*args, *g, B, H, W, s);
-  cudaError_t err = cudaGetLastError();
+  static size_t allowed = 0;
+  const size_t shared = sizeof(float) * sa::tile_shared_floats(plan, kPadded, kPadded);
+  const cudaError_t err = sa::allow_shared(gc_stencil_bwd, shared, allowed);
   if (err != cudaSuccess) return (int)err;
-  return sa::launch_gather(*g, B, H, W, st);
+  gc_stencil_bwd<<<dim3(plan.n_ti * plan.n_tj, B), sa::tile_threads(plan), shared,
+                   static_cast<cudaStream_t>(stream)>>>(*args, H, W, plan, s);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

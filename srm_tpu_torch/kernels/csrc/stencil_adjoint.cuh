@@ -1,147 +1,231 @@
-// Shared second launch of the backward kernels of B1 (dg_stencil.cu) and B3
-// (gc_stencil.cu), CUDA C++ for Hopper (sm_90a).
+// Shared pieces of the backward kernels, CUDA C++ for Hopper (sm_90a): the
+// overlapped-tile gather of B1 (dg_stencil.cu) and B3 (gc_stencil.cu), the
+// deterministic per-sample sum of all three (B2: dg3d_stencil.cu).
 //
-// A backward kernel's first launch runs one thread per interior cell and
-// writes, for each padded (B, H+2, W+2) input that the stencil reads at five
-// points, that cell's contributions to the input's gradient at the cell and
-// at its four neighbours into five slots of a (B, 5, H, W) scratch, and each
-// block's sums of dL/dt1 and dL/dt2 into a (B, n_blocks, 2) scratch. (A
-// padded input read at the centre only gets its gradient straight from the
-// cell, put_centre below.) No two threads write one address, so there are
-// no atomics. This second launch gathers: one thread per padded
-// position sums the (at most five) contributions that land there in a fixed
-// order (centre, then the cells to the west, east, south and north, i.e.
-// their i+1, i-1, j+1, j-1 slots), which is the order of the plain adjoint's
-// _gather5 in srm_tpu_torch/kernels/stencil.py, halo included; and one thread
-// per sample sums its block partials of dL/dt1 and dL/dt2 in index order.
-// The result is the same bit for bit from run to run.
+// A 5-point stencil's adjoint is a push: each cell's adjoint gives every
+// padded input that the stencil reads at five points one contribution at
+// the cell and one at each of its four neighbours, and a padded position's
+// gradient is the sum of the (at most five) contributions that land there.
+// The plain adjoint (_gather5 in srm_tpu_torch/kernels/stencil.py) sums them
+// in the order centre, then the cells to the west, east, south and north
+// (their i+1, i-1, j+1, j-1 contributions), halo included; a halo corner
+// gets none, so 0.
+//
+// The backward kernels keep that push, and its order, inside one block. A
+// block owns a tile of one sample's padded (H+2, W+2) positions (TilePlan,
+// chosen by the wrapper). Its threads compute the cell adjoint of the
+// tile's own cells and of the one-cell ring around the tile (its four edge
+// strips; a ring corner reaches no position of the tile), one cell each, or
+// each every blockDim.x-th cell where the tile has more. The
+// neighbouring block computes that ring too, as its own cells, from the same
+// inputs with the same code, so both get the same bits. Each cell writes its
+// contributions that land inside the tile to shared memory, in five slot
+// arrays indexed by the position they land on (Slots). After one
+// __syncthreads the threads sum each position's slots in _gather5's order.
+// Tiles on the grid's edge own the halo positions beside them; the
+// corners sum nothing and are written 0. So no contribution goes through
+// device memory, there is no second launch, and no two threads write one
+// address: no atomics, the same bits from run to run.
+//
+// sum_per_sample gives the per-sample sums (dL/dt1 and dL/dt2; B2's forward
+// its mbc) in the same launch: a fixed shuffle tree in each warp, the warps
+// in index order, one partial per block, and a per-sample ticket that tells
+// the last block of the sample, which sums the partials in block order.
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace stencil_adjoint {
 
-constexpr int kMaxPadded = 10;  // B3 has ten padded inputs, B1 four
-constexpr int kSlots = 5;       // centre, i+1, i-1, j+1, j-1
+constexpr int kSlots = 5;         // centre, from the west, east, south, north cells
+constexpr int kMaxTile = 1024;    // padded positions per tile, at most
+constexpr int kMaxThreads = 320;  // threads per block, at most
+constexpr int kStageRing = 2;     // staged inputs: the tile with a two-position ring
 
-// What the gather reads and writes. Outside any unnamed namespace: the
-// exported C functions take it through a pointer.
-struct Gather {
-  float* grad[kMaxPadded];  // (B, H+2, W+2) gradient of padded input f; null: not asked for
-  float* scratch;           // (n_padded, B, 5, H, W) per-cell contributions
-  int n_padded;
-  float* partial_t;         // (B, n_blocks, 2) per-block sums of dL/dt1, dL/dt2
-  int n_blocks;
-  float* grad_tsteps;       // (B, 2); null: not asked for
+// How the backward cuts a sample's padded (H+2, W+2) plane into tiles of
+// tw x tj positions, n_ti across and n_tj down; the wrapper computes it
+// (stencil.py::bwd_tile_plan) and the launcher checks it. Outside any
+// unnamed namespace: the exported C functions take it by value.
+struct TilePlan {
+  int tw, tj;
+  int n_ti, n_tj;
 };
 
-// Slot s of cell (j, i) of sample b in the scratch of padded input f.
-__device__ __forceinline__ float* slot(const Gather& g, int f, int b, int s, int j, int i,
-                                       int B, int H, int W) {
-  return g.scratch + ((((long)f * B + b) * kSlots + s) * H + j) * W + i;
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// the cells a block computes: the tile's, then its ring's
+__host__ __device__ inline int tile_cells(const TilePlan& t) {
+  return t.tw * t.tj + 2 * (t.tw + t.tj);
 }
 
-// A cell's five contributions to padded input f, if its gradient is asked for.
-__device__ __forceinline__ void put5(const Gather& g, int f, int b, int j, int i, int B, int H,
-                                     int W, float c_ij, float c_i1, float c_i_1, float c_j1,
-                                     float c_j_1) {
-  if (g.grad[f] == nullptr) return;
-  *slot(g, f, b, 0, j, i, B, H, W) = c_ij;
-  *slot(g, f, b, 1, j, i, B, H, W) = c_i1;
-  *slot(g, f, b, 2, j, i, B, H, W) = c_i_1;
-  *slot(g, f, b, 3, j, i, B, H, W) = c_j1;
-  *slot(g, f, b, 4, j, i, B, H, W) = c_j_1;
+// threads per block: one per cell in whole warps, at most kMaxThreads (each
+// thread then takes every blockDim.x-th cell, in turn)
+__host__ __device__ inline int tile_threads(const TilePlan& t) {
+  const int n = cdiv(tile_cells(t), 32) * 32;
+  return n < kMaxThreads ? n : kMaxThreads;
 }
 
-// The gradient of a padded input that the stencil reads at the centre only,
-// if it is asked for: the cell at padded index c writes its own value, and a
-// cell on the grid's edge zeroes the halo positions beside it (corners
-// included), so that the gather need not touch this input.
-__device__ __forceinline__ void put_centre(float* grad, long c, int j, int i, int H, int W,
-                                           float v) {
-  if (grad == nullptr) return;
-  const long Wp = W + 2;
-  const bool west = i == 0, east = i == W - 1, low = j == 0, high = j == H - 1;
-  grad[c] = v;
-  if (west) grad[c - 1] = 0.0f;
-  if (east) grad[c + 1] = 0.0f;
-  if (low) grad[c - Wp] = 0.0f;
-  if (high) grad[c + Wp] = 0.0f;
-  if (low && west) grad[c - Wp - 1] = 0.0f;
-  if (low && east) grad[c - Wp + 1] = 0.0f;
-  if (high && west) grad[c + Wp - 1] = 0.0f;
-  if (high && east) grad[c + Wp + 1] = 0.0f;
+// floats of shared memory of a block: n_staged inputs over the tile and its
+// two-position ring, and five slot arrays over the tile per gathered input
+__host__ __device__ inline int tile_shared_floats(const TilePlan& t, int n_staged, int n_gathered) {
+  return n_staged * (t.tj + 2 * kStageRing) * (t.tw + 2 * kStageRing) +
+         n_gathered * kSlots * t.tj * t.tw;
 }
 
-// Sums each block's dL/dt1 and dL/dt2 over its cells in a fixed tree order
-// and writes them to the partial_t scratch; kBlock is a power of two.
-template <int kBlock>
-__device__ __forceinline__ void block_partials(const Gather& g, int b, float gt1, float gt2) {
-  __shared__ float red1[kBlock];
-  __shared__ float red2[kBlock];
-  red1[threadIdx.x] = gt1;
-  red2[threadIdx.x] = gt2;
-  __syncthreads();
-  for (int stride = kBlock / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      red1[threadIdx.x] += red1[threadIdx.x + stride];
-      red2[threadIdx.x] += red2[threadIdx.x + stride];
-    }
-    __syncthreads();
+// A plan the kernels take for a padded (Hp, Wp) plane: the tiles cover it,
+// no tile lies wholly outside it, and a tile is at most kMaxTile positions
+// (the launcher also needs its shared memory to fit an SM).
+inline bool plan_fits(const TilePlan& t, int Hp, int Wp) {
+  return t.tw >= 1 && t.tj >= 1 && t.tw * t.tj <= kMaxTile && t.n_ti * t.tw >= Wp &&
+         (t.n_ti - 1) * t.tw < Wp && t.n_tj * t.tj >= Hp && (t.n_tj - 1) * t.tj < Hp;
+}
+
+// Where a block's tile lies: blockIdx.x is the tile (row-major over
+// n_tj x n_ti), blockIdx.y the sample.
+struct Tile {
+  int b;            // sample
+  int r0, c0;       // the tile's first padded row and column
+  int tw, tj;
+  int H, W;         // the grid's cells
+  __device__ Tile(const TilePlan& t, int H_, int W_)
+      : b(blockIdx.y), r0((blockIdx.x / t.n_ti) * t.tj), c0((blockIdx.x % t.n_ti) * t.tw),
+        tw(t.tw), tj(t.tj), H(H_), W(W_) {}
+  __device__ int positions() const { return tw * tj; }
+  __device__ int ring() const { return 2 * (tw + tj); }
+  // the cell at tile place (lj, li), -1 <= lj <= tj and -1 <= li <= tw
+  __device__ int cell_j(int lj) const { return r0 + lj - 1; }
+  __device__ int cell_i(int li) const { return c0 + li - 1; }
+  __device__ bool is_cell(int lj, int li) const {
+    const int j = cell_j(lj), i = cell_i(li);
+    return j >= 0 && j < H && i >= 0 && i < W;
   }
-  if (threadIdx.x == 0) {
-    const long at = ((long)b * gridDim.x + blockIdx.x) * 2;
-    g.partial_t[at] = red1[0];
-    g.partial_t[at + 1] = red2[0];
+  // thread k's cell: the tile's cells row by row (k < positions()), then
+  // its ring's (k - positions() < ring()): the strip below the tile, the
+  // strip above, the left and the right strips. False: no cell of the tile
+  // or its ring is k's, or its place is off the grid's cells.
+  __device__ bool place(int k, int& lj, int& li) const {
+    const int r = k - positions();
+    if (r < 0) { lj = k / tw; li = k % tw; }
+    else if (r < tw) { lj = -1; li = r; }
+    else if (r < 2 * tw) { lj = tj; li = r - tw; }
+    else if (r < 2 * tw + tj) { lj = r - 2 * tw; li = -1; }
+    else if (r < ring()) { lj = r - 2 * tw - tj; li = tw; }
+    else return false;
+    return is_cell(lj, li);
+  }
+};
+
+// Stages padded input f's values over the tile and its two-position ring
+// (rows r0-2 .. r0+tj+1, columns c0-2 .. c0+tw+1, those inside the padded
+// plane) into shared memory with cp.async; the caller commits
+// (__pipeline_commit) and waits (__pipeline_wait_prior(0), __syncthreads).
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, const Tile& t,
+                                      long sample_base) {
+  const int sw = t.tw + 2 * kStageRing, n = (t.tj + 2 * kStageRing) * sw;
+  const int Hp = t.H + 2, Wp = t.W + 2;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int jp = t.r0 - kStageRing + e / sw, ip = t.c0 - kStageRing + e % sw;
+    if (jp < 0 || jp >= Hp || ip < 0 || ip >= Wp) continue;
+    __pipeline_memcpy_async(dst + e, src + sample_base + (long)jp * Wp + ip, sizeof(float));
   }
 }
 
-constexpr int kGatherBlock = 256;
+// Where the staged values lie: the cell at tile place (lj, li) sits at
+// padded position (r0 + lj, c0 + li), its i+-1 neighbours one float away,
+// its j+-1 neighbours one staged row (sw floats) away.
+struct Staged {
+  int sw;
+  __device__ explicit Staged(const Tile& t) : sw(t.tw + 2 * kStageRing) {}
+  __device__ int at(int lj, int li) const { return (lj + kStageRing) * sw + li + kStageRing; }
+};
 
-// blockIdx.y < n_padded: padded input blockIdx.y, one thread per padded
-// position; blockIdx.y == n_padded: dL/dtsteps, one thread per sample.
-__global__ void __launch_bounds__(kGatherBlock) gather(Gather g, int B, int H, int W) {
-  const long idx = (long)blockIdx.x * kGatherBlock + threadIdx.x;
-  const int f = blockIdx.y;
-  if (f == g.n_padded) {
-    if (idx >= B || g.grad_tsteps == nullptr) return;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int k = 0; k < g.n_blocks; ++k) {
-      s1 += g.partial_t[(idx * g.n_blocks + k) * 2];
-      s2 += g.partial_t[(idx * g.n_blocks + k) * 2 + 1];
-    }
-    g.grad_tsteps[2 * idx] = s1;
-    g.grad_tsteps[2 * idx + 1] = s2;
-    return;
+// The slot arrays of the gathered inputs: slots of input f at
+// sh[(f * kSlots + slot) * positions + position].
+struct Slots {
+  float* sh;
+  int n_pos, tw, tj;
+  int lj, li;       // the writing cell's tile place
+  // cell (lj, li)'s contributions to padded input f at the cell and at its
+  // i+1, i-1, j+1, j-1 neighbours: each that lands in the tile goes to the
+  // slot of the position it lands on (from the west, east, south, north)
+  __device__ __forceinline__ void put(int f, float c, float i1, float i_1, float j1,
+                                      float j_1) const {
+    float* s = sh + f * kSlots * n_pos;
+    const bool row = lj >= 0 && lj < tj, col = li >= 0 && li < tw;
+    if (row && col) s[lj * tw + li] = c;
+    if (row && li + 1 >= 0 && li + 1 < tw) s[n_pos + lj * tw + li + 1] = i1;
+    if (row && li - 1 >= 0 && li - 1 < tw) s[2 * n_pos + lj * tw + li - 1] = i_1;
+    if (col && lj + 1 >= 0 && lj + 1 < tj) s[3 * n_pos + (lj + 1) * tw + li] = j1;
+    if (col && lj - 1 >= 0 && lj - 1 < tj) s[4 * n_pos + (lj - 1) * tw + li] = j_1;
   }
-  // g.grad[f] with f known only at run time would make the compiler copy
-  // the whole struct to each thread's stack; pick it with fixed indices
-  float* out = nullptr;
-#pragma unroll
-  for (int k = 0; k < kMaxPadded; ++k)
-    if (k == f) out = g.grad[k];
-  const int Hp = H + 2, Wp = W + 2;
-  if (out == nullptr || idx >= (long)B * Hp * Wp) return;
-  const int i = (int)(idx % Wp) - 1;            // cell coordinates; -1 and W / H are halo
-  const int j = (int)((idx / Wp) % Hp) - 1;
-  const int b = (int)(idx / ((long)Hp * Wp));
-  const bool row = j >= 0 && j < H, col = i >= 0 && i < W;
+};
+
+// The gradient of gathered input f at the tile's position p = (lj, li):
+// its slots in _gather5's order, each where the cell it comes from exists.
+__device__ __forceinline__ float gather(const float* sh, int f, int n_pos, const Tile& t, int lj,
+                                        int li) {
+  const float* s = sh + f * kSlots * n_pos + lj * t.tw + li;
+  const int j = t.cell_j(lj), i = t.cell_i(li);
+  const bool row = j >= 0 && j < t.H, col = i >= 0 && i < t.W;
   float v = 0.0f;
-  if (row && col) v += *slot(g, f, b, 0, j, i, B, H, W);
-  if (row && i - 1 >= 0 && i - 1 < W) v += *slot(g, f, b, 1, j, i - 1, B, H, W);
-  if (row && i + 1 >= 0 && i + 1 < W) v += *slot(g, f, b, 2, j, i + 1, B, H, W);
-  if (col && j - 1 >= 0 && j - 1 < H) v += *slot(g, f, b, 3, j - 1, i, B, H, W);
-  if (col && j + 1 >= 0 && j + 1 < H) v += *slot(g, f, b, 4, j + 1, i, B, H, W);
-  out[idx] = v;
+  if (row && col) v += s[0];
+  if (row && i - 1 >= 0 && i - 1 < t.W) v += s[n_pos];
+  if (row && i + 1 >= 0 && i + 1 < t.W) v += s[2 * n_pos];
+  if (col && j - 1 >= 0 && j - 1 < t.H) v += s[3 * n_pos];
+  if (col && j + 1 >= 0 && j + 1 < t.H) v += s[4 * n_pos];
+  return v;
 }
 
-// Launches the gather on `st` after a cell launch; returns cudaGetLastError().
-inline int launch_gather(const Gather& g, int B, int H, int W, cudaStream_t st) {
-  const long n = (long)B * (H + 2) * (W + 2);
-  const int nx = (int)((n + kGatherBlock - 1) / kGatherBlock);
-  gather<<<dim3(nx, g.n_padded + 1), kGatherBlock, 0, st>>>(g, B, H, W);
-  return (int)cudaGetLastError();
+// Sums each v[n] over the block (a fixed shuffle tree in each warp, then
+// the warps in index order) into partial[(b, blk, n)]; the last block of
+// sample b to finish, told by its ticket, sums the sample's partials in
+// block order into out[b * N + n] (times sign; out may be null) and resets
+// the ticket. blockDim.x is a multiple of 32, at most kBlock.
+template <int N, int kBlock>
+__device__ void sum_per_sample(float (&v)[N], float* partial, unsigned* tickets, int b, int blk,
+                               int n_blk, float* out, float sign) {
+  __shared__ float warp_sums[kBlock / 32][N];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    for (int off = 16; off > 0; off >>= 1) v[n] += __shfl_down_sync(0xffffffffu, v[n], off);
+    if (lane == 0) warp_sums[warp][n] = v[n];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int n = 0; n < N; ++n) {
+      float s = 0.0f;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += warp_sums[w][n];
+      partial[((long)b * n_blk + blk) * N + n] = s;
+    }
+    __threadfence();                      // the partial is visible before the ticket
+    last = atomicAdd(&tickets[b], 1u) == (unsigned)(n_blk - 1);
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    __threadfence();
+    for (int n = 0; n < N; ++n) {
+      float s = 0.0f;
+      for (int k = 0; k < n_blk; ++k) s += __ldcg(&partial[((long)b * n_blk + k) * N + n]);
+      if (out != nullptr) out[(long)b * N + n] = sign * s;
+    }
+    tickets[b] = 0u;
+  }
+}
+
+// Raises a kernel's dynamic shared memory limit to `bytes` the first time a
+// launch needs more than 48 KB; returns cudaSuccess or the error. The
+// trainer's eager warm-up steps make the first call, before any capture.
+template <class Kernel>
+inline cudaError_t allow_shared(Kernel kernel, size_t bytes, size_t& allowed) {
+  if (bytes <= 48 * 1024 || bytes <= allowed) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
 }
 
 // d(2ab/(a+b))/da = 2(b/(a+b))^2 for the face of centre c and neighbour n:

@@ -24,7 +24,8 @@ has three pieces, as in the reference:
   reference's ``jax.custom_vjp`` differentiates its jnp twin (``:568-571``,
   ``:313-316``, ``:529-540``); so does the backward here for CPU tensors,
   through the recomputed plain version. For CUDA tensors each has a
-  backward kernel (in the same ``.cu`` files; ``launches_bwd``,
+  backward kernel of one launch (in the same ``.cu`` files; B1's and B3's
+  tiles planned by :func:`bwd_tile_plan`; ``launches_bwd``,
   ``launches_3d_bwd``, ``launches_gc_bwd``), whose plain version is an
   explicit adjoint derived by hand
   (:func:`dg_stencil_residual_backward_reference`,
@@ -863,10 +864,9 @@ class _PointersGC(ctypes.Structure):
 
 class _BwdArgs(ctypes.Structure):
     """``DGStencilBwdArgs`` of csrc/dg_stencil.cu."""
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "p0p", "p1p", "kxp", "bgugp", "invBg0", "invBg1", "dinvBg0", "q", "qwell", "tsteps",
-        "g_dom", "g_ibc", "g_tde", "g_mbc", "grad_p0p", "grad_invBg0", "grad_invBg1",
-        "grad_dinvBg0", "grad_q")]
+    _fields_ = [(name, ctypes.c_void_p) for name in DG_ARGS + (
+        "g_dom", "g_ibc", "g_tde", "g_mbc") + tuple(f"grad_{n}" for n in DG_ARGS if n != "qwell")
+        + ("partial", "tickets")]
 
 
 class _BwdArgs3D(ctypes.Structure):
@@ -879,17 +879,38 @@ class _BwdArgs3D(ctypes.Structure):
 class _BwdArgsGC(ctypes.Structure):
     """``GCStencilBwdArgs`` of csrc/gc_stencil.cu: the inputs (in a
     ``GCStencilArgs`` whose outputs stay null), the output cotangents, the
-    centred inputs' gradients."""
-    _fields_ = [("x", _PointersGC)] + [(name, ctypes.c_void_p) for name in tuple(
-        f"g_{o}" for o in GC_OUTPUTS) + tuple(f"grad_{n}" for n in GC_CENTRED)]
+    centred and the padded inputs' gradients, dL/dtsteps, the partial sums
+    and the tickets."""
+    _fields_ = ([("x", _PointersGC)]
+                + [(name, ctypes.c_void_p) for name in tuple(f"g_{o}" for o in GC_OUTPUTS)
+                   + tuple(f"grad_{n}" for n in GC_CENTRED)]
+                + [("grad_padded", ctypes.c_void_p * len(GC_PADDED_ORDER))]
+                + [(name, ctypes.c_void_p) for name in ("grad_tsteps", "partial", "tickets")])
 
 
-class _Gather(ctypes.Structure):
-    """``stencil_adjoint::Gather`` of csrc/stencil_adjoint.cuh."""
-    _fields_ = [("grad", ctypes.c_void_p * 10),
-                ("scratch", ctypes.c_void_p), ("n_padded", ctypes.c_int),
-                ("partial_t", ctypes.c_void_p), ("n_blocks", ctypes.c_int),
-                ("grad_tsteps", ctypes.c_void_p)]
+class TilePlan(ctypes.Structure):
+    """How B1's and B3's backward kernels cut a sample's padded (H+2, W+2)
+    plane (``stencil_adjoint::TilePlan`` of csrc/stencil_adjoint.cuh):
+    ``n_ti`` × ``n_tj`` tiles of ``tw`` × ``tj`` positions (columns × rows),
+    one block each; the last column and row of tiles may reach past the
+    plane."""
+    _fields_ = [(name, ctypes.c_int) for name in ("tw", "tj", "n_ti", "n_tj")]
+
+
+#: the largest tile (width, height) of B1's and B3's backward kernels, in
+#: padded positions (at most 1024, and its shared memory within an SM's;
+#: a block has up to 320 threads, each taking cells in turn); chosen from
+#: measured times on the card (PERF.md)
+BWD_TILE = {"dg": (32, 32), "gc": (32, 32)}
+
+
+def bwd_tile_plan(H: int, W: int, tile: Tuple[int, int]) -> TilePlan:
+    """The fewest tiles of at most ``tile`` = (width, height) positions
+    across and down the padded (H+2, W+2) plane, then each as small as that
+    count allows, so that the tiles cover it with the least overhang."""
+    Hp, Wp = H + 2, W + 2
+    n_ti, n_tj = -(-Wp // tile[0]), -(-Hp // tile[1])
+    return TilePlan(-(-Wp // n_ti), -(-Hp // n_tj), n_ti, n_tj)
 
 
 @functools.lru_cache(maxsize=None)
@@ -905,15 +926,15 @@ def _pack_gc(cfg: GCStencilConfig) -> _ScalarsGC:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = load_library("dg_stencil.cu")
+def _library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = load_library("dg_stencil.cu", defines)
     lib.dg_stencil_num_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.dg_stencil_num_blocks.restype = ctypes.c_int
     lib.dg_stencil_forward.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
                                        + [_Scalars, ctypes.c_void_p])
     lib.dg_stencil_forward.restype = ctypes.c_int
-    lib.dg_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgs), ctypes.POINTER(_Gather)]
-                                        + [ctypes.c_int] * 3 + [_Scalars, ctypes.c_void_p])
+    lib.dg_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgs)] + [ctypes.c_int] * 3
+                                        + [TilePlan, _Scalars, ctypes.c_void_p])
     lib.dg_stencil_backward.restype = ctypes.c_int
     return lib
 
@@ -937,9 +958,10 @@ _RETIRED_TICKETS = []
 
 
 def _tickets(device: torch.device, B: int) -> torch.Tensor:
-    """B2's per-sample tickets on ``device``: zero between launches (each
-    launch's last block of a sample resets its own), so one buffer per
-    device serves every launch of both kernels in stream order.
+    """The per-sample tickets of the kernels' ticketed sums (B2's forward
+    and the three backward kernels) on ``device``: zero between launches
+    (each launch's last block of a sample resets its own), so one buffer per
+    device serves every launch in stream order.
 
     A CUDA graph keeps the address of the buffer it captured, so a buffer
     outgrown by a larger batch is kept alive, never freed. The trainer's
@@ -953,15 +975,15 @@ def _tickets(device: torch.device, B: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _library_gc() -> ctypes.CDLL:
-    lib = load_library("gc_stencil.cu")
+def _library_gc(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = load_library("gc_stencil.cu", defines)
     lib.gc_stencil_num_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.gc_stencil_num_blocks.restype = ctypes.c_int
     lib.gc_stencil_forward.argtypes = ([ctypes.POINTER(_PointersGC)] + [ctypes.c_int] * 3
                                        + [_ScalarsGC, ctypes.c_void_p])
     lib.gc_stencil_forward.restype = ctypes.c_int
-    lib.gc_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgsGC), ctypes.POINTER(_Gather)]
-                                        + [ctypes.c_int] * 3 + [_ScalarsGC, ctypes.c_void_p])
+    lib.gc_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgsGC)] + [ctypes.c_int] * 3
+                                        + [TilePlan, _ScalarsGC, ctypes.c_void_p])
     lib.gc_stencil_backward.restype = ctypes.c_int
     return lib
 
@@ -1041,27 +1063,14 @@ def _cuda_forward_gc(*args):
     return tuple(out[:5]) + tuple(out[7:])
 
 
-def _backward_buffers(like, H, W, n_blocks, padded, centred, n_padded, need_tsteps):
-    """The gradients asked for (``padded`` and ``centred`` are the asked-for
-    inputs' indices) and (B, 2) for Δt if asked, in one allocation; the
-    (n_padded, B, 5, H, W) scratch and the (B, n_blocks, 2) partials in
-    another, which the caller drops after the launch (a view of the first
-    keeps all of it alive)."""
-    B = like.shape[0]
-    bufs = _alloc(like, [(B, H + 2, W + 2)] * len(padded) + [(B, H, W)] * len(centred)
-                  + [(B, 2)] * need_tsteps)
-    grads = dict(zip(list(padded) + list(centred), bufs))
-    scratch, partial = _alloc(like, [(n_padded, B, 5, H, W), (B, n_blocks, 2)])
-    return grads, (bufs[-1] if need_tsteps else None), scratch, partial
-
-
-def _gather_struct(grads, padded_idx, scratch, partial, grad_tsteps, n_blocks):
-    g = _Gather()
-    for f, i in enumerate(padded_idx):
-        g.grad[f] = _ptr(grads.get(i))
-    g.scratch, g.n_padded = scratch.data_ptr(), len(padded_idx)
-    g.partial_t, g.n_blocks, g.grad_tsteps = partial.data_ptr(), n_blocks, _ptr(grad_tsteps)
-    return g
+def _grad_buffers(kind: str, like: torch.Tensor, grid, need):
+    """An empty gradient for each input of the ``kind`` stencil that
+    ``need`` flags, keyed by its index: one allocation per gradient, so that
+    autograd frees each once it is consumed (one allocation for all would
+    keep all alive as long as any)."""
+    shapes = _shapes(kind, like.shape[0], *grid)
+    return {i: torch.empty(shape, dtype=torch.float32, device=like.device)
+            for i, shape in enumerate(shapes) if need[i]}
 
 
 def _refuse_qwell(need, i):
@@ -1071,28 +1080,24 @@ def _refuse_qwell(need, i):
 
 
 def _cuda_backward(saved, grads, cfg, need):
-    """B1's backward kernel: the gradients of the inputs in ``need`` (a
-    flag per input), None for the others."""
+    """B1's backward kernel, one launch: the gradients of the inputs in
+    ``need`` (a flag per input), None for the others."""
     global launches_bwd
     _refuse_qwell(need, 8)
     lib = _library()
     q = saved[7]
     B, H, W = q.shape
-    n_blocks = lib.dg_stencil_num_blocks(H, W)
-    padded = [i for i in range(4) if need[i]]
-    centred = [i for i in range(4, 8) if need[i]]
-    # p0p, read at the centre only, gets its gradient from the cell launch;
-    # p1p, kxp and bgugp through the scratch and the gather
-    out, g_t, scratch, partial = _backward_buffers(q, H, W, n_blocks, padded, centred, 3,
-                                                   need[9])
+    plan = bwd_tile_plan(H, W, BWD_TILE["dg"])
+    out = _grad_buffers("dg", q, (H, W), need)
+    partial = torch.empty((B, plan.n_ti * plan.n_tj, 2), dtype=torch.float32, device=q.device)
     cots = [g.contiguous() for g in grads]
     args = _BwdArgs(*(t.data_ptr() for t in tuple(saved) + tuple(cots)),
-                    *(_ptr(out.get(i)) for i in (0, 4, 5, 6, 7)))
-    gather = _gather_struct(out, (1, 2, 3), scratch, partial, g_t, n_blocks)
-    _call(lib.dg_stencil_backward, q.device, ctypes.byref(args), ctypes.byref(gather), B, H, W,
+                    *(_ptr(out.get(i)) for i in range(len(DG_ARGS)) if i != 8),
+                    partial.data_ptr(), _tickets(q.device, B).data_ptr())
+    _call(lib.dg_stencil_backward, q.device, ctypes.byref(args), B, H, W, plan,
           _pack(_Scalars, cfg))
     launches_bwd += 1
-    return tuple(out.get(i) for i in range(9)) + (g_t,)
+    return tuple(out.get(i) for i in range(len(DG_ARGS)))
 
 
 def _cuda_backward_3d(saved, grads, cfg, need):
@@ -1104,12 +1109,7 @@ def _cuda_backward_3d(saved, grads, cfg, need):
     q = saved[8]
     B, D, H, W = q.shape
     n_blocks = lib.dg3d_stencil_num_blocks(0, B, D, H, W)
-    padded, centred = (B, D + 2, H + 2, W + 2), (B, D, H, W)
-    # one allocation per gradient, so that autograd frees each once it is
-    # consumed (one allocation for all would keep all alive as long as any)
-    out = {i: torch.empty(padded if i < 5 else centred if i < 9 else (B, 2),
-                          dtype=torch.float32, device=q.device)
-           for i in range(len(DG3D_ARGS)) if need[i]}
+    out = _grad_buffers("dg3d", q, (D, H, W), need)
     partial = torch.empty((B, n_blocks, 2), dtype=torch.float32, device=q.device)
     cots = [g.contiguous() for g in grads]
     args = _BwdArgs3D(*(t.data_ptr() for t in tuple(saved) + tuple(cots)),
@@ -1122,28 +1122,28 @@ def _cuda_backward_3d(saved, grads, cfg, need):
 
 
 def _cuda_backward_gc(saved, grads, cfg, need):
-    """B3's backward kernel: the gradients of the inputs in ``need`` (a
-    flag per input), None for the others."""
+    """B3's backward kernel, one launch: the gradients of the inputs in
+    ``need`` (a flag per input), None for the others."""
     global launches_gc_bwd
     _refuse_qwell(need, len(GC_ARGS))
     lib = _library_gc()
     p0 = saved[0]
     B, H, W = p0.shape
-    n_blocks = lib.gc_stencil_num_blocks(H, W)
+    plan = bwd_tile_plan(H, W, BWD_TILE["gc"])
+    out = _grad_buffers("gc", p0, (H, W), need)
+    partial = torch.empty((B, plan.n_ti * plan.n_tj, 2), dtype=torch.float32, device=p0.device)
     index = {n: i for i, n in enumerate(GC_ARGS)}
-    padded = [index[n] for n in GC_PADDED_ORDER if need[index[n]]]
-    centred = [index[n] for n in GC_CENTRED if need[index[n]]]
-    out, g_t, scratch, partial = _backward_buffers(p0, H, W, n_blocks, padded, centred,
-                                                   len(GC_PADDED_ORDER), need[len(GC_ARGS) + 1])
     cots = [g.contiguous() for g in grads]
+    padded = (ctypes.c_void_p * len(GC_PADDED_ORDER))(
+        *(_ptr(out.get(index[n])) for n in GC_PADDED_ORDER))
     args = _BwdArgsGC(_PointersGC(*(t.data_ptr() for t in saved)),
-                      *(t.data_ptr() for t in cots), *(_ptr(out.get(index[n])) for n in GC_CENTRED))
-    gather = _gather_struct(out, [index[n] for n in GC_PADDED_ORDER], scratch, partial, g_t,
-                            n_blocks)
-    _call(lib.gc_stencil_backward, p0.device, ctypes.byref(args), ctypes.byref(gather), B, H, W,
+                      *(t.data_ptr() for t in cots), *(_ptr(out.get(index[n])) for n in GC_CENTRED),
+                      padded, _ptr(out.get(len(GC_ARGS) + 1)), partial.data_ptr(),
+                      _tickets(p0.device, B).data_ptr())
+    _call(lib.gc_stencil_backward, p0.device, ctypes.byref(args), B, H, W, plan,
           _pack_gc(cfg))
     launches_gc_bwd += 1
-    return tuple(out.get(i) for i in range(len(GC_ARGS))) + (None, g_t)
+    return tuple(out.get(i) for i in range(len(GC_ARGS) + 2))
 
 
 # ---------------------------------------------------------------------------

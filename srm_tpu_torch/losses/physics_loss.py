@@ -496,9 +496,13 @@ class PhysicsLoss:
             dinvBg0, dinvBo0, dRs0, dRv0 = (vol(pvt0[1, i]) for i in (0, 1, 4, 5))
             Sg0, Sg1 = vol(Sg0f), vol(Sg1f)
             krog1, krgo1 = self.relperm(Sg1)
-            args = (vol(p0f), pad(vol(p1f)), pad(kx_c), Sg0, Sg1, pad(krgo1), pad(krog1),
+            # the ten padded fields (GC_PADDED_ORDER) as one stacked pad
+            p1p, kxp, krgo1p, krog1p, invBg1p, invBo1p, invug1p, invuo1p, Rs1p, Rv1p = pad(
+                torch.stack([vol(p1f), kx_c, krgo1, krog1, invBg1, invBo1, invug1, invuo1, Rs1,
+                             Rv1])).unbind(0)
+            args = (vol(p0f), p1p, kxp, Sg0, Sg1, krgo1p, krog1p,
                     invBg0, invBo0, Rs0, Rv0, dinvBg0, dinvBo0, dRs0, dRv0,
-                    pad(invBg1), pad(invBo1), pad(invug1), pad(invuo1), pad(Rs1), pad(Rv1),
+                    invBg1p, invBo1p, invug1p, invuo1p, Rs1p, Rv1p,
                     *(vol(q) for q in q1), self.q_well_idx, tsteps)
             outputs.update(Sg_n0=Sg0f, Sg_n1=Sg1f, q=q1, pwf=pwf1)
             return args, outputs
@@ -506,9 +510,10 @@ class PhysicsLoss:
         q1, pwf1 = well.compute_rates_and_bhp(x1, p1f, m["pvt_model"])
         invBg0, dinvBg0 = vol(pvt0[0, 0]), vol(pvt0[1, 0])
         invBg1, invug1 = vol(pvt1[0, 0]), vol(pvt1[0, 1])
-        perm = (pad(kx_c), pad(self.kv_kh * kx_c)) if self.Nz > 1 else (pad(kx_c),)
-        args = (pad(vol(p0f)), pad(vol(p1f))) + perm + (
-            pad(invBg1 * invug1), invBg0, invBg1, dinvBg0, vol(q1), self.q_well_idx, tsteps)
+        perm = [kx_c, self.kv_kh * kx_c] if self.Nz > 1 else [kx_c]
+        # the padded fields (p0p, p1p, kxp[, kzp], bgugp) as one stacked pad
+        args = pad(torch.stack([vol(p0f), vol(p1f), *perm, invBg1 * invug1])).unbind(0) + (
+            invBg0, invBg1, dinvBg0, vol(q1), self.q_well_idx, tsteps)
         outputs.update(q=q1, pwf=pwf1)
         return args, outputs
 

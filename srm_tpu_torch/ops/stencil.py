@@ -18,16 +18,45 @@ import torch
 import torch.nn.functional as F
 
 
+class _EdgePad(torch.autograd.Function):
+    """One ghost cell on each side of the last ``dims`` axes, repeating the
+    edge cell: ``F.pad(mode="replicate")`` on the tensor flattened to
+    (N, 1, *last ``dims`` axes), which pads exactly those axes.
+
+    The backward is the VJP of a width-1 ``jnp.pad(mode="symmetric")``: it
+    folds each halo into the edge cells beside it with slicing adds in a
+    fixed order, axis by axis from the first padded one, the low halo then
+    the high one (a corner's value thus reaches its corner cell through the
+    edge it lies on). No atomics: the same bits on every run, where
+    ``F.pad``'s CUDA backward adds the up to four halo values of a corner
+    cell with atomics in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, f, dims):
+        ctx.dims = dims
+        lead = f.shape[:-dims]
+        out = F.pad(f.reshape((-1, 1) + tuple(f.shape[-dims:])), (1, 1) * dims,
+                    mode="replicate")
+        return out.reshape(tuple(lead) + tuple(out.shape[2:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        for ax in range(g.dim() - ctx.dims, g.dim()):
+            n = g.shape[ax] - 2
+            core = g.narrow(ax, 1, n).clone()
+            core.narrow(ax, 0, 1).add_(g.narrow(ax, 0, 1))
+            core.narrow(ax, n - 1, 1).add_(g.narrow(ax, n + 1, 1))
+            g = core
+        return g, None
+
+
 def pad_symmetric(f: torch.Tensor) -> torch.Tensor:
     """One ghost cell on each side of the last two axes.
 
     A width-1 ``jnp.pad(mode="symmetric")`` repeats the edge cell, which is
-    torch's ``replicate`` mode (not ``reflect``). ``replicate`` pads the
-    last two axes of a 3D or 4D tensor."""
-    lead = f.shape[:-2]
-    f3 = f.reshape((-1,) + tuple(f.shape[-2:]))
-    out = F.pad(f3.unsqueeze(1), (1, 1, 1, 1), mode="replicate").squeeze(1)
-    return out.reshape(tuple(lead) + tuple(out.shape[-2:]))
+    torch's ``replicate`` mode (not ``reflect``); the gradient folds the
+    halo back in a fixed order (:class:`_EdgePad`)."""
+    return _EdgePad.apply(f, 2)
 
 
 class Neighbors(NamedTuple):
@@ -89,12 +118,9 @@ def five_point_divergence(a_ih, a_i_h, a_jh, a_j_h, p: Neighbors, q_over_dv, dv)
 def pad_symmetric_3d(f: torch.Tensor) -> torch.Tensor:
     """One ghost cell on each side of the last three axes (edge repeat, as
     :func:`pad_symmetric`). ``replicate`` on a 4D tensor would read it as
-    an unbatched (C, D, H, W) volume, so the volumes are flattened to
-    (N, 1, D, H, W) explicitly."""
-    lead = f.shape[:-3]
-    f4 = f.reshape((-1,) + tuple(f.shape[-3:]))
-    out = F.pad(f4.unsqueeze(1), (1, 1, 1, 1, 1, 1), mode="replicate").squeeze(1)
-    return out.reshape(tuple(lead) + tuple(out.shape[-3:]))
+    an unbatched (C, D, H, W) volume; :class:`_EdgePad` flattens the
+    volumes to (N, 1, D, H, W) explicitly."""
+    return _EdgePad.apply(f, 3)
 
 
 class Neighbors3D(NamedTuple):

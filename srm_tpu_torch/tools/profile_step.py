@@ -236,7 +236,12 @@ def backward_calls(kernel: str, args, cfg) -> dict:
 def profile_calls(fn, n: int, table: list = None):
     """Run ``fn`` n times under the profiler; returns (device kernels per
     call, device µs per call, host-clock ms of the window). With ``table``
-    (a list), appends the trace's :func:`top_kernels` per call to it."""
+    (a list), appends the trace's :func:`top_kernels` per call to it.
+
+    CUPTI can miss a window's first kernels (a one-kernel call showed 16
+    to 19 launches in 20 calls on the card), so the device µs per call are
+    the recorded kernels' mean times the launches per call rounded; the
+    kernels per call are reported as recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -250,7 +255,8 @@ def profile_calls(fn, n: int, table: list = None):
     count, device_us = _device_events(prof)
     if table is not None:
         table.extend(top_kernels(prof, n))
-    return count / n, device_us / n, window_ms
+    per_call = round(count / n)
+    return count / n, (device_us / count * per_call if count else 0.0), window_ms
 
 
 def case_config(production: bool, overrides: dict, config: dict = None) -> dict:

@@ -300,9 +300,11 @@ BACKWARD = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 39, 39), (3, 13, 17), (1, 1, 300)])
+@pytest.mark.parametrize("shape", [(32, 39, 39), (3, 13, 17), (1, 1, 300), (128, 39, 39),
+                                   (128, 117, 117)])
 @pytest.mark.parametrize("kind", list(BACKWARD))
 def test_backward_kernel_matches_plain_adjoint(cuda, kind, shape):
+    """Against the explicit adjoint, and the same bits on a second call."""
     make, name, qwell, counter = BACKWARD[kind]
     args, cfg = make(shape, cuda)
     with torch.no_grad():
@@ -316,6 +318,8 @@ def test_backward_kernel_matches_plain_adjoint(cuda, kind, shape):
     for i, (g, w) in enumerate(zip(got, want)):
         if i != qwell:
             _close(g, w)
+    again = getattr(st, f"{name}_backward")(*args, *cots, cfg)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -337,15 +341,24 @@ def test_backward_kernel_is_deterministic(cuda, kind):
 def test_function_backward_launches_the_kernel_once(cuda, kind):
     """One backward launch per loss evaluation, none of the plain
     recompute, and only the asked-for gradients."""
+    from torch.profiler import ProfilerActivity, profile
     make, name, qwell, counter = BACKWARD[kind]
     args, cfg = make((3, 13, 17), cuda)
     a = [t.clone().requires_grad_(i in (1, len(args) - 1)) for i, t in enumerate(args)]
     before = getattr(st, counter)
     outs = getattr(st, name)(*a, cfg)
-    sum((o**2).sum() for o in outs).backward()
+    loss = sum((o**2).sum() for o in outs)
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
     assert getattr(st, counter) == before + 1
     assert all((t.grad is not None) == t.requires_grad for t in a)
+    # one device launch: the backward kernel, no second (gather) kernel
+    stencil = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "stencil" in e.name]
+    device_name = {"dg": "dg_stencil_bwd", "gc": "gc_stencil_bwd", "dg3d": "dg3d_stencil_bwd"}
+    assert len(stencil) == 1 and device_name[kind] + "(" in stencil[0], stencil
 
 
 @pytest.mark.cuda
@@ -582,6 +595,8 @@ def _check_kernels_at(kind, shape, cuda):
     for i, (g, w) in enumerate(zip(got, want)):
         if i != qwell:
             _close(g, w)
+    again = getattr(st, f"{name}_backward")(*args, *cots, cfg)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
     got = _square_loss_grads(fused, args, cfg, qwell)
     want = _square_loss_grads(plain, args, cfg, qwell)
     p0 = st.GC_ARGS.index("p0") if kind == "gc" else None

@@ -117,3 +117,75 @@ def test_function_refuses_a_qwell_gradient_on_cuda(monkeypatch):
     with pytest.raises(NotImplementedError, match="qwell"):
         st.DGStencilResidualFn.backward(ctx, *cots)
     assert st.launches_bwd == before
+
+
+# -- the tile plan of B1's and B3's backward kernels ----------------------------
+def _tiled_gather(c: st.Neighbors, plan: st.TilePlan) -> np.ndarray:
+    """What the backward kernels make of the per-cell contributions ``c``
+    (csrc/stencil_adjoint.cuh, step for step, in numpy float32): each tile
+    puts the contributions of its own cells and of its ring (the strips
+    below, above, left and right of it, no ring corner) that land in the
+    tile into five slot arrays, then sums its positions' slots in _gather5's
+    order where the cell a slot comes from exists. Slots start as NaN, so a
+    contribution from a cell the tile did not compute would show; every
+    padded position starts as NaN, and is counted as it is written."""
+    cs = [x.numpy() for x in c]
+    B, H, W = cs[0].shape
+    out = np.full((B, H + 2, W + 2), np.nan, np.float32)
+    writes = np.zeros((H + 2, W + 2), int)
+    tw, tj = plan.tw, plan.tj
+
+    def is_cell(j, i):
+        return 0 <= j < H and 0 <= i < W
+
+    for tile in range(plan.n_ti * plan.n_tj):
+        r0, c0 = (tile // plan.n_ti) * tj, (tile % plan.n_ti) * tw
+        slots = np.full((5, tj, tw, B), np.nan, np.float32)
+        places = [(lj, li) for lj in range(tj) for li in range(tw)]
+        places += ([(-1, r) for r in range(tw)] + [(tj, r) for r in range(tw)]
+                   + [(r, -1) for r in range(tj)] + [(r, tw) for r in range(tj)])
+        for lj, li in places:
+            j, i = r0 + lj - 1, c0 + li - 1
+            if not is_cell(j, i):
+                continue
+            row, col = 0 <= lj < tj, 0 <= li < tw
+            for s, (dj, di), ok in ((0, (0, 0), row and col), (1, (0, 1), row and li + 1 < tw),
+                                    (2, (0, -1), row and li >= 1), (3, (1, 0), col and lj + 1 < tj),
+                                    (4, (-1, 0), col and lj >= 1)):
+                if ok:
+                    slots[s, lj + dj, li + di] = cs[s][:, j, i]
+        for lj in range(tj):
+            for li in range(tw):
+                jp, ip = r0 + lj, c0 + li
+                if jp >= H + 2 or ip >= W + 2:
+                    continue
+                j, i = jp - 1, ip - 1
+                v = np.zeros(B, np.float32)
+                for s, (dj, di) in enumerate(((0, 0), (0, -1), (0, 1), (-1, 0), (1, 0))):
+                    if is_cell(j + dj, i + di):
+                        v = v + slots[s, lj, li]
+                out[:, jp, ip] = v
+                writes[jp, ip] += 1
+    assert (writes == 1).all(), "a padded position is written by no tile, or by more than one"
+    return out
+
+
+@pytest.mark.parametrize("shape", [(3, 13, 17), (32, 39, 39), (128, 117, 117)])
+@pytest.mark.parametrize("kind", ["dg", "gc"])
+def test_backward_tile_plan_owns_each_padded_position_once(kind, shape):
+    """The plan the wrappers size B1's and B3's backward launches with: its
+    tiles are at most the kernels' 1024 positions and cover each padded
+    position of the sample exactly once; the kernels' tile-by-tile gather (its own cells and its ring) is
+    _gather5 bit for bit, with each sample's four halo corners written 0.
+    The plan does not depend on the batch, so two samples stand for it."""
+    B, H, W = shape
+    plan = st.bwd_tile_plan(H, W, st.BWD_TILE[kind])
+    assert plan.tw * plan.tj <= 1024
+    assert plan.n_ti * plan.tw >= W + 2 > (plan.n_ti - 1) * plan.tw
+    assert plan.n_tj * plan.tj >= H + 2 > (plan.n_tj - 1) * plan.tj
+    rng = np.random.RandomState(0)
+    c = st.Neighbors(*(torch.from_numpy(rng.standard_normal((2, H, W)).astype(np.float32))
+                       for _ in range(5)))
+    got = _tiled_gather(c, plan)
+    assert np.array_equal(got, st._gather5(c).numpy())
+    assert np.all(got[:, [0, 0, -1, -1], [0, -1, 0, -1]] == 0)
