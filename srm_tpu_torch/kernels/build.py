@@ -36,22 +36,19 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def build_library(source: str, defines: Tuple[str, ...] = ()) -> Tuple[Path, str]:
-    """Compile ``csrc/<source>`` if needed, with ``-D`` of each of
-    ``defines`` (a source's compile-time knobs, e.g. ``SRM_BWD_MIN_BLOCKS=3``;
-    none on the port's path); returns (library path, compiler log — empty
-    when the library was already built)."""
+def build_library(source: str) -> Tuple[Path, str]:
+    """Compile ``csrc/<source>`` if needed; returns (library path, compiler
+    log — empty when the library was already built)."""
     src = CSRC / source
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     key = hashlib.sha256(src.read_bytes() + headers
-                         + " ".join(flags).encode()).hexdigest()[:16]
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}_{key}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{proc.stderr}")
@@ -59,7 +56,7 @@ def build_library(source: str, defines: Tuple[str, ...] = ()) -> Tuple[Path, str
     return out, proc.stdout + proc.stderr
 
 
-def load_library(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+def load_library(source: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source>``."""
-    path, _ = build_library(source, defines)
+    path, _ = build_library(source)
     return ctypes.CDLL(str(path))

@@ -58,8 +58,7 @@
 // turn, put each contribution that lands in the tile into shared-memory
 // slots, and after one __syncthreads sum each position's slots in the
 // plain adjoint's order. Tiles of up to 32x32 positions measured fastest
-// (srm_tpu_torch/tools/bwd_variants.py: 16x16 tiles took 1.3-1.5x as long;
-// an earlier form with a thread per cell and 16x16 tiles measured the same
+// (PERF.md: 16x16 tiles took 1.3-1.5x as long; an earlier form with a thread per cell and 16x16 tiles measured the same
 // as this one). The first version wrote the contributions to a (3, B, 5, H, W)
 // scratch in device memory and gathered them in a second launch: 2.9 MB
 // written and read back at B=32, more than the bound's bytes; now the
@@ -212,13 +211,8 @@ __global__ void dg_stencil_mbc(const float* __restrict__ partial, int B, int n_b
 }
 
 // Blocks resident per SM the backward is compiled for (its register cap):
-// 1 and 2 measured alike (88 and 86 registers, no spills; PERF.md), and
-// srm_tpu_torch/tools/bwd_variants.py builds others with
-// -DSRM_BWD_MIN_BLOCKS=N
-#ifndef SRM_BWD_MIN_BLOCKS
-#define SRM_BWD_MIN_BLOCKS 2
-#endif
-constexpr int kBwdMinBlocks = SRM_BWD_MIN_BLOCKS;
+// 1 and 2 measured alike (88 and 86 registers, no spills; PERF.md).
+constexpr int kBwdMinBlocks = 2;
 
 // A cell's centred inputs and cotangents, loaded while the staging copies
 // are in flight.
@@ -430,6 +424,13 @@ int dg_stencil_forward(const float* p0p, const float* p1p, const float* kxp,
   if (err != cudaSuccess) return (int)err;
   dg_stencil_mbc<<<(B + 127) / 128, 128, 0, st>>>(partial, B, n_blocks, mbc);
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory a block of the backward may have on the
+// current device, into *bytes; returns the CUDA error (0 = success).
+int dg_stencil_bwd_shared_budget(int* bytes) {
+  if (bytes == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)sa::shared_budget(dg_stencil_bwd, bytes);
 }
 
 // Launches the backward on `stream`; returns cudaGetLastError() (0 =

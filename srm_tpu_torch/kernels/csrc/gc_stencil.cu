@@ -72,9 +72,10 @@
 // turn, put each contribution that lands in the tile into shared-memory
 // slots (ten inputs' five slots: 113 KB with the staging for a 21x21 tile,
 // 226 KB for 30x30 at 117x117, so the launcher raises the kernel's dynamic
-// shared-memory limit), and after one __syncthreads sum each position's
+// shared-memory limit, and the wrapper narrows a tile until it fits the
+// device's limit: 31x31 would need 241 KB), and after one __syncthreads sum each position's
 // slots in the plain adjoint's order. Tiles of up to 32x32 positions
-// measured fastest (srm_tpu_torch/tools/bwd_variants.py: 16x16 tiles, nine
+// measured fastest (PERF.md: 16x16 tiles, nine
 // blocks a sample at 39x39 against four, took 1.4-1.8x as long). The first
 // version wrote the contributions to a (10, B, 5, H, W) scratch in device
 // memory and gathered them in a second launch: 9.7 MB written and read back
@@ -410,13 +411,8 @@ __device__ __forceinline__ Point5 load5s(const float* sf, int e, int sw) {
 constexpr int kPadded = 10;       // the padded inputs, in GC_ARGS order
 // Blocks resident per SM the backward is compiled for (its register cap):
 // 1 measured fastest; 2 and 3 cap it at 96 and 64 registers, spill 456 and
-// 836 bytes and took 1.3x and 2.2-3.3x as long (PERF.md);
-// srm_tpu_torch/tools/bwd_variants.py builds others with
-// -DSRM_BWD_MIN_BLOCKS=N
-#ifndef SRM_BWD_MIN_BLOCKS
-#define SRM_BWD_MIN_BLOCKS 1
-#endif
-constexpr int kBwdMinBlocks = SRM_BWD_MIN_BLOCKS;
+// 836 bytes and took 1.3x and 2.2-3.3x as long (PERF.md).
+constexpr int kBwdMinBlocks = 1;
 
 // A cell's centred inputs and cotangents, loaded while the staging copies
 // are in flight.
@@ -799,6 +795,13 @@ int gc_stencil_forward(const GCStencilArgs* args, int B, int H, int W, GCStencil
   gc_stencil_mbc<<<(B + 127) / 128, 128, 0, st>>>(args->partial_g, args->partial_o, B, n_blocks,
                                                   args->mbc_g, args->mbc_o);
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory a block of the backward may have on the
+// current device, into *bytes; returns the CUDA error (0 = success).
+int gc_stencil_bwd_shared_budget(int* bytes) {
+  if (bytes == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)sa::shared_budget(gc_stencil_bwd, bytes);
 }
 
 // Launches the backward on `stream`; returns cudaGetLastError() (0 =

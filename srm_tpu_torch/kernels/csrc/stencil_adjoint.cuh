@@ -76,7 +76,8 @@ __host__ __device__ inline int tile_shared_floats(const TilePlan& t, int n_stage
 
 // A plan the kernels take for a padded (Hp, Wp) plane: the tiles cover it,
 // no tile lies wholly outside it, and a tile is at most kMaxTile positions
-// (the launcher also needs its shared memory to fit an SM).
+// (its shared memory must also fit the kernel's shared_budget, or
+// allow_shared refuses the launch).
 inline bool plan_fits(const TilePlan& t, int Hp, int Wp) {
   return t.tw >= 1 && t.tj >= 1 && t.tw * t.tj <= kMaxTile && t.n_ti * t.tw >= Wp &&
          (t.n_ti - 1) * t.tw < Wp && t.n_tj * t.tj >= Hp && (t.n_tj - 1) * t.tj < Hp;
@@ -225,6 +226,21 @@ inline cudaError_t allow_shared(Kernel kernel, size_t bytes, size_t& allowed) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess) allowed = bytes;
+  return err;
+}
+
+// The dynamic shared memory a block of `kernel` may have on the current
+// device: the per-block opt-in limit less the kernel's static shared memory
+// (bytes; the wrapper plans its tiles to fit it).
+template <class Kernel>
+inline cudaError_t shared_budget(Kernel kernel, int* bytes) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) *bytes = optin - (int)attr.sharedSizeBytes;
   return err;
 }
 

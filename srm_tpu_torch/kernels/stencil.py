@@ -898,19 +898,61 @@ class TilePlan(ctypes.Structure):
 
 
 #: the largest tile (width, height) of B1's and B3's backward kernels, in
-#: padded positions (at most 1024, and its shared memory within an SM's;
-#: a block has up to 320 threads, each taking cells in turn); chosen from
-#: measured times on the card (PERF.md)
-BWD_TILE = {"dg": (32, 32), "gc": (32, 32)}
+#: padded positions (at most 1024; a block has up to 320 threads, each taking
+#: cells in turn); chosen from measured times on the card (PERF.md)
+BWD_TILE = (32, 32)
+#: the padded inputs each backward kernel stages over a tile and its
+#: two-position ring, and those it gathers into five slot arrays a tile
+BWD_INPUTS = {"dg": (3, 3), "gc": (10, 10)}
 
 
-def bwd_tile_plan(H: int, W: int, tile: Tuple[int, int]) -> TilePlan:
-    """The fewest tiles of at most ``tile`` = (width, height) positions
-    across and down the padded (H+2, W+2) plane, then each as small as that
-    count allows, so that the tiles cover it with the least overhang."""
+def bwd_tile_shared_bytes(tw: int, tj: int, n_staged: int, n_gathered: int) -> int:
+    """The dynamic shared memory of a block with a ``tw`` × ``tj`` tile
+    (``stencil_adjoint::tile_shared_floats`` of csrc/stencil_adjoint.cuh,
+    in bytes)."""
+    return 4 * (n_staged * (tj + 4) * (tw + 4) + n_gathered * 5 * tj * tw)
+
+
+def bwd_tile_plan(H: int, W: int, inputs: Tuple[int, int], shared_bytes: int) -> TilePlan:
+    """The fewest tiles of at most :data:`BWD_TILE` positions across and
+    down the padded (H+2, W+2) plane, each as small as that count allows, so
+    that the tiles cover it with the least overhang; while a block's shared
+    memory (``inputs`` = staged and gathered inputs) exceeds
+    ``shared_bytes``, the tile's longer side is narrowed, which adds tiles
+    along it."""
     Hp, Wp = H + 2, W + 2
-    n_ti, n_tj = -(-Wp // tile[0]), -(-Hp // tile[1])
-    return TilePlan(-(-Wp // n_ti), -(-Hp // n_tj), n_ti, n_tj)
+    cap_w, cap_h = BWD_TILE
+    while True:
+        n_ti, n_tj = -(-Wp // cap_w), -(-Hp // cap_h)
+        tw, tj = -(-Wp // n_ti), -(-Hp // n_tj)
+        if bwd_tile_shared_bytes(tw, tj, *inputs) <= shared_bytes:
+            return TilePlan(tw, tj, n_ti, n_tj)
+        if tw == tj == 1:
+            raise ValueError(f"no backward tile fits {shared_bytes} bytes of shared memory")
+        if tw >= tj:
+            cap_w = tw - 1
+        else:
+            cap_h = tj - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_shared_budget(kind: str, device: torch.device) -> int:
+    """The dynamic shared memory a block of ``kind``'s backward kernel may
+    have on ``device`` (the per-block opt-in limit less the kernel's static
+    shared memory), asked of the library once per device."""
+    lib = _library() if kind == "dg" else _library_gc()
+    fn = getattr(lib, f"{kind}_stencil_bwd_shared_budget")
+    budget = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(ctypes.byref(budget))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+    return budget.value
+
+
+def _bwd_plan(kind: str, like: torch.Tensor) -> TilePlan:
+    H, W = like.shape[-2:]
+    return bwd_tile_plan(H, W, BWD_INPUTS[kind], _bwd_shared_budget(kind, like.device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -926,8 +968,8 @@ def _pack_gc(cfg: GCStencilConfig) -> _ScalarsGC:
 
 
 @functools.lru_cache(maxsize=None)
-def _library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    lib = load_library("dg_stencil.cu", defines)
+def _library() -> ctypes.CDLL:
+    lib = load_library("dg_stencil.cu")
     lib.dg_stencil_num_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.dg_stencil_num_blocks.restype = ctypes.c_int
     lib.dg_stencil_forward.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
@@ -936,6 +978,8 @@ def _library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.dg_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgs)] + [ctypes.c_int] * 3
                                         + [TilePlan, _Scalars, ctypes.c_void_p])
     lib.dg_stencil_backward.restype = ctypes.c_int
+    lib.dg_stencil_bwd_shared_budget.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.dg_stencil_bwd_shared_budget.restype = ctypes.c_int
     return lib
 
 
@@ -975,8 +1019,8 @@ def _tickets(device: torch.device, B: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _library_gc(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    lib = load_library("gc_stencil.cu", defines)
+def _library_gc() -> ctypes.CDLL:
+    lib = load_library("gc_stencil.cu")
     lib.gc_stencil_num_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.gc_stencil_num_blocks.restype = ctypes.c_int
     lib.gc_stencil_forward.argtypes = ([ctypes.POINTER(_PointersGC)] + [ctypes.c_int] * 3
@@ -985,6 +1029,8 @@ def _library_gc(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.gc_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgsGC)] + [ctypes.c_int] * 3
                                         + [TilePlan, _ScalarsGC, ctypes.c_void_p])
     lib.gc_stencil_backward.restype = ctypes.c_int
+    lib.gc_stencil_bwd_shared_budget.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.gc_stencil_bwd_shared_budget.restype = ctypes.c_int
     return lib
 
 
@@ -1087,7 +1133,7 @@ def _cuda_backward(saved, grads, cfg, need):
     lib = _library()
     q = saved[7]
     B, H, W = q.shape
-    plan = bwd_tile_plan(H, W, BWD_TILE["dg"])
+    plan = _bwd_plan("dg", q)
     out = _grad_buffers("dg", q, (H, W), need)
     partial = torch.empty((B, plan.n_ti * plan.n_tj, 2), dtype=torch.float32, device=q.device)
     cots = [g.contiguous() for g in grads]
@@ -1129,7 +1175,7 @@ def _cuda_backward_gc(saved, grads, cfg, need):
     lib = _library_gc()
     p0 = saved[0]
     B, H, W = p0.shape
-    plan = bwd_tile_plan(H, W, BWD_TILE["gc"])
+    plan = _bwd_plan("gc", p0)
     out = _grad_buffers("gc", p0, (H, W), need)
     partial = torch.empty((B, plan.n_ti * plan.n_tj, 2), dtype=torch.float32, device=p0.device)
     index = {n: i for i, n in enumerate(GC_ARGS)}

@@ -301,10 +301,11 @@ BACKWARD = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(32, 39, 39), (3, 13, 17), (1, 1, 300), (128, 39, 39),
-                                   (128, 117, 117)])
+                                   (128, 117, 117), (4, 60, 60)])
 @pytest.mark.parametrize("kind", list(BACKWARD))
 def test_backward_kernel_matches_plain_adjoint(cuda, kind, shape):
-    """Against the explicit adjoint, and the same bits on a second call."""
+    """Against the explicit adjoint, and the same bits on a second call.
+    (4, 60, 60): B3's tiles narrowed to fit the device's shared memory."""
     make, name, qwell, counter = BACKWARD[kind]
     args, cfg = make(shape, cuda)
     with torch.no_grad():
@@ -320,6 +321,14 @@ def test_backward_kernel_matches_plain_adjoint(cuda, kind, shape):
             _close(g, w)
     again = getattr(st, f"{name}_backward")(*args, *cots, cfg)
     assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dg", "gc"])
+def test_backward_shared_budget_is_an_h100s(cuda, kind):
+    """The shared memory the tile plan is sized to on this device is at
+    least what the CPU tests of the plan assume for an H100."""
+    assert st._bwd_shared_budget(kind, torch.device(cuda)) >= 227 * 1024 - 128
 
 
 @pytest.mark.cuda

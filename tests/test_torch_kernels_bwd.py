@@ -170,17 +170,28 @@ def _tiled_gather(c: st.Neighbors, plan: st.TilePlan) -> np.ndarray:
     return out
 
 
-@pytest.mark.parametrize("shape", [(3, 13, 17), (32, 39, 39), (128, 117, 117)])
+#: an H100's dynamic shared memory for a block of the backward kernels: its
+#: per-block opt-in limit (227 KB) less the kernels' static shared memory
+#: (their warp sums and flag, under 128 bytes)
+H100_SHARED = 227 * 1024 - 128
+
+
+@pytest.mark.parametrize("shape", [(3, 13, 17), (32, 39, 39), (128, 117, 117), (2, 30, 30),
+                                   (2, 60, 60), (2, 92, 92)])
 @pytest.mark.parametrize("kind", ["dg", "gc"])
 def test_backward_tile_plan_owns_each_padded_position_once(kind, shape):
     """The plan the wrappers size B1's and B3's backward launches with: its
-    tiles are at most the kernels' 1024 positions and cover each padded
-    position of the sample exactly once; the kernels' tile-by-tile gather (its own cells and its ring) is
-    _gather5 bit for bit, with each sample's four halo corners written 0.
-    The plan does not depend on the batch, so two samples stand for it."""
+    tiles are at most the kernels' 1024 positions, their shared memory fits
+    an H100's (GC grids of 28-30, 58-62 or 88-94 cells a side give 31- or
+    32-wide tiles of 241-257 KB at the largest tile), and they cover each
+    padded position of the sample exactly once; the kernels' tile-by-tile
+    gather (its own cells and its ring) is _gather5 bit for bit, with each
+    sample's four halo corners written 0. The plan does not depend on the
+    batch, so two samples stand for it."""
     B, H, W = shape
-    plan = st.bwd_tile_plan(H, W, st.BWD_TILE[kind])
+    plan = st.bwd_tile_plan(H, W, st.BWD_INPUTS[kind], H100_SHARED)
     assert plan.tw * plan.tj <= 1024
+    assert st.bwd_tile_shared_bytes(plan.tw, plan.tj, *st.BWD_INPUTS[kind]) <= H100_SHARED
     assert plan.n_ti * plan.tw >= W + 2 > (plan.n_ti - 1) * plan.tw
     assert plan.n_tj * plan.tj >= H + 2 > (plan.n_tj - 1) * plan.tj
     rng = np.random.RandomState(0)
