@@ -14,9 +14,11 @@ the process exits non-zero:
    source, all started together.
 3. kernels — each kernel against its plain PyTorch version on the card, at
    its main paths' shapes (batch 32, and the production profile's batch
-   128), at a ragged one and at the last configurations' (B1 at 117×117
-   and batch 128, B2 at batch 256), forward and backward; CUDA
-   event times of both at both main paths' shapes, and the kernel's bound
+   128), at a ragged one and at the last configurations' (B1 and B3 at
+   117×117 and batch 128, B2 at batch 256), forward and backward, each
+   forward bitwise the same over three runs; CUDA event times of both at
+   the timed shapes, the device time and launches per call (profiler; one
+   launch per forward call), the kernel's bound
    (the larger of its bytes over the HBM rate and its operations over the
    float32 peak), and the card's time for one kernel call on a warm L2 and
    on a cold one (after writing 256 MiB, over 2x the L2). B1 is the 2D
@@ -26,7 +28,8 @@ the process exits non-zero:
    squares of the outputs, at the same two shapes: against their plain
    version (the explicit adjoint, ``*_backward_reference``) and against
    autograd through the plain forward, within the forward's tolerance
-   (B3's p0 gradient, a difference of large terms, within CANCELLING_TOL),
+   (B3's p0 gradient, a difference of large terms, within CANCELLING_TOL;
+   on the 117×117 grid within P0_FROM_F64_TOL of the float64 gradient),
    and bitwise the same over three runs; at the timed shapes the device
    time (profiler) and the host-inclusive time (CUDA events) of the
    backward kernel, the explicit adjoint and ``_plain_backward`` (autograd
@@ -179,6 +182,14 @@ RMSE_BOUND = 3500.0
 # magnitude from the float64 gradient (the phase prints both distances); the
 # bound is their sum with room
 CANCELLING_TOL = 1e-3
+# on a 117×117 grid both float32 orders lie up to 3.8e-3 of the gradient's
+# largest magnitude from the float64 gradient at batch 128 (on the CPU, over
+# the largest of more cells: ROADMAP C17, tests/test_torch_cuda.py), beyond
+# CANCELLING_TOL: there B3's p0 gradient is held to the float64 explicit
+# adjoint within P0_FROM_F64_TOL, and not to float32 autograd
+P0_FROM_F64_TOL = 1e-2
+# the grids where it is (each other shape keeps CANCELLING_TOL from autograd)
+P0_FROM_F64_GRIDS = ((117, 117),)
 
 # the serving phase: the card's rollout against the CPU's, relative to the
 # field's largest magnitude (float32 convolutions in another order, through
@@ -209,15 +220,16 @@ GC_OUTPUTS = ("dom_g", "dom_o", "ibc", "trn_g", "trn_o", "mbc_g", "mbc_o")
 # checked at (the f32 main path's first, then the production batch, timed
 # both; then a ragged one; then the last configurations' shape, timed:
 # B1 on dg2d_large's 117×117 at batch 128, B2 at dg3d_production_b256's
-# batch 256), the arguments it is differentiated by,
-# its outputs (per-sample balances start with "mbc") and its floating-point
+# batch 256, B3 on the same 117×117 grid, where its p0 gradient is held to
+# the float64 one, ROADMAP C17), the arguments it is differentiated by,
+# its outputs (per-sample balances start with "mbc"), its floating-point
 # operations per cell, counted from the source (comparisons, negations and
-# the mbc reduction included)
+# the mbc reduction included), and its device name: one launch per call
 KERNELS = {
     "dg_stencil_residual": dict(
         source="dg_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:132",
         counter="launches", shapes=[(32, 39, 39), (128, 39, 39), (3, 13, 17), (128, 117, 117)],
-        wrt=(1, 9), outputs=DG_OUTPUTS, ops_per_cell=96, device_name="dg_stencil_cells"),
+        wrt=(1, 9), outputs=DG_OUTPUTS, ops_per_cell=96, device_name="dg_stencil_fwd"),
     "dg3d_stencil_residual": dict(
         source="dg3d_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:265",
         counter="launches_3d",
@@ -226,8 +238,8 @@ KERNELS = {
         outputs=DG_OUTPUTS, ops_per_cell=124, device_name="dg3d_stencil_cells"),
     "gc_stencil_residual": dict(
         source="gc_stencil.cu", replaces="srm_tpu/kernels/stencil_pallas.py:495",
-        counter="launches_gc", shapes=[(32, 39, 39), (128, 39, 39), (3, 13, 17)], wrt=(1, 4, 26),
-        outputs=GC_OUTPUTS, ops_per_cell=377, device_name="gc_stencil_cells"),
+        counter="launches_gc", shapes=[(32, 39, 39), (128, 39, 39), (3, 13, 17), (128, 117, 117)],
+        wrt=(1, 4, 26), outputs=GC_OUTPUTS, ops_per_cell=385, device_name="gc_stencil_fwd"),
 }
 
 
@@ -239,7 +251,9 @@ KERNELS = {
 # recomputed forward, the adjoint, the gather's adds and the Δt sums; B1's
 # and B3's with the recompute of their tiles' rings, 1.103 cells computed
 # per cell at 39×39 and 117×117), and their device name: one launch per
-# call each
+# call each. B3's is checked on the 117×117 grid (ROADMAP C17) but not timed
+# there: no path runs GC on that grid, and in a 20-call profiler window on
+# the card CUPTI recorded half of its kernels (0.47 ms each)
 BACKWARD = {
     "dg_stencil_residual_backward": dict(
         forward="dg_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:568",
@@ -252,7 +266,7 @@ BACKWARD = {
     "gc_stencil_residual_backward": dict(
         forward="gc_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:533",
         counter="launches_gc_bwd", qwell=25, cancelling=(0,), ops_per_cell=1115,
-        device_name="gc_stencil_bwd"),
+        device_name="gc_stencil_bwd", untimed=((128, 117, 117),)),
 }
 
 
@@ -401,6 +415,11 @@ def phase_kernels(name: str) -> dict:
         torch.cuda.synchronize()
         for out, a, b in zip(spec["outputs"], got, want):
             max_err = max(max_err, check_close(f"{name} forward {out} {shape}", a, b))
+        with torch.no_grad():
+            for _ in range(2):
+                if not all(torch.equal(a, b) for a, b in zip(got, fused(*args, cfg))):
+                    raise AssertionError(f"{name} forward {shape}: not the same bit for bit "
+                                         f"run to run")
 
         # backward: the Function's gradient vs autograd through the plain version
         grads = []
@@ -413,16 +432,28 @@ def phase_kernels(name: str) -> dict:
         for i, a, b in zip(spec["wrt"], grads[0], grads[1]):
             check_close(f"{name} backward d/d(arg {i}) {shape}", a, b)
         log(f"{name} kernel vs plain {shape}: forward and backward agree "
-            f"(max abs err so far {max_err:.3e})")
+            f"(max abs err so far {max_err:.3e}), the forward bitwise the same over three runs")
 
     timed = [_time_forward(name, shape) for shape in _timed_shapes(spec)]
+    # one device launch per call: the profiler's window shows the kernel and
+    # no other, at most once a call (CUPTI may miss a window's first
+    # kernels, so fewer; a second kernel, such as the balances' former
+    # mbc kernel, shows by its name)
+    for shape, t in zip(_timed_shapes(spec), timed):
+        names = t.pop("device_kernels")
+        if not (0 < t["launches_per_call"] <= 1
+                and all(spec["device_name"] + "(" in n for n in names)):
+            raise AssertionError(f"{name} {shape}: the profiler shows {t['launches_per_call']} "
+                                 f"device launches per call of {names}, expected one of "
+                                 f"{spec['device_name']}")
     return {"max_abs_err": max_err, **timed[0], "at_b128": timed[1], **_extra_shapes(spec, timed)}
 
 
-def _timed_shapes(spec) -> list:
+def _timed_shapes(spec, untimed=()) -> list:
     """The shapes a kernel is timed at: its f32 main path's, the production
-    batch's, and the last configurations' (after the ragged shape)."""
-    return spec["shapes"][:2] + spec["shapes"][3:]
+    batch's, and the last configurations' (after the ragged shape), less
+    ``untimed``."""
+    return [s for s in spec["shapes"][:2] + spec["shapes"][3:] if s not in untimed]
 
 
 def _extra_shapes(spec, timed) -> dict:
@@ -434,12 +465,13 @@ def _extra_shapes(spec, timed) -> dict:
 def _time_forward(name: str, shape) -> dict:
     """A kernel's and its plain version's times at ``shape`` (CUDA events,
     plain, kernel, kernel, plain; the card's time for one call on a warm and
-    a cold L2) and its bound: each input read once, each output written
-    once, at the HBM rate, or its operations at the float32 peak."""
+    a cold L2; the device time and launches per call from the profiler over
+    20 calls of each) and its bound: each input read once, each output
+    written once, at the HBM rate, or its operations at the float32 peak."""
     import torch
     from srm_tpu_torch.kernels import stencil as st
-    from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms,
-                                                  warm_cold_ms)
+    from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, profile_calls,
+                                                  time_ms, warm_cold_ms)
     spec = KERNELS[name]
     fused, plain = getattr(st, name), getattr(st, f"{name}_reference")
     args, cfg = make_stencil_inputs(name, *shape)
@@ -450,6 +482,9 @@ def _time_forward(name: str, shape) -> dict:
         plain_ms2 = time_ms(lambda: plain(*args, cfg))
         outs = fused(*args, cfg)
         events = warm_cold_ms(lambda: fused(*args, cfg))
+        table = []
+        launches, device_us, _ = profile_calls(lambda: fused(*args, cfg), 20, table)
+        plain_launches, plain_device_us, _ = profile_calls(lambda: plain(*args, cfg), 20)
     nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(outs))
     ops = spec["ops_per_cell"] * outs[0].numel()
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
@@ -458,9 +493,14 @@ def _time_forward(name: str, shape) -> dict:
         f"{plain_ms:.4f} {ms:.4f} {ms2:.4f} {plain_ms2:.4f} ms; {nbytes} bytes, {ops} "
         f"operations: bound {bounds[bound_by]:.6f} ms by {bound_by}; one call on the card "
         f"(warm, cold, cold, warm L2): {events['warm_ms'][0]:.4f} {events['cold_ms'][0]:.4f} "
-        f"{events['cold_ms'][1]:.4f} {events['warm_ms'][1]:.4f} ms")
+        f"{events['cold_ms'][1]:.4f} {events['warm_ms'][1]:.4f} ms; device us per call and "
+        f"launches: kernel {device_us:.2f} us / {launches:.2f}, plain {plain_device_us:.2f} us "
+        f"/ {plain_launches:.2f}")
     return {"ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
-            "bound_ms": bounds[bound_by], "bound_by": bound_by, **events}
+            "bound_ms": bounds[bound_by], "bound_by": bound_by, "device_us": device_us,
+            "launches_per_call": launches, "plain_device_us": plain_device_us,
+            "plain_launches_per_call": plain_launches,
+            "device_kernels": sorted({row["name"] for row in table}), **events}
 
 
 def phase_backward(name: str) -> dict:
@@ -500,11 +540,15 @@ def phase_backward(name: str) -> dict:
             err = float((got[i] - grads[i]).abs().max())
             if i in spec["cancelling"]:
                 exact_scale = float(exact[i].abs().max())
+                from_f64 = float((got[i].double() - exact[i]).abs().max()) / exact_scale
                 log(f"{name} d/d(arg {i}) {shape}: kernel {err / scale:.3e} of its scale from "
-                    f"autograd; from the float64 gradient kernel "
-                    f"{float((got[i].double() - exact[i]).abs().max()) / exact_scale:.3e}, "
+                    f"autograd; from the float64 gradient kernel {from_f64:.3e}, "
                     f"autograd {float((grads[i].double() - exact[i]).abs().max()) / exact_scale:.3e}")
-                if not torch.isfinite(got[i]).all() or err > CANCELLING_TOL * scale:
+                if shape[-2:] in P0_FROM_F64_GRIDS:
+                    if not torch.isfinite(got[i]).all() or from_f64 > P0_FROM_F64_TOL:
+                        raise AssertionError(f"{name} d/d(arg {i}) {shape}: {from_f64:.3e} of its "
+                                             f"scale from the float64 gradient")
+                elif not torch.isfinite(got[i]).all() or err > CANCELLING_TOL * scale:
                     raise AssertionError(f"{name} d/d(arg {i}) {shape}: {err:.3e} from autograd "
                                          f"(scale {scale:.3e})")
             else:
@@ -519,10 +563,11 @@ def phase_backward(name: str) -> dict:
             f"{worst:.3e} of a gradient's scale), "
             f"bitwise the same over three runs")
 
-    timed = [_time_backward(name, shape) for shape in _timed_shapes(fwd)]
+    untimed = spec.get("untimed", ())
+    timed = [_time_backward(name, shape) for shape in _timed_shapes(fwd, untimed)]
     # one launch per call (the profiler's count per call, rounded: a second
     # kernel shows as 2)
-    for shape, t in zip(_timed_shapes(fwd), timed):
+    for shape, t in zip(_timed_shapes(fwd, untimed), timed):
         if round(t["launches_per_call"]) != 1:
             raise AssertionError(f"{name} {shape}: the profiler shows {t['launches_per_call']} "
                                  f"device launches per call, expected 1")

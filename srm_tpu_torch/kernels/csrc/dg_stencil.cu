@@ -12,20 +12,38 @@
 // What bounds it on an H100: memory traffic and launch latency, not
 // arithmetic. At the main path's shape (B=32, 39x39) it reads ~1.7 MB (four
 // padded and four centred float fields plus the well mask) and writes
-// ~0.6 MB, a few microseconds at HBM rate, so the launch dominates.
+// ~0.6 MB, 0.67 us at HBM rate, so latency dominates: the launch, a
+// block's chain of staging and dependent divisions, and mbc's cross-block
+// sum.
 //
-// Forward design, deliberately simple for this first version:
-//  * one thread per interior cell; blockIdx.y is the sample and blockIdx.x
-//    tiles the H*W cells of that sample;
-//  * each thread reads its four neighbours straight from the padded inputs
-//    (the caller pads with replicate, as the JAX caller pads with
-//    pad_symmetric) and relies on L1/L2 for the reuse;
-//  * mbc is deterministic: each block reduces its cells in shared memory in a
-//    fixed tree order and writes one partial sum to a (B, n_blocks) scratch;
-//    a second small kernel sums each row in index order. No atomics, so the
-//    result is the same from run to run.
-// Coalesced row tiles, shared-memory halos and fusing the pads into the
-// kernel are later work.
+// Forward design: one launch. A block owns a tile of one sample's padded
+// (H+2, W+2) plane (stencil_adjoint.cuh's TilePlan). It stages the three
+// padded inputs it reads at five points (p1p, kxp, bgugp) over the tile
+// and a one-position ring into shared memory with cp.async (stage_inputs:
+// consecutive threads on consecutive positions); p0p, read at the centre
+// only, is read like a centred input. While the copies are in flight each
+// thread loads its cells' centred inputs (one or two cells a thread,
+// fwd_threads), sums their mbc terms, and the block takes its ticket
+// (block_partial), so the ticket's round trip overlaps the staging. Then
+// the neighbourhoods are read from shared memory: each padded value leaves
+// device memory about once per tile instead of about five times through
+// L1. The block that took a sample's last ticket sums its partials
+// (sample_sum) before the fields are stored. No atomics touch a value: the
+// same bits from run to run.
+// The tile plan (stencil.py::fwd_tile_plan, fwd_threads; measured on an
+// H100, PERF.md): tiles of at most 32x32 positions (21x21 at 39x39, 4 a
+// sample), or of at most 16x16 where a plane needs more than 4 of those
+// (15x15 at 117x117, 64 a sample); a thread per position while the grid
+// has at most one block per SM (B=32 at 39x39: 128 blocks of 448
+// threads), else a thread per two (B=128: 512 blocks of 224 threads at
+// 39x39, 8,192 of 128 at 117x117). 50 registers, no spill; 6,348 B of
+// shared memory a block at 21x21, 3,468 B at 15x15, and 64 B static.
+// Tiles of at most 16x16 at 39x39 took 5.44 and 7.94 us at B=32 and 128,
+// against 4.58 and 7.18; at 117x117 the 32x32 plan and the 16x16 one took
+// 54.7 and 54.6-55.3 us (B3's 165.5 and 151.0 decided it). The fields
+// are bitwise those of the former two-launch forward; mbc, summed in
+// another order, lies within 2.7 float32 ulps of its largest magnitude of
+// that forward's on chip_smoke.py's inputs.
 //
 // Rounding: the scalar products that JAX folds from Python floats (in
 // double) arrive here already folded and rounded to float, and the
@@ -125,53 +143,105 @@ struct DGStencilBwdArgs {
 
 namespace {
 
-constexpr int kBlock = 256;  // threads per block; a power of two for the tree reduction
+// The padded inputs the forward reads at five points, staged by tile.
+constexpr int kFwdStaged = 3;
 
-__global__ void __launch_bounds__(kBlock)
-dg_stencil_cells(const float* __restrict__ p0p, const float* __restrict__ p1p,
-                 const float* __restrict__ kxp, const float* __restrict__ bgugp,
-                 const float* __restrict__ invBg0, const float* __restrict__ invBg1,
-                 const float* __restrict__ dinvBg0, const float* __restrict__ q,
-                 const float* __restrict__ qwell, const float* __restrict__ tsteps,
-                 float* __restrict__ dom, float* __restrict__ ibc, float* __restrict__ tde,
-                 float* __restrict__ partial, int H, int W, DGStencilScalars s) {
-  __shared__ float red[kBlock];
-  const int b = blockIdx.y;
-  const int cell = blockIdx.x * kBlock + threadIdx.x;
-  const int HW = H * W;
-  float mbc_cell = 0.0f;
+// A cell's centred inputs (and p0p's value at the cell), loaded while the
+// staging copies are in flight.
+struct DGFwdIn {
+  float p0, ib0, ib1, dib, q, qw;
+};
 
-  if (cell < HW) {
-    const int i = cell % W;             // column (x)
-    const int j = cell / W;             // row (y)
-    const int Wp = W + 2;
-    const long pbase = (long)b * (H + 2) * Wp;
-    const long c = pbase + (long)(j + 1) * Wp + (i + 1);   // padded centre
-    const long o = (long)b * HW + cell;                    // centred index
-    const float t1 = tsteps[2 * b];
-    const float t2 = tsteps[2 * b + 1];
+// One block per tile of one sample's padded plane (stencil_adjoint.cuh):
+// p1p, kxp and bgugp staged over the tile and a one-position ring; each
+// thread takes the tile's positions threadIdx.x + pass * blockDim.x that
+// are cells. While the copies are in flight it loads the cells' centred
+// inputs, sums their mbc terms and the block takes its ticket (so the
+// ticket's round trip overlaps the staging); then it computes the fields
+// as dg_stencil_residual_reference does, the block with the sample's last
+// ticket sums the sample's mbc, and the fields are stored (after the sum,
+// whose fence would otherwise wait for them).
+__global__ void __launch_bounds__(sa::kFwdThreads)
+dg_stencil_fwd(const float* __restrict__ p0p, const float* __restrict__ p1p,
+               const float* __restrict__ kxp, const float* __restrict__ bgugp,
+               const float* __restrict__ invBg0, const float* __restrict__ invBg1,
+               const float* __restrict__ dinvBg0, const float* __restrict__ q,
+               const float* __restrict__ qwell, const float* __restrict__ tsteps,
+               float* __restrict__ dom, float* __restrict__ ibc, float* __restrict__ tde,
+               float* __restrict__ partial, float* __restrict__ mbc,
+               unsigned* __restrict__ tickets, int H, int W, sa::TilePlan plan,
+               DGStencilScalars s) {
+  extern __shared__ float sh[];
+  const sa::Tile t(plan, H, W);
+  const int b = t.b;
+  const int Wp = W + 2;
+  const long pbase = (long)b * (H + 2) * Wp;
+  const float* const staged_inputs[kFwdStaged] = {p1p, kxp, bgugp};
+  sa::stage_inputs(sh, staged_inputs, t, pbase, sa::kFwdRing);
+  __pipeline_commit();
+  const int n_stage = sa::staged_floats(plan, 1, sa::kFwdRing);
+  const float* const sp = sh;
+  const float* const sk = sh + n_stage;
+  const float* const sb = sh + 2 * n_stage;
+  const sa::Staged staged(t, sa::kFwdRing);
+  const int sw = staged.sw;
 
-    const float k_ij = kxp[c], k_i1 = kxp[c + 1], k_i_1 = kxp[c - 1];
-    const float k_j1 = kxp[c + Wp], k_j_1 = kxp[c - Wp];
+  // the thread's cells and their inputs, loaded while the copies are in flight
+  bool has[sa::kFwdPasses];
+  int at[sa::kFwdPasses];
+  long o[sa::kFwdPasses];
+  DGFwdIn in[sa::kFwdPasses];
+#pragma unroll
+  for (int pass = 0; pass < sa::kFwdPasses; ++pass) {
+    const int n = threadIdx.x + pass * blockDim.x, lj = n / t.tw, li = n % t.tw;
+    has[pass] = n < t.positions() && t.is_cell(lj, li);
+    if (!has[pass]) continue;
+    const int j = t.cell_j(lj), i = t.cell_i(li);
+    const long cell = (long)j * W + i;
+    o[pass] = (long)b * H * W + cell;
+    at[pass] = staged.at(lj, li);
+    in[pass] = DGFwdIn{p0p[pbase + (long)(j + 1) * Wp + (i + 1)], invBg0[o[pass]],
+                       invBg1[o[pass]], dinvBg0[o[pass]], q[o[pass]], qwell[cell]};
+  }
+  const float t1 = tsteps[2 * b];
+  const float t2 = tsteps[2 * b + 1];
+  float v[1] = {0.0f};
+#pragma unroll
+  for (int pass = 0; pass < sa::kFwdPasses; ++pass)
+    if (has[pass])
+      v[0] += in[pass].q + s.dv_Sgi_phi * (in[pass].ib1 - in[pass].ib0) / (s.D * t1);
+  const unsigned ticket =
+      sa::block_partial<1, sa::kFwdThreads>(v, partial, tickets, b, blockIdx.x, gridDim.x);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  float out[sa::kFwdPasses][3];
+#pragma unroll
+  for (int pass = 0; pass < sa::kFwdPasses; ++pass) {
+    if (!has[pass]) continue;
+    const int e = at[pass];
+
+    const float k_ij = sk[e], k_i1 = sk[e + 1], k_i_1 = sk[e - 1];
+    const float k_j1 = sk[e + sw], k_j_1 = sk[e - sw];
     const float kx_ih = 2.0f * k_i1 * k_ij / (k_i1 + k_ij);
     const float kx_i_h = 2.0f * k_ij * k_i_1 / (k_ij + k_i_1);
     const float ky_jh = 2.0f * k_j1 * k_ij / (k_j1 + k_ij);
     const float ky_j_h = 2.0f * k_ij * k_j_1 / (k_ij + k_j_1);
 
-    const float b_ij = bgugp[c], b_i1 = bgugp[c + 1], b_i_1 = bgugp[c - 1];
-    const float b_j1 = bgugp[c + Wp], b_j_1 = bgugp[c - Wp];
+    const float b_ij = sb[e], b_i1 = sb[e + 1], b_i_1 = sb[e - 1];
+    const float b_j1 = sb[e + sw], b_j_1 = sb[e - sw];
     const float b_ih = 0.5f * (b_i1 + b_ij);
     const float b_i_h = 0.5f * (b_ij + b_i_1);
     const float b_jh = 0.5f * (b_j1 + b_ij);
     const float b_j_h = 0.5f * (b_ij + b_j_1);
 
-    const float p_ij = p1p[c], p_i1 = p1p[c + 1], p_i_1 = p1p[c - 1];
-    const float p_j1 = p1p[c + Wp], p_j_1 = p1p[c - Wp];
-    const float p0 = p0p[c];
+    const float p_ij = sp[e], p_i1 = sp[e + 1], p_i_1 = sp[e - 1];
+    const float p_j1 = sp[e + sw], p_j_1 = sp[e - sw];
+    const float p0 = in[pass].p0;
 
-    const float ib0 = invBg0[o];
+    const float ib0 = in[pass].ib0;
     const float cr0 = s.phi_cf * ib0;
-    const float cp1 = s.Sgi * (s.phi * dinvBg0[o] + cr0);
+    const float cp1 = s.Sgi * (s.phi * in[pass].dib + cr0);
 
     const float a1 = s.C * kx_i_h * s.krgo * b_i_h * s.inv_dxx;
     const float a2 = s.C * ky_j_h * s.krgo * b_j_h * s.inv_dyy;
@@ -180,34 +250,24 @@ dg_stencil_cells(const float* __restrict__ p0p, const float* __restrict__ p1p,
     const float a5 = s.inv_D * (cp1 / t1);
 
     const float p2 = (p_ij - p0) * (1.0f + t2 / fmaxf(t1, 1e-12f)) + p0;
-    tde[o] = s.dv_over_D * cp1 *
-             (s.two_eps / t1 + (t2 * p0 + t1 * p2 - (t1 + t2) * p_ij) / (t1 * t2 + t2 * t2));
+    out[pass][2] = s.dv_over_D * cp1 *
+                   (s.two_eps / t1 + (t2 * p0 + t1 * p2 - (t1 + t2) * p_ij) / (t1 * t2 + t2 * t2));
 
-    const float qc = q[o];
+    const float qc = in[pass].q;
     const float divq = s.dv * ((-a1 * p_i_1) + (-a2 * p_j_1) + ((a1 + a2 + a3 + a4) * p_ij) +
                                (-a3 * p_i1) + (-a4 * p_j1) + qc / s.dv);
     const float acc = s.dv * a5 * (p_ij - p0);
-    dom[o] = divq + acc;
-    ibc[o] = qwell[cell] * divq;
-    mbc_cell = qc + s.dv_Sgi_phi * (invBg1[o] - ib0) / (s.D * t1);
+    out[pass][0] = divq + acc;
+    out[pass][1] = in[pass].qw * divq;
   }
-
-  red[threadIdx.x] = mbc_cell;
-  __syncthreads();
-  for (int stride = kBlock / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
+  sa::sample_sum<1>(ticket, partial, tickets, b, gridDim.x, [&](int, float sum) { mbc[b] = -sum; });
+#pragma unroll
+  for (int pass = 0; pass < sa::kFwdPasses; ++pass) {
+    if (!has[pass]) continue;
+    dom[o[pass]] = out[pass][0];
+    ibc[o[pass]] = out[pass][1];
+    tde[o[pass]] = out[pass][2];
   }
-  if (threadIdx.x == 0) partial[(long)b * gridDim.x + blockIdx.x] = red[0];
-}
-
-__global__ void dg_stencil_mbc(const float* __restrict__ partial, int B, int n_blocks,
-                               float* __restrict__ mbc) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  float sum = 0.0f;
-  for (int k = 0; k < n_blocks; ++k) sum += partial[(long)b * n_blocks + k];
-  mbc[b] = -sum;
 }
 
 // Blocks resident per SM the backward is compiled for (its register cap):
@@ -241,9 +301,8 @@ dg_stencil_bwd(DGStencilBwdArgs a, int H, int W, sa::TilePlan plan, DGStencilSca
   float* const sk = sh + n_stage;
   float* const sb = sh + 2 * n_stage;
   float* const slots = sh + 3 * n_stage;
-  sa::stage(sp, a.p1p, t, pbase);
-  sa::stage(sk, a.kxp, t, pbase);
-  sa::stage(sb, a.bgugp, t, pbase);
+  const float* const staged_inputs[3] = {a.p1p, a.kxp, a.bgugp};
+  sa::stage_inputs(sh, staged_inputs, t, pbase, sa::kStageRing);
   __pipeline_commit();
 
   const int n_cells = sa::tile_cells(plan);
@@ -277,7 +336,7 @@ dg_stencil_bwd(DGStencilBwdArgs a, int H, int W, sa::TilePlan plan, DGStencilSca
     const long o = (long)b * H * W + (long)j * W + i;
     const int e = staged.at(lj, li), sw = staged.sw;
 
-    // the forward, as dg_stencil_cells computes it
+    // the forward, as dg_stencil_fwd computes it
     const float k_ij = sk[e], k_i1 = sk[e + 1], k_i_1 = sk[e - 1];
     const float k_j1 = sk[e + sw], k_j_1 = sk[e - sw];
     const float kx_ih = 2.0f * k_i1 * k_ij / (k_i1 + k_ij);
@@ -400,29 +459,31 @@ dg_stencil_bwd(DGStencilBwdArgs a, int H, int W, sa::TilePlan plan, DGStencilSca
 
 extern "C" {
 
-// Blocks per sample, i.e. the width of the (B, n_blocks) partial-sum scratch.
-int dg_stencil_num_blocks(int H, int W) { return (H * W + kBlock - 1) / kBlock; }
-
-// Launches both kernels on `stream`; returns cudaGetLastError() (0 = success).
+// Launches the forward on `stream`; returns cudaGetLastError() (0 = success).
 // Pointers are device pointers to contiguous float32 tensors:
 //   p0p, p1p, kxp, bgugp   (B, H+2, W+2)
 //   invBg0, invBg1, dinvBg0, q, dom, ibc, tde   (B, H, W)
-//   qwell (H, W); tsteps (B, 2); partial (B, dg_stencil_num_blocks(H, W)); mbc (B,)
+//   qwell (H, W); tsteps (B, 2); partial (B, plan.n_ti * plan.n_tj); mbc (B,);
+//   tickets: B unsigned ints, 0 on entry (and on return)
+// `plan` cuts the padded (H+2, W+2) plane into tiles (stencil_adjoint.cuh),
+// one block of `threads` threads each.
 int dg_stencil_forward(const float* p0p, const float* p1p, const float* kxp,
                        const float* bgugp, const float* invBg0, const float* invBg1,
                        const float* dinvBg0, const float* q, const float* qwell,
                        const float* tsteps, float* dom, float* ibc, float* tde,
-                       float* partial, float* mbc, int B, int H, int W,
-                       DGStencilScalars s, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_blocks = dg_stencil_num_blocks(H, W);
-  dg_stencil_cells<<<dim3(n_blocks, B), kBlock, 0, st>>>(
-      p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps, dom, ibc, tde,
-      partial, H, W, s);
-  cudaError_t err = cudaGetLastError();
+                       float* partial, float* mbc, unsigned* tickets, int B, int H, int W,
+                       sa::TilePlan plan, int threads, DGStencilScalars s, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || B > 65535 || !sa::plan_fits(plan, H + 2, W + 2) ||
+      !sa::forward_threads_fit(plan, threads))
+    return (int)cudaErrorInvalidValue;
+  static size_t allowed = 0;
+  const size_t shared = sizeof(float) * sa::staged_floats(plan, kFwdStaged, sa::kFwdRing);
+  const cudaError_t err = sa::allow_shared(dg_stencil_fwd, shared, allowed);
   if (err != cudaSuccess) return (int)err;
-  dg_stencil_mbc<<<(B + 127) / 128, 128, 0, st>>>(partial, B, n_blocks, mbc);
+  dg_stencil_fwd<<<dim3(plan.n_ti * plan.n_tj, B), threads, shared,
+                   static_cast<cudaStream_t>(stream)>>>(
+      p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps, dom, ibc, tde, partial,
+      mbc, tickets, H, W, plan, s);
   return (int)cudaGetLastError();
 }
 

@@ -18,23 +18,36 @@
 // arithmetic. At the main path's shape (B=32, 39x39) it reads ~2.2 MB of
 // padded and ~2.9 MB of centred fields and writes ~1.0 MB, under 2 us at
 // HBM rate, for ~380 floating-point operations per cell (~18 MFLOP, 0.3 us
-// at the float32 peak), so the two launches dominate.
+// at the float32 peak), so latency dominates: the launch, a block's chain
+// of staging and dependent divisions, and the balances' cross-block sum.
 //
-// Forward design, deliberately simple for this first version:
-//  * one thread per interior cell; blockIdx.y is the sample and blockIdx.x
-//    tiles the H*W cells of that sample;
-//  * each thread reads its five-point neighbourhood of the ten padded fields
-//    straight from the padded inputs (the caller pads with replicate, as the
-//    JAX caller pads with pad_symmetric), about 65 loads a cell, and relies
-//    on L1/L2 for the reuse between neighbouring threads;
-//  * the 36 device pointers travel as one struct (GCStencilArgs), passed by
-//    value to the kernel;
-//  * mbc_g and mbc_o are deterministic: each block reduces its cells in
-//    shared memory in a fixed tree order and writes one partial sum per
-//    phase to a (B, n_blocks) scratch; a second small kernel sums each row in
-//    index order. No atomics, so the result is the same from run to run.
-// Coalesced row tiles, shared-memory halos and fusing the pads into the
-// kernel are later work.
+// Forward design: one launch. A block owns a tile of one sample's padded
+// (H+2, W+2) plane (stencil_adjoint.cuh's TilePlan). It stages the ten
+// padded inputs over the tile and a one-position ring into shared memory
+// with cp.async (stage_inputs: consecutive threads on consecutive
+// positions), and while the copies are in flight each thread loads its
+// cells' fifteen centred inputs and well rate (one or two cells a thread,
+// fwd_threads), sums their balance terms, and the block takes its ticket
+// (block_partial), so the ticket's round trip overlaps the staging. Then
+// the five-point neighbourhoods are read from shared memory: each padded
+// value leaves device memory about once per tile instead of about five
+// times through L1 (about 50 of a cell's 65 loads). The block that took a
+// sample's last ticket sums its partials (sample_sum) before the fields
+// are stored. The 37 device pointers travel as one struct (GCStencilArgs),
+// passed by value to the kernel. No atomics touch a value: the same bits
+// from run to run.
+// The tile plan is B1's (dg_stencil.cu; stencil.py::fwd_tile_plan,
+// fwd_threads; measured on an H100, PERF.md): 21x21 tiles at 39x39 (448
+// threads a block at B=32, 224 at B=128), 15x15 at 117x117 (128
+// threads). 110 registers, no spill: two blocks of 224 threads fit an SM,
+// one of 448. 21,160 B of shared memory a block at 21x21, 11,560 B at
+// 15x15, and 128 B static. Tiles of at most 16x16 at 39x39 took 9.11 and
+// 23.44 us at B=32 and 128, against 7.25 and 18.19; at 117x117 the 32x32
+// plan (30x30 tiles, 480 threads, one block an SM) took 165.5 us against
+// the 16x16 plan's 151.0. The fields are bitwise those of the former
+// two-launch forward; mbc_g and mbc_o, summed in another order, lie within
+// 3.5 float32 ulps of their largest magnitude of that forward's on
+// chip_smoke.py's inputs.
 //
 // Rounding: the scalar products that JAX folds from Python floats (in
 // double) arrive here already folded and rounded to float, and the
@@ -109,8 +122,8 @@ struct GCStencilScalars {
 // Device pointers to contiguous float32 tensors. Inputs in the reference's
 // _GC_ARGS order: padded (B, H+2, W+2) where the name ends in p (p0 is
 // centred), centred (B, H, W) otherwise; qwell (H, W); tsteps (B, 2).
-// Outputs: five (B, H, W) fields, the (B, n_blocks) partial sums of each
-// balance, and the two (B,) balances.
+// Outputs: five (B, H, W) fields and the two (B,) balances; then the
+// (B, tiles, 2) partial sums of the balances and the per-sample tickets.
 struct GCStencilArgs {
   const float* p0;
   const float* p1p;
@@ -144,10 +157,10 @@ struct GCStencilArgs {
   float* ibc;
   float* trn_g;
   float* trn_o;
-  float* partial_g;
-  float* partial_o;
   float* mbc_g;
   float* mbc_o;
+  float* partial;
+  unsigned* tickets;
 };
 
 // The backward's device pointers: the forward's inputs, the cotangents of
@@ -187,8 +200,6 @@ struct GCStencilBwdArgs {
 
 namespace {
 
-constexpr int kBlock = 256;  // threads per block; a power of two for the tree reduction
-
 // A field's value at the centre and its four neighbours.
 struct Point5 {
   float ij, i1, i_1, j1, j_1;
@@ -199,8 +210,9 @@ struct Faces {
   float ih, i_h, jh, j_h;
 };
 
-__device__ __forceinline__ Point5 load5(const float* __restrict__ f, long c, int Wp) {
-  return {f[c], f[c + 1], f[c - 1], f[c + Wp], f[c - Wp]};
+// A staged input's value at a cell and its four neighbours (stencil_adjoint.cuh).
+__device__ __forceinline__ Point5 load5s(const float* sf, int e, int sw) {
+  return {sf[e], sf[e + 1], sf[e - 1], sf[e + sw], sf[e - sw]};
 }
 
 __device__ __forceinline__ Point5 mul(const Point5& a, const Point5& b) {
@@ -237,35 +249,112 @@ __device__ __forceinline__ float div5(float dv, const Faces& a, const Point5& p,
                (-a.ih * p.i1) + (-a.jh * p.j1) + q / dv);
 }
 
-__global__ void __launch_bounds__(kBlock)
-gc_stencil_cells(GCStencilArgs a, int H, int W, GCStencilScalars s) {
-  __shared__ float red_g[kBlock];
-  __shared__ float red_o[kBlock];
-  const int b = blockIdx.y;
-  const int cell = blockIdx.x * kBlock + threadIdx.x;
-  const int HW = H * W;
-  float mbc_g_cell = 0.0f, mbc_o_cell = 0.0f;
+constexpr int kPadded = 10;       // the padded inputs, in GC_ARGS order
 
-  if (cell < HW) {
-    const int i = cell % W;             // column (x)
-    const int j = cell / W;             // row (y)
-    const int Wp = W + 2;
-    const long c = (long)b * (H + 2) * Wp + (long)(j + 1) * Wp + (i + 1);   // padded centre
-    const long o = (long)b * HW + cell;                                    // centred index
-    const float t1 = a.tsteps[2 * b];
-    const float t2 = a.tsteps[2 * b + 1];
+// The padded inputs in staging order (GC_ARGS order).
+__device__ __forceinline__ void padded_inputs(const GCStencilArgs& x, const float* (&f)[kPadded]) {
+  const float* const all[kPadded] = {x.p1p, x.kxp, x.krgo1p, x.krog1p, x.invBg1p,
+                                     x.invBo1p, x.invug1p, x.invuo1p, x.Rs1p, x.Rv1p};
+#pragma unroll
+  for (int k = 0; k < kPadded; ++k) f[k] = all[k];
+}
 
-    const Faces kf = harmonic(load5(a.kxp, c, Wp));
-    const Point5 p = load5(a.p1p, c, Wp);
-    const Point5 bg = load5(a.invBg1p, c, Wp), bo = load5(a.invBo1p, c, Wp);
-    const Point5 ug = load5(a.invug1p, c, Wp), uo = load5(a.invuo1p, c, Wp);
-    const Point5 rs = load5(a.Rs1p, c, Wp), rv = load5(a.Rv1p, c, Wp);
+// A cell's centred inputs and well rates, loaded while the staging copies
+// are in flight.
+struct GCFwdIn {
+  float p0, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, dinvBg0, dinvBo0, dRs0, dRv0;
+  float qfg, qdg, qfo, qvo, qw;
+};
 
-    const float p0 = a.p0[o];
-    const float Sg0 = a.Sg0[o], Sg1 = a.Sg1[o];
+// One block per tile of one sample's padded plane (stencil_adjoint.cuh):
+// the ten padded inputs staged over the tile and a one-position ring; each
+// thread takes the tile's positions threadIdx.x + pass * blockDim.x that
+// are cells. While the copies are in flight it loads the cells' centred
+// inputs (and the four padded values the balances read at the cell), sums
+// their balance terms and the block takes its ticket (so the ticket's
+// round trip overlaps the staging); then it computes the fields as
+// gc_stencil_residual_reference does, the block with the sample's last
+// ticket sums the sample's mbc_g and mbc_o, and the fields are stored
+// (after the sums, whose fence would otherwise wait for them).
+__global__ void __launch_bounds__(sa::kFwdThreads)
+gc_stencil_fwd(GCStencilArgs a, int H, int W, sa::TilePlan plan, GCStencilScalars s) {
+  extern __shared__ float sh[];
+  const sa::Tile t(plan, H, W);
+  const int b = t.b;
+  const long pbase = (long)b * (H + 2) * (W + 2);
+  const int n_stage = sa::staged_floats(plan, 1, sa::kFwdRing);
+  const float* padded[kPadded];
+  padded_inputs(a, padded);
+  sa::stage_inputs(sh, padded, t, pbase, sa::kFwdRing);
+  __pipeline_commit();
+  const sa::Staged staged(t, sa::kFwdRing);
+  const int sw = staged.sw;
+
+  // the thread's cells and their inputs, loaded while the copies are in flight
+  bool has[sa::kFwdPasses];
+  int at[sa::kFwdPasses];
+  long o[sa::kFwdPasses];
+  GCFwdIn in[sa::kFwdPasses];
+  float centre1[sa::kFwdPasses][4];   // invBg1p, invBo1p, Rs1p, Rv1p at the cell
+#pragma unroll
+  for (int pass = 0; pass < sa::kFwdPasses; ++pass) {
+    const int n = threadIdx.x + pass * blockDim.x, lj = n / t.tw, li = n % t.tw;
+    has[pass] = n < t.positions() && t.is_cell(lj, li);
+    if (!has[pass]) continue;
+    const int j = t.cell_j(lj), i = t.cell_i(li);
+    const long cell = (long)j * W + i;
+    const long c = (long)b * H * W + cell;
+    const long pc = pbase + (long)(j + 1) * (W + 2) + (i + 1);
+    o[pass] = c;
+    at[pass] = staged.at(lj, li);
+    centre1[pass][0] = a.invBg1p[pc];
+    centre1[pass][1] = a.invBo1p[pc];
+    centre1[pass][2] = a.Rs1p[pc];
+    centre1[pass][3] = a.Rv1p[pc];
+    in[pass] = GCFwdIn{a.p0[c], a.Sg0[c], a.Sg1[c], a.invBg0[c], a.invBo0[c], a.Rs0[c], a.Rv0[c],
+                       a.dinvBg0[c], a.dinvBo0[c], a.dRs0[c], a.dRv0[c], a.qfg[c], a.qdg[c],
+                       a.qfo[c], a.qvo[c], a.qwell[cell]};
+  }
+  const float t1 = a.tsteps[2 * b];
+  const float t2 = a.tsteps[2 * b + 1];
+  float v[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int pass = 0; pass < sa::kFwdPasses; ++pass) {
+    if (!has[pass]) continue;
+    const GCFwdIn& c = in[pass];
+    const float invBg1 = centre1[pass][0], invBo1 = centre1[pass][1];
+    const float Rs1 = centre1[pass][2], Rv1 = centre1[pass][3];
+    const float So0 = s.So_max - c.Sg0, So1 = s.So_max - c.Sg1;
+    const float RsinvBo0 = c.Rs0 * c.invBo0, RvinvBg0 = c.Rv0 * c.invBg0;
+    const float RsinvBo1 = Rs1 * invBo1, RvinvBg1 = Rv1 * invBg1;
+    const float acc = s.dv * (1.0f / (s.D * t1)) * s.phi;
+    v[0] += (c.qfg + c.qdg) +
+            acc * ((c.Sg1 * invBg1 - c.Sg0 * c.invBg0) + (So1 * RsinvBo1 - So0 * RsinvBo0));
+    v[1] += (c.qfo + c.qvo) +
+            acc * ((So1 * invBo1 - So0 * c.invBo0) + (c.Sg1 * RvinvBg1 - c.Sg0 * RvinvBg0));
+  }
+  const unsigned ticket =
+      sa::block_partial<2, sa::kFwdThreads>(v, a.partial, a.tickets, b, blockIdx.x, gridDim.x);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  float out[sa::kFwdPasses][5];
+#pragma unroll
+  for (int pass = 0; pass < sa::kFwdPasses; ++pass) {
+    if (!has[pass]) continue;
+    const int e = at[pass];
+
+    const Faces kf = harmonic(load5s(sh + 1 * n_stage, e, sw));
+    const Point5 p = load5s(sh + 0 * n_stage, e, sw);
+    const Point5 bg = load5s(sh + 4 * n_stage, e, sw), bo = load5s(sh + 5 * n_stage, e, sw);
+    const Point5 ug = load5s(sh + 6 * n_stage, e, sw), uo = load5s(sh + 7 * n_stage, e, sw);
+    const Point5 rs = load5s(sh + 8 * n_stage, e, sw), rv = load5s(sh + 9 * n_stage, e, sw);
+
+    const float p0 = in[pass].p0;
+    const float Sg0 = in[pass].Sg0, Sg1 = in[pass].Sg1;
     const float So0 = s.So_max - Sg0, So1 = s.So_max - Sg1;
-    const float invBg0 = a.invBg0[o], invBo0 = a.invBo0[o];
-    const float Rs0 = a.Rs0[o], Rv0 = a.Rv0[o];
+    const float invBg0 = in[pass].invBg0, invBo0 = in[pass].invBo0;
+    const float Rs0 = in[pass].Rs0, Rv0 = in[pass].Rv0;
     const float invBg1 = bg.ij, invBo1 = bo.ij, Rs1 = rs.ij, Rv1 = rv.ij;
 
     // surface-mass accumulations at n0, n1 and the extrapolated n2
@@ -280,11 +369,11 @@ gc_stencil_cells(GCStencilArgs a, int H, int W, GCStencilScalars s) {
     const float mo2 = (mo1 - mo0) * ratio + mo0;
 
     const float denom_t = t1 * t2 + t2 * t2;
-    a.trn_g[o] = s.dv_over_D * (s.rte / t1 + (t2 * mg0 + t1 * mg2 - (t1 + t2) * mg1) / denom_t);
-    a.trn_o[o] = s.dv_over_D * (s.rte / t1 + (t2 * mo0 + t1 * mo2 - (t1 + t2) * mo1) / denom_t);
+    out[pass][3] = s.dv_over_D * (s.rte / t1 + (t2 * mg0 + t1 * mg2 - (t1 + t2) * mg1) / denom_t);
+    out[pass][4] = s.dv_over_D * (s.rte / t1 + (t2 * mo0 + t1 * mo2 - (t1 + t2) * mo1) / denom_t);
 
-    const Faces kgo = upstream(load5(a.krgo1p, c, Wp), p);
-    const Faces kog = upstream(load5(a.krog1p, c, Wp), p);
+    const Faces kgo = upstream(load5s(sh + 2 * n_stage, e, sw), p);
+    const Faces kog = upstream(load5s(sh + 3 * n_stage, e, sw), p);
     const Faces bgug = average(mul(bg, ug));
     const Faces bouo = average(mul(bo, uo));
     const Faces rvbgug = average(mul(mul(rv, bg), ug));
@@ -296,9 +385,9 @@ gc_stencil_cells(GCStencilArgs a, int H, int W, GCStencilScalars s) {
     const float d_Sg = moving ? (Sg1 - Sg0) / dp : 0.0f;
     const float d_So = moving ? (So1 - So0) / dp : 0.0f;
 
-    const float dinvBg0 = a.dinvBg0[o], dinvBo0 = a.dinvBo0[o];
-    const float d_RsinvBo = Rs0 * dinvBo0 + invBo0 * a.dRs0[o];
-    const float d_RvinvBg = Rv0 * dinvBg0 + invBg0 * a.dRv0[o];
+    const float dinvBg0 = in[pass].dinvBg0, dinvBo0 = in[pass].dinvBo0;
+    const float d_RsinvBo = Rs0 * dinvBo0 + invBo0 * in[pass].dRs0;
+    const float d_RvinvBg = Rv0 * dinvBg0 + invBg0 * in[pass].dRv0;
 
     const float cprgg = s.phi_cf * invBg0;
     const float cprgo = s.phi_cf * RsinvBo0;
@@ -316,49 +405,26 @@ gc_stencil_cells(GCStencilArgs a, int H, int W, GCStencilScalars s) {
     const float cpoo = inv_Dt * (s.phi * invBo1 * d_So + So0 * (s.phi * dinvBo0 + cproo)) * dp;
     const float cpog = inv_Dt * (s.phi * RvinvBg1 * d_Sg + Sg0 * (s.phi * d_RvinvBg + cprog)) * dp;
 
-    const float qfg = a.qfg[o], qdg = a.qdg[o], qfo = a.qfo[o], qvo = a.qvo[o];
+    const float qfg = in[pass].qfg, qdg = in[pass].qdg, qfo = in[pass].qfo, qvo = in[pass].qvo;
     const float divq_gg = div5(s.dv, agg, p, qfg);
     const float divq_go = div5(s.dv, ago, p, qdg);
     const float divq_oo = div5(s.dv, aoo, p, qfo);
     const float divq_og = div5(s.dv, aog, p, qvo);
 
-    a.dom_g[o] = (divq_gg + s.dv * cpgg) + (divq_go + s.dv * cpgo);
-    a.dom_o[o] = (divq_oo + s.dv * cpoo) + (divq_og + s.dv * cpog);
-    a.ibc[o] = a.qwell[cell] * ((divq_gg + divq_go) + (divq_oo + divq_og));
-
-    const float acc = s.dv * inv_Dt * s.phi;
-    mbc_g_cell = (qfg + qdg) + acc * ((Sg1 * invBg1 - Sg0 * invBg0) + (So1 * RsinvBo1 - So0 * RsinvBo0));
-    mbc_o_cell = (qfo + qvo) + acc * ((So1 * invBo1 - So0 * invBo0) + (Sg1 * RvinvBg1 - Sg0 * RvinvBg0));
+    out[pass][0] = (divq_gg + s.dv * cpgg) + (divq_go + s.dv * cpgo);
+    out[pass][1] = (divq_oo + s.dv * cpoo) + (divq_og + s.dv * cpog);
+    out[pass][2] = in[pass].qw * ((divq_gg + divq_go) + (divq_oo + divq_og));
   }
-
-  red_g[threadIdx.x] = mbc_g_cell;
-  red_o[threadIdx.x] = mbc_o_cell;
-  __syncthreads();
-  for (int stride = kBlock / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      red_g[threadIdx.x] += red_g[threadIdx.x + stride];
-      red_o[threadIdx.x] += red_o[threadIdx.x + stride];
-    }
-    __syncthreads();
+  float* const balances[2] = {a.mbc_g, a.mbc_o};
+  sa::sample_sum<2>(ticket, a.partial, a.tickets, b, gridDim.x,
+                    [&](int k, float sum) { balances[k][b] = -sum; });
+  float* const fields[5] = {a.dom_g, a.dom_o, a.ibc, a.trn_g, a.trn_o};
+#pragma unroll
+  for (int pass = 0; pass < sa::kFwdPasses; ++pass) {
+    if (!has[pass]) continue;
+#pragma unroll
+    for (int f = 0; f < 5; ++f) fields[f][o[pass]] = out[pass][f];
   }
-  if (threadIdx.x == 0) {
-    a.partial_g[(long)b * gridDim.x + blockIdx.x] = red_g[0];
-    a.partial_o[(long)b * gridDim.x + blockIdx.x] = red_o[0];
-  }
-}
-
-__global__ void gc_stencil_mbc(const float* __restrict__ partial_g,
-                               const float* __restrict__ partial_o, int B, int n_blocks,
-                               float* __restrict__ mbc_g, float* __restrict__ mbc_o) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  float sum_g = 0.0f, sum_o = 0.0f;
-  for (int k = 0; k < n_blocks; ++k) {
-    sum_g += partial_g[(long)b * n_blocks + k];
-    sum_o += partial_o[(long)b * n_blocks + k];
-  }
-  mbc_g[b] = -sum_g;
-  mbc_o[b] = -sum_o;
 }
 
 // ---- backward: the adjoint of gc_stencil_residual_backward_reference ----
@@ -403,12 +469,6 @@ __device__ __forceinline__ void store(float* grad, long o, float v) {
   if (grad != nullptr) grad[o] = v;
 }
 
-// A staged input's value at a cell and its four neighbours (stencil_adjoint.cuh).
-__device__ __forceinline__ Point5 load5s(const float* sf, int e, int sw) {
-  return {sf[e], sf[e + 1], sf[e - 1], sf[e + sw], sf[e - sw]};
-}
-
-constexpr int kPadded = 10;       // the padded inputs, in GC_ARGS order
 // Blocks resident per SM the backward is compiled for (its register cap):
 // 1 measured fastest; 2 and 3 cap it at 96 and 64 registers, spill 456 and
 // 836 bytes and took 1.3x and 2.2-3.3x as long (PERF.md).
@@ -439,10 +499,9 @@ gc_stencil_bwd(GCStencilBwdArgs a, int H, int W, sa::TilePlan plan, GCStencilSca
   const long pbase = (long)b * (H + 2) * Wp;
   const int n_stage = (t.tj + 2 * sa::kStageRing) * (t.tw + 2 * sa::kStageRing);
   const int n_pos = t.positions();
-  const float* const padded[kPadded] = {x.p1p, x.kxp, x.krgo1p, x.krog1p, x.invBg1p,
-                                        x.invBo1p, x.invug1p, x.invuo1p, x.Rs1p, x.Rv1p};
-#pragma unroll
-  for (int f = 0; f < kPadded; ++f) sa::stage(sh + f * n_stage, padded[f], t, pbase);
+  const float* padded[kPadded];
+  padded_inputs(x, padded);
+  sa::stage_inputs(sh, padded, t, pbase, sa::kStageRing);
   __pipeline_commit();
   float* const slots = sh + kPadded * n_stage;
 
@@ -477,7 +536,7 @@ gc_stencil_bwd(GCStencilBwdArgs a, int H, int W, sa::TilePlan plan, GCStencilSca
     const long o = (long)b * H * W + (long)t.cell_j(lj) * W + t.cell_i(li);
     const int e = staged.at(lj, li), sw = staged.sw;
 
-    // the forward's intermediates, as gc_stencil_cells has them
+    // the forward's intermediates, as gc_stencil_fwd has them
     const Point5 k = load5s(sh + 1 * n_stage, e, sw);
     const Faces kf = harmonic(k);
     const Point5 p = load5s(sh + 0 * n_stage, e, sw);
@@ -777,23 +836,22 @@ gc_stencil_bwd(GCStencilBwdArgs a, int H, int W, sa::TilePlan plan, GCStencilSca
 
 extern "C" {
 
-// Blocks per sample, i.e. the width of each (B, n_blocks) partial-sum scratch.
-int gc_stencil_num_blocks(int H, int W) { return (H * W + kBlock - 1) / kBlock; }
-
-// Launches both kernels on `stream`; returns cudaGetLastError() (0 = success).
-// `args` is read on the host before the launch; the partial scratches hold
-// gc_stencil_num_blocks(H, W) floats per sample.
-int gc_stencil_forward(const GCStencilArgs* args, int B, int H, int W, GCStencilScalars s,
-                       void* stream) {
-  if (args == nullptr || B <= 0 || H <= 0 || W <= 0 || B > 65535)
+// Launches the forward on `stream`; returns cudaGetLastError() (0 = success).
+// `args` is read on the host before the launch; its partial holds
+// (B, plan.n_ti * plan.n_tj, 2) floats and its tickets B unsigned ints, 0 on
+// entry (and on return). `plan` cuts the padded (H+2, W+2) plane into tiles
+// (stencil_adjoint.cuh), one block of `threads` threads each.
+int gc_stencil_forward(const GCStencilArgs* args, int B, int H, int W, sa::TilePlan plan,
+                       int threads, GCStencilScalars s, void* stream) {
+  if (args == nullptr || B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
+      !sa::plan_fits(plan, H + 2, W + 2) || !sa::forward_threads_fit(plan, threads))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_blocks = gc_stencil_num_blocks(H, W);
-  gc_stencil_cells<<<dim3(n_blocks, B), kBlock, 0, st>>>(*args, H, W, s);
-  cudaError_t err = cudaGetLastError();
+  static size_t allowed = 0;
+  const size_t shared = sizeof(float) * sa::staged_floats(plan, kPadded, sa::kFwdRing);
+  const cudaError_t err = sa::allow_shared(gc_stencil_fwd, shared, allowed);
   if (err != cudaSuccess) return (int)err;
-  gc_stencil_mbc<<<(B + 127) / 128, 128, 0, st>>>(args->partial_g, args->partial_o, B, n_blocks,
-                                                  args->mbc_g, args->mbc_o);
+  gc_stencil_fwd<<<dim3(plan.n_ti * plan.n_tj, B), threads, shared,
+                   static_cast<cudaStream_t>(stream)>>>(*args, H, W, plan, s);
   return (int)cudaGetLastError();
 }
 

@@ -1,19 +1,30 @@
-// Shared pieces of the backward kernels, CUDA C++ for Hopper (sm_90a): the
-// overlapped-tile gather of B1 (dg_stencil.cu) and B3 (gc_stencil.cu), the
-// deterministic per-sample sum of all three (B2: dg3d_stencil.cu).
+// Shared pieces of B1's (dg_stencil.cu) and B3's (gc_stencil.cu) kernels,
+// CUDA C++ for Hopper (sm_90a): the tiles of one sample's padded plane that
+// both their forward and their backward kernels work in, the staging of
+// padded inputs into shared memory, the backward's overlapped-tile gather,
+// and the deterministic per-sample sum of all the kernels that sum per
+// sample (B2: dg3d_stencil.cu).
 //
-// A 5-point stencil's adjoint is a push: each cell's adjoint gives every
-// padded input that the stencil reads at five points one contribution at
-// the cell and one at each of its four neighbours, and a padded position's
-// gradient is the sum of the (at most five) contributions that land there.
-// The plain adjoint (_gather5 in srm_tpu_torch/kernels/stencil.py) sums them
-// in the order centre, then the cells to the west, east, south and north
-// (their i+1, i-1, j+1, j-1 contributions), halo included; a halo corner
-// gets none, so 0.
+// A block owns a tile of one sample's padded (H+2, W+2) positions
+// (TilePlan, chosen by the wrapper: stencil.py::tile_plan) and stages the
+// padded inputs it reads at five points over the tile and a ring of
+// positions around it (stage_inputs; one position for the forward, two for
+// the backward, whose ring cells read one further).
 //
-// The backward kernels keep that push, and its order, inside one block. A
-// block owns a tile of one sample's padded (H+2, W+2) positions (TilePlan,
-// chosen by the wrapper). Its threads compute the cell adjoint of the
+// Forward: each thread computes one or two of the tile's cells, their
+// inputs' five-point neighbourhoods read from shared memory.
+//
+// Backward: a 5-point stencil's adjoint is a push: each cell's adjoint
+// gives every padded input that the stencil reads at five points one
+// contribution at the cell and one at each of its four neighbours, and a
+// padded position's gradient is the sum of the (at most five) contributions
+// that land there. The plain adjoint (_gather5 in
+// srm_tpu_torch/kernels/stencil.py) sums them in the order centre, then the
+// cells to the west, east, south and north (their i+1, i-1, j+1, j-1
+// contributions), halo included; a halo corner gets none, so 0.
+//
+// The backward kernels keep that push, and its order, inside one block. Its
+// threads compute the cell adjoint of the
 // tile's own cells and of the one-cell ring around the tile (its four edge
 // strips; a ring corner reaches no position of the tile), one cell each, or
 // each every blockDim.x-th cell where the tile has more. The
@@ -27,10 +38,12 @@
 // device memory, there is no second launch, and no two threads write one
 // address: no atomics, the same bits from run to run.
 //
-// sum_per_sample gives the per-sample sums (dL/dt1 and dL/dt2; B2's forward
-// its mbc) in the same launch: a fixed shuffle tree in each warp, the warps
-// in index order, one partial per block, and a per-sample ticket that tells
-// the last block of the sample, which sums the partials in block order.
+// sum_per_sample gives the per-sample sums (the forwards' balances, the
+// backward kernels' dL/dt1 and dL/dt2) in the same launch: a fixed shuffle
+// tree in each warp, the warps in index order, one partial per block, and a
+// per-sample ticket that tells the last block of the sample, which sums the
+// partials in block order. Its halves (block_partial, sample_sum) let a
+// forward take its ticket early and sum last.
 
 #pragma once
 
@@ -41,12 +54,16 @@ namespace stencil_adjoint {
 
 constexpr int kSlots = 5;         // centre, from the west, east, south, north cells
 constexpr int kMaxTile = 1024;    // padded positions per tile, at most
-constexpr int kMaxThreads = 320;  // threads per block, at most
-constexpr int kStageRing = 2;     // staged inputs: the tile with a two-position ring
+constexpr int kMaxThreads = 320;  // threads per block of a backward kernel, at most
+constexpr int kFwdThreads = 512;  // threads per block of a forward kernel, at most
+constexpr int kStageRing = 2;     // the backward's staged inputs: the tile and a two-position ring
+constexpr int kFwdRing = 1;       // the forward's: the tile and a one-position ring
+constexpr int kFwdPasses = kMaxTile / kFwdThreads;  // a forward thread's positions, at most
+static_assert(kFwdPasses * kFwdThreads == kMaxTile, "a forward thread takes whole passes");
 
-// How the backward cuts a sample's padded (H+2, W+2) plane into tiles of
+// How a kernel cuts a sample's padded (H+2, W+2) plane into tiles of
 // tw x tj positions, n_ti across and n_tj down; the wrapper computes it
-// (stencil.py::bwd_tile_plan) and the launcher checks it. Outside any
+// (stencil.py::tile_plan) and the launcher checks it. Outside any
 // unnamed namespace: the exported C functions take it by value.
 struct TilePlan {
   int tw, tj;
@@ -67,11 +84,25 @@ __host__ __device__ inline int tile_threads(const TilePlan& t) {
   return n < kMaxThreads ? n : kMaxThreads;
 }
 
-// floats of shared memory of a block: n_staged inputs over the tile and its
-// two-position ring, and five slot arrays over the tile per gathered input
+// A forward block's thread count the kernels take for a plan: whole warps,
+// at most kFwdThreads, and at most kFwdPasses positions of the tile a thread
+// (the wrapper chooses it: stencil.py::fwd_threads).
+inline bool forward_threads_fit(const TilePlan& t, int threads) {
+  return threads % 32 == 0 && threads >= 32 && threads <= kFwdThreads &&
+         threads * kFwdPasses >= t.tw * t.tj;
+}
+
+// floats of n_staged inputs staged over the tile and a ring of positions
+// around it
+__host__ __device__ inline int staged_floats(const TilePlan& t, int n_staged, int ring) {
+  return n_staged * (t.tj + 2 * ring) * (t.tw + 2 * ring);
+}
+
+// floats of shared memory of a backward block: n_staged inputs over the
+// tile and its two-position ring, and five slot arrays over the tile per
+// gathered input
 __host__ __device__ inline int tile_shared_floats(const TilePlan& t, int n_staged, int n_gathered) {
-  return n_staged * (t.tj + 2 * kStageRing) * (t.tw + 2 * kStageRing) +
-         n_gathered * kSlots * t.tj * t.tw;
+  return staged_floats(t, n_staged, kStageRing) + n_gathered * kSlots * t.tj * t.tw;
 }
 
 // A plan the kernels take for a padded (Hp, Wp) plane: the tiles cover it,
@@ -118,18 +149,25 @@ struct Tile {
   }
 };
 
-// Stages padded input f's values over the tile and its two-position ring
-// (rows r0-2 .. r0+tj+1, columns c0-2 .. c0+tw+1, those inside the padded
-// plane) into shared memory with cp.async; the caller commits
-// (__pipeline_commit) and waits (__pipeline_wait_prior(0), __syncthreads).
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, const Tile& t,
-                                      long sample_base) {
-  const int sw = t.tw + 2 * kStageRing, n = (t.tj + 2 * kStageRing) * sw;
+// Stages N padded inputs' values over the tile and a ring of `ring`
+// positions (rows r0-ring .. r0+tj+ring-1, columns c0-ring ..
+// c0+tw+ring-1, those inside the padded plane) into shared memory with
+// cp.async, input f at dst + f * staged_floats(plan, 1, ring): each thread
+// takes every blockDim.x-th staged position (consecutive threads on
+// consecutive positions of a row) and copies it from all N inputs. The
+// caller commits (__pipeline_commit) and waits (__pipeline_wait_prior(0),
+// __syncthreads).
+template <int N>
+__device__ __forceinline__ void stage_inputs(float* dst, const float* const (&src)[N],
+                                             const Tile& t, long sample_base, int ring) {
+  const int sw = t.tw + 2 * ring, n = (t.tj + 2 * ring) * sw;
   const int Hp = t.H + 2, Wp = t.W + 2;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int jp = t.r0 - kStageRing + e / sw, ip = t.c0 - kStageRing + e % sw;
+    const int jp = t.r0 - ring + e / sw, ip = t.c0 - ring + e % sw;
     if (jp < 0 || jp >= Hp || ip < 0 || ip >= Wp) continue;
-    __pipeline_memcpy_async(dst + e, src + sample_base + (long)jp * Wp + ip, sizeof(float));
+    const long g = sample_base + (long)jp * Wp + ip;
+#pragma unroll
+    for (int f = 0; f < N; ++f) __pipeline_memcpy_async(dst + f * n + e, src[f] + g, sizeof(float));
   }
 }
 
@@ -137,9 +175,10 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
 // padded position (r0 + lj, c0 + li), its i+-1 neighbours one float away,
 // its j+-1 neighbours one staged row (sw floats) away.
 struct Staged {
-  int sw;
-  __device__ explicit Staged(const Tile& t) : sw(t.tw + 2 * kStageRing) {}
-  __device__ int at(int lj, int li) const { return (lj + kStageRing) * sw + li + kStageRing; }
+  int sw, ring;
+  __device__ explicit Staged(const Tile& t, int ring_ = kStageRing)
+      : sw(t.tw + 2 * ring_), ring(ring_) {}
+  __device__ int at(int lj, int li) const { return (lj + ring) * sw + li + ring; }
 };
 
 // The slot arrays of the gathered inputs: slots of input f at
@@ -179,16 +218,17 @@ __device__ __forceinline__ float gather(const float* sh, int f, int n_pos, const
   return v;
 }
 
-// Sums each v[n] over the block (a fixed shuffle tree in each warp, then
-// the warps in index order) into partial[(b, blk, n)]; the last block of
-// sample b to finish, told by its ticket, sums the sample's partials in
-// block order into out[b * N + n] (times sign; out may be null) and resets
-// the ticket. blockDim.x is a multiple of 32, at most kBlock.
+// The first half of the per-sample sum: sums each v[n] over the block (a
+// fixed shuffle tree in each warp, then the warps in index order) into
+// partial[(b, blk, n)] and takes one of sample b's tickets, with release
+// and acquire semantics (the partial is visible before the ticket; the
+// block that takes the last ticket sees every partial of the sample).
+// Returns, on thread 0, the ticket it took, 0 .. n_blk - 1, and n_blk on
+// the other threads. blockDim.x is a multiple of 32, at most kBlock.
 template <int N, int kBlock>
-__device__ void sum_per_sample(float (&v)[N], float* partial, unsigned* tickets, int b, int blk,
-                               int n_blk, float* out, float sign) {
+__device__ unsigned block_partial(float (&v)[N], float* partial, unsigned* tickets, int b,
+                                  int blk, int n_blk) {
   __shared__ float warp_sums[kBlock / 32][N];
-  __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int n = 0; n < N; ++n) {
@@ -196,25 +236,48 @@ __device__ void sum_per_sample(float (&v)[N], float* partial, unsigned* tickets,
     if (lane == 0) warp_sums[warp][n] = v[n];
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int n = 0; n < N; ++n) {
-      float s = 0.0f;
-      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += warp_sums[w][n];
-      partial[((long)b * n_blk + blk) * N + n] = s;
-    }
-    __threadfence();                      // the partial is visible before the ticket
-    last = atomicAdd(&tickets[b], 1u) == (unsigned)(n_blk - 1);
+  if (threadIdx.x != 0) return (unsigned)n_blk;
+  for (int n = 0; n < N; ++n) {
+    float s = 0.0f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += warp_sums[w][n];
+    partial[((long)b * n_blk + blk) * N + n] = s;
   }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    __threadfence();
-    for (int n = 0; n < N; ++n) {
-      float s = 0.0f;
-      for (int k = 0; k < n_blk; ++k) s += __ldcg(&partial[((long)b * n_blk + k) * N + n]);
-      if (out != nullptr) out[(long)b * N + n] = sign * s;
-    }
-    tickets[b] = 0u;
+  unsigned taken;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(taken) : "l"(tickets + b) : "memory");
+  return taken;
+}
+
+// The second half, on the thread that took sample b's last ticket (`taken`
+// from block_partial; a no-op elsewhere): sums the sample's partials in
+// block order, hands each sum to out(n, sum) and resets the ticket.
+template <int N, class Out>
+__device__ void sample_sum(unsigned taken, const float* partial, unsigned* tickets, int b,
+                           int n_blk, Out out) {
+  if (taken != (unsigned)(n_blk - 1)) return;
+  for (int n = 0; n < N; ++n) {
+    float s = 0.0f;
+    for (int k = 0; k < n_blk; ++k) s += __ldcg(&partial[((long)b * n_blk + k) * N + n]);
+    out(n, s);
   }
+  tickets[b] = 0u;
+}
+
+// Both halves at once: the per-sample sums, each handed to out(n, sum).
+template <int N, int kBlock, class Out>
+__device__ void sum_per_sample(float (&v)[N], float* partial, unsigned* tickets, int b, int blk,
+                               int n_blk, Out out) {
+  sample_sum<N>(block_partial<N, kBlock>(v, partial, tickets, b, blk, n_blk), partial, tickets,
+                b, n_blk, out);
+}
+
+// The same, the sums written to out[b * N + n] times sign (out may be null).
+template <int N, int kBlock>
+__device__ void sum_per_sample(float (&v)[N], float* partial, unsigned* tickets, int b, int blk,
+                               int n_blk, float* out, float sign) {
+  sum_per_sample<N, kBlock>(v, partial, tickets, b, blk, n_blk, [=](int n, float s) {
+    if (out != nullptr) out[(long)b * N + n] = sign * s;
+  });
 }
 
 // Raises a kernel's dynamic shared memory limit to `bytes` the first time a

@@ -856,10 +856,10 @@ class _ScalarsGC(ctypes.Structure):
 
 class _PointersGC(ctypes.Structure):
     """``GCStencilArgs`` of csrc/gc_stencil.cu: the device pointers of the
-    inputs (GC_ARGS, qwell, tsteps), the outputs and the mbc scratch."""
+    inputs (GC_ARGS, qwell, tsteps), the outputs, the balances' partial sums
+    and the per-sample tickets."""
     _fields_ = [(name, ctypes.c_void_p) for name in GC_ARGS + (
-        "qwell", "tsteps", "dom_g", "dom_o", "ibc", "trn_g", "trn_o", "partial_g",
-        "partial_o", "mbc_g", "mbc_o")]
+        "qwell", "tsteps") + GC_OUTPUTS + ("partial", "tickets")]
 
 
 class _BwdArgs(ctypes.Structure):
@@ -889,11 +889,11 @@ class _BwdArgsGC(ctypes.Structure):
 
 
 class TilePlan(ctypes.Structure):
-    """How B1's and B3's backward kernels cut a sample's padded (H+2, W+2)
-    plane (``stencil_adjoint::TilePlan`` of csrc/stencil_adjoint.cuh):
-    ``n_ti`` × ``n_tj`` tiles of ``tw`` × ``tj`` positions (columns × rows),
-    one block each; the last column and row of tiles may reach past the
-    plane."""
+    """How B1's and B3's kernels, forward and backward, cut a sample's
+    padded (H+2, W+2) plane (``stencil_adjoint::TilePlan`` of
+    csrc/stencil_adjoint.cuh): ``n_ti`` × ``n_tj`` tiles of ``tw`` × ``tj``
+    positions (columns × rows), one block each; the last column and row of
+    tiles may reach past the plane."""
     _fields_ = [(name, ctypes.c_int) for name in ("tw", "tj", "n_ti", "n_tj")]
 
 
@@ -913,26 +913,95 @@ def bwd_tile_shared_bytes(tw: int, tj: int, n_staged: int, n_gathered: int) -> i
     return 4 * (n_staged * (tj + 4) * (tw + 4) + n_gathered * 5 * tj * tw)
 
 
-def bwd_tile_plan(H: int, W: int, inputs: Tuple[int, int], shared_bytes: int) -> TilePlan:
-    """The fewest tiles of at most :data:`BWD_TILE` positions across and
-    down the padded (H+2, W+2) plane, each as small as that count allows, so
-    that the tiles cover it with the least overhang; while a block's shared
-    memory (``inputs`` = staged and gathered inputs) exceeds
+def tile_plan(H: int, W: int, tile: Tuple[int, int], shared_bytes_of,
+              shared_bytes: int) -> TilePlan:
+    """The fewest tiles of at most ``tile`` = (columns, rows) positions
+    across and down the padded (H+2, W+2) plane, each as small as that count
+    allows, so that the tiles cover it with the least overhang; while a
+    block's shared memory (``shared_bytes_of(tw, tj)``) exceeds
     ``shared_bytes``, the tile's longer side is narrowed, which adds tiles
     along it."""
     Hp, Wp = H + 2, W + 2
-    cap_w, cap_h = BWD_TILE
+    cap_w, cap_h = tile
     while True:
         n_ti, n_tj = -(-Wp // cap_w), -(-Hp // cap_h)
         tw, tj = -(-Wp // n_ti), -(-Hp // n_tj)
-        if bwd_tile_shared_bytes(tw, tj, *inputs) <= shared_bytes:
+        if shared_bytes_of(tw, tj) <= shared_bytes:
             return TilePlan(tw, tj, n_ti, n_tj)
         if tw == tj == 1:
-            raise ValueError(f"no backward tile fits {shared_bytes} bytes of shared memory")
+            raise ValueError(f"no tile fits {shared_bytes} bytes of shared memory")
         if tw >= tj:
             cap_w = tw - 1
         else:
             cap_h = tj - 1
+
+
+def bwd_tile_plan(H: int, W: int, inputs: Tuple[int, int], shared_bytes: int) -> TilePlan:
+    """The backward kernels' :func:`tile_plan`: tiles of at most
+    :data:`BWD_TILE` positions whose staged and gathered ``inputs`` fit
+    ``shared_bytes``."""
+    return tile_plan(H, W, BWD_TILE, lambda tw, tj: bwd_tile_shared_bytes(tw, tj, *inputs),
+                     shared_bytes)
+
+
+#: the largest tile (width, height) of B1's and B3's forward kernels, in
+#: padded positions (at most 1024; a thread takes one or two of them, see
+#: fwd_threads), and the smaller one they take where a sample's plane needs
+#: more than FWD_LARGE_TILES of the first (117×117); chosen from measured
+#: times on the card (PERF.md)
+FWD_TILE = (32, 32)
+FWD_SMALL_TILE = (16, 16)
+FWD_LARGE_TILES = 4
+#: threads per block of the forward kernels, at most
+#: (``stencil_adjoint::kFwdThreads``)
+FWD_MAX_THREADS = 512
+#: the padded inputs each forward kernel stages over a tile and its
+#: one-position ring (B1's p0p, read at the centre only, is not staged)
+FWD_STAGED = {"dg": 3, "gc": 10}
+#: the dynamic shared memory a forward block may take: the 48 KB a block may
+#: have without opting in to more, less 256 bytes for the static shared
+#: memory of the kernels' per-sample sum (132 bytes for B3's)
+FWD_SHARED_BYTES = 48 * 1024 - 256
+
+
+def fwd_tile_shared_bytes(tw: int, tj: int, n_staged: int) -> int:
+    """The dynamic shared memory of a forward block with a ``tw`` × ``tj``
+    tile (``stencil_adjoint::staged_floats`` with a one-position ring, in
+    bytes)."""
+    return 4 * n_staged * (tj + 2) * (tw + 2)
+
+
+def fwd_threads(plan: TilePlan, B: int, sms: int) -> int:
+    """Threads per block of the forward kernels for ``plan`` at batch ``B``
+    on a device of ``sms`` SMs: a thread per position of the tile while the
+    grid (``B`` × tiles blocks) has at most one block per SM, so that each
+    SM's one block computes its cells at once; a thread per two positions
+    otherwise, so that smaller blocks, more of them resident, overlap one
+    another's staging and sums. Whole warps, at most FWD_MAX_THREADS (a tile
+    of over 512 positions takes two per thread either way)."""
+    passes = 1 if B * plan.n_ti * plan.n_tj <= sms else 2
+    per_pass = -(-plan.tw * plan.tj // passes)
+    return min(-(-per_pass // 32) * 32, FWD_MAX_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fwd_tile_plan(H: int, W: int, kind: str) -> TilePlan:
+    """The forward kernels' :func:`tile_plan` for ``kind`` ("dg" or "gc"):
+    tiles of at most :data:`FWD_TILE` positions, or of at most
+    :data:`FWD_SMALL_TILE` where the plane needs more than
+    :data:`FWD_LARGE_TILES` of those (smaller blocks, more of them
+    resident), whose staged inputs fit :data:`FWD_SHARED_BYTES`."""
+    def shared(tw, tj):
+        return fwd_tile_shared_bytes(tw, tj, FWD_STAGED[kind])
+
+    plan = tile_plan(H, W, FWD_TILE, shared, FWD_SHARED_BYTES)
+    if plan.n_ti * plan.n_tj > FWD_LARGE_TILES:
+        plan = tile_plan(H, W, FWD_SMALL_TILE, shared, FWD_SHARED_BYTES)
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -970,10 +1039,8 @@ def _pack_gc(cfg: GCStencilConfig) -> _ScalarsGC:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("dg_stencil.cu")
-    lib.dg_stencil_num_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.dg_stencil_num_blocks.restype = ctypes.c_int
-    lib.dg_stencil_forward.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
-                                       + [_Scalars, ctypes.c_void_p])
+    lib.dg_stencil_forward.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3
+                                       + [TilePlan, ctypes.c_int, _Scalars, ctypes.c_void_p])
     lib.dg_stencil_forward.restype = ctypes.c_int
     lib.dg_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgs)] + [ctypes.c_int] * 3
                                         + [TilePlan, _Scalars, ctypes.c_void_p])
@@ -1002,10 +1069,10 @@ _RETIRED_TICKETS = []
 
 
 def _tickets(device: torch.device, B: int) -> torch.Tensor:
-    """The per-sample tickets of the kernels' ticketed sums (B2's forward
-    and the three backward kernels) on ``device``: zero between launches
-    (each launch's last block of a sample resets its own), so one buffer per
-    device serves every launch in stream order.
+    """The per-sample tickets of the kernels' ticketed sums (the forward
+    and the backward kernel of each of B1, B2 and B3) on ``device``: zero
+    between launches (each launch's last block of a sample resets its own),
+    so one buffer per device serves every launch in stream order.
 
     A CUDA graph keeps the address of the buffer it captured, so a buffer
     outgrown by a larger batch is kept alive, never freed. The trainer's
@@ -1021,10 +1088,8 @@ def _tickets(device: torch.device, B: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _library_gc() -> ctypes.CDLL:
     lib = load_library("gc_stencil.cu")
-    lib.gc_stencil_num_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.gc_stencil_num_blocks.restype = ctypes.c_int
     lib.gc_stencil_forward.argtypes = ([ctypes.POINTER(_PointersGC)] + [ctypes.c_int] * 3
-                                       + [_ScalarsGC, ctypes.c_void_p])
+                                       + [TilePlan, ctypes.c_int, _ScalarsGC, ctypes.c_void_p])
     lib.gc_stencil_forward.restype = ctypes.c_int
     lib.gc_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgsGC)] + [ctypes.c_int] * 3
                                         + [TilePlan, _ScalarsGC, ctypes.c_void_p])
@@ -1068,12 +1133,14 @@ def _cuda_forward(*args):
     lib = _library()
     q = ins[7]
     B, H, W = q.shape
-    # the outputs (dom, ibc, tde, mbc) and the (B, n_blocks) mbc scratch in one allocation
-    n_blocks = lib.dg_stencil_num_blocks(H, W)
-    dom, ibc, tde, mbc, partial = _alloc(q, (q.shape,) * 3 + ((B,), (B, n_blocks)))
+    plan = fwd_tile_plan(H, W, "dg")
+    # the outputs (dom, ibc, tde, mbc) and the ticketed sum's partials (one
+    # per tile) in one allocation
+    dom, ibc, tde, mbc, partial = _alloc(q, (q.shape,) * 3 + ((B,), (B, plan.n_ti * plan.n_tj)))
     _call(lib.dg_stencil_forward, q.device,
-          *(t.data_ptr() for t in tuple(ins) + (dom, ibc, tde, partial, mbc)), B, H, W,
-          _pack(_Scalars, cfg))
+          *(t.data_ptr() for t in tuple(ins) + (dom, ibc, tde, partial, mbc,
+                                                _tickets(q.device, B))),
+          B, H, W, plan, fwd_threads(plan, B, _sm_count(q.device)), _pack(_Scalars, cfg))
     launches += 1
     return dom, ibc, tde, mbc
 
@@ -1100,13 +1167,16 @@ def _cuda_forward_gc(*args):
     lib = _library_gc()
     p0 = ins[0]
     B, H, W = p0.shape
-    n_blocks = lib.gc_stencil_num_blocks(H, W)
-    # dom_g dom_o ibc trn_g trn_o, the two partial scratches, mbc_g mbc_o
-    out = _alloc(p0, (p0.shape,) * 5 + ((B, n_blocks),) * 2 + ((B,),) * 2)
-    ptrs = _PointersGC(*(t.data_ptr() for t in tuple(ins) + tuple(out)))
-    _call(lib.gc_stencil_forward, p0.device, ctypes.byref(ptrs), B, H, W, _pack_gc(cfg))
+    plan = fwd_tile_plan(H, W, "gc")
+    # dom_g dom_o ibc trn_g trn_o mbc_g mbc_o and the ticketed sums' partials
+    # (two per tile) in one allocation
+    out = _alloc(p0, (p0.shape,) * 5 + ((B,),) * 2 + ((B, plan.n_ti * plan.n_tj, 2),))
+    ptrs = _PointersGC(*(t.data_ptr() for t in tuple(ins) + tuple(out)),
+                       _tickets(p0.device, B).data_ptr())
+    _call(lib.gc_stencil_forward, p0.device, ctypes.byref(ptrs), B, H, W, plan,
+          fwd_threads(plan, B, _sm_count(p0.device)), _pack_gc(cfg))
     launches_gc += 1
-    return tuple(out[:5]) + tuple(out[7:])
+    return tuple(out[:7])
 
 
 def _grad_buffers(kind: str, like: torch.Tensor, grid, need):
