@@ -437,8 +437,7 @@ def phase_kernels(name: str) -> dict:
     timed = [_time_forward(name, shape) for shape in _timed_shapes(spec)]
     # one device launch per call: the profiler's window shows the kernel and
     # no other, at most once a call (CUPTI may miss a window's first
-    # kernels, so fewer; a second kernel, such as the balances' former
-    # mbc kernel, shows by its name)
+    # kernels, so fewer; a second kernel shows by its name)
     for shape, t in zip(_timed_shapes(spec), timed):
         names = t.pop("device_kernels")
         if not (0 < t["launches_per_call"] <= 1
