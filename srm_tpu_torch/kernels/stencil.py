@@ -946,12 +946,8 @@ def bwd_tile_plan(H: int, W: int, inputs: Tuple[int, int], shared_bytes: int) ->
 
 #: the largest tile (width, height) of B1's and B3's forward kernels, in
 #: padded positions (at most 1024; a thread takes one or two of them, see
-#: fwd_threads), and the smaller one they take where a sample's plane needs
-#: more than FWD_LARGE_TILES of the first (117×117); chosen from measured
-#: times on the card (PERF.md)
+#: fwd_threads); chosen from measured times on the card (PERF.md)
 FWD_TILE = (32, 32)
-FWD_SMALL_TILE = (16, 16)
-FWD_LARGE_TILES = 4
 #: threads per block of the forward kernels, at most
 #: (``stencil_adjoint::kFwdThreads``)
 FWD_MAX_THREADS = 512
@@ -991,17 +987,10 @@ def _sm_count(device: torch.device) -> int:
 
 def fwd_tile_plan(H: int, W: int, kind: str) -> TilePlan:
     """The forward kernels' :func:`tile_plan` for ``kind`` ("dg" or "gc"):
-    tiles of at most :data:`FWD_TILE` positions, or of at most
-    :data:`FWD_SMALL_TILE` where the plane needs more than
-    :data:`FWD_LARGE_TILES` of those (smaller blocks, more of them
-    resident), whose staged inputs fit :data:`FWD_SHARED_BYTES`."""
-    def shared(tw, tj):
-        return fwd_tile_shared_bytes(tw, tj, FWD_STAGED[kind])
-
-    plan = tile_plan(H, W, FWD_TILE, shared, FWD_SHARED_BYTES)
-    if plan.n_ti * plan.n_tj > FWD_LARGE_TILES:
-        plan = tile_plan(H, W, FWD_SMALL_TILE, shared, FWD_SHARED_BYTES)
-    return plan
+    tiles of at most :data:`FWD_TILE` positions whose staged inputs fit
+    :data:`FWD_SHARED_BYTES`."""
+    return tile_plan(H, W, FWD_TILE, lambda tw, tj: fwd_tile_shared_bytes(tw, tj, FWD_STAGED[kind]),
+                     FWD_SHARED_BYTES)
 
 
 @functools.lru_cache(maxsize=None)

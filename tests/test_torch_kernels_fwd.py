@@ -82,16 +82,15 @@ def test_forward_tile_plan_computes_each_cell_once(kind, shape):
 
 
 @pytest.mark.parametrize("shape, tiles, threads", [
-    ((32, 39, 39), 4, 448), ((128, 39, 39), 4, 224), ((128, 117, 117), 64, 128),
+    ((32, 39, 39), 4, 448), ((128, 39, 39), 4, 224), ((128, 117, 117), 16, 480),
     ((3, 13, 17), 1, 288), ((1, 1, 300), 19, 64)])
 @pytest.mark.parametrize("kind", ["dg", "gc"])
 def test_forward_blocks_per_call(kind, shape, tiles, threads):
     """The tiles per sample and threads per block that PERF.md and the
     kernels' headers state on an H100: 21×21 tiles at 39×39, a thread per
     position at the main path's B = 32 (128 blocks, under the 132 SMs) and
-    a thread per two at B = 128 (512 blocks); 15×15 tiles at 117×117 (the
-    plane needs 16 of the largest, so it takes the small ones: 8,192 blocks
-    of 128 threads at B = 128). Every plan covers its tile in at most two
+    a thread per two at B = 128 (512 blocks); 30×30 tiles at 117×117 (2,048
+    blocks of 480 threads at B = 128). Every plan covers its tile in at most two
     passes."""
     B, H, W = shape
     plan = st.fwd_tile_plan(H, W, kind)
