@@ -251,9 +251,8 @@ KERNELS = {
 # recomputed forward, the adjoint, the gather's adds and the Δt sums; B1's
 # and B3's with the recompute of their tiles' rings, 1.103 cells computed
 # per cell at 39×39 and 117×117), and their device name: one launch per
-# call each. B3's is checked on the 117×117 grid (ROADMAP C17) but not timed
-# there: no path runs GC on that grid, and in a 20-call profiler window on
-# the card CUPTI recorded half of its kernels (0.47 ms each)
+# call each. B3's is checked on the 117×117 grid (ROADMAP C17) and timed
+# there though no path runs GC on that grid
 BACKWARD = {
     "dg_stencil_residual_backward": dict(
         forward="dg_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:568",
@@ -266,7 +265,7 @@ BACKWARD = {
     "gc_stencil_residual_backward": dict(
         forward="gc_stencil_residual", replaces="srm_tpu/kernels/stencil_pallas.py:533",
         counter="launches_gc_bwd", qwell=25, cancelling=(0,), ops_per_cell=1115,
-        device_name="gc_stencil_bwd", untimed=((128, 117, 117),)),
+        device_name="gc_stencil_bwd"),
 }
 
 
@@ -435,24 +434,28 @@ def phase_kernels(name: str) -> dict:
             f"(max abs err so far {max_err:.3e}), the forward bitwise the same over three runs")
 
     timed = [_time_forward(name, shape) for shape in _timed_shapes(spec)]
-    # one device launch per call: the profiler's window shows the kernel and
-    # no other, at most once a call (CUPTI may miss a window's first
-    # kernels, so fewer; a second kernel shows by its name)
-    for shape, t in zip(_timed_shapes(spec), timed):
-        names = t.pop("device_kernels")
-        if not (0 < t["launches_per_call"] <= 1
-                and all(spec["device_name"] + "(" in n for n in names)):
-            raise AssertionError(f"{name} {shape}: the profiler shows {t['launches_per_call']} "
-                                 f"device launches per call of {names}, expected one of "
-                                 f"{spec['device_name']}")
+    _check_one_launch(name, spec["device_name"], _timed_shapes(spec), timed)
     return {"max_abs_err": max_err, **timed[0], "at_b128": timed[1], **_extra_shapes(spec, timed)}
 
 
-def _timed_shapes(spec, untimed=()) -> list:
+def _check_one_launch(name: str, device_name: str, shapes, timed) -> None:
+    """One device launch per call at each timed shape: the profiler's
+    window shows the kernel ``device_name`` and no other, at most once a
+    call (CUPTI may miss a window's first kernels, so fewer; a second kernel
+    shows by its name). Takes each shape's "device_kernels" out of
+    ``timed``."""
+    for shape, t in zip(shapes, timed):
+        names = t.pop("device_kernels")
+        if not (0 < t["launches_per_call"] <= 1 and all(device_name + "(" in n for n in names)):
+            raise AssertionError(f"{name} {shape}: the profiler shows {t['launches_per_call']} "
+                                 f"device launches per call of {names}, expected one of "
+                                 f"{device_name}")
+
+
+def _timed_shapes(spec) -> list:
     """The shapes a kernel is timed at: its f32 main path's, the production
-    batch's, and the last configurations' (after the ragged shape), less
-    ``untimed``."""
-    return [s for s in spec["shapes"][:2] + spec["shapes"][3:] if s not in untimed]
+    batch's, and the last configurations' (after the ragged shape)."""
+    return spec["shapes"][:2] + spec["shapes"][3:]
 
 
 def _extra_shapes(spec, timed) -> dict:
@@ -562,14 +565,8 @@ def phase_backward(name: str) -> dict:
             f"{worst:.3e} of a gradient's scale), "
             f"bitwise the same over three runs")
 
-    untimed = spec.get("untimed", ())
-    timed = [_time_backward(name, shape) for shape in _timed_shapes(fwd, untimed)]
-    # one launch per call (the profiler's count per call, rounded: a second
-    # kernel shows as 2)
-    for shape, t in zip(_timed_shapes(fwd, untimed), timed):
-        if round(t["launches_per_call"]) != 1:
-            raise AssertionError(f"{name} {shape}: the profiler shows {t['launches_per_call']} "
-                                 f"device launches per call, expected 1")
+    timed = [_time_backward(name, shape) for shape in _timed_shapes(fwd)]
+    _check_one_launch(name, spec["device_name"], _timed_shapes(fwd), timed)
     return {"max_abs_err": max_err, **timed[0], "at_b128": timed[1], **_extra_shapes(fwd, timed)}
 
 
@@ -592,7 +589,9 @@ def _time_backward(name: str, shape) -> dict:
     calls = backward_calls(spec["forward"], args, cfg)
     host = {k: time_ms(calls[k], calls=20) for k in ("adjoint", "kernel", "autograd")}
     host2 = {k: time_ms(calls[k], calls=20) for k in ("autograd", "kernel", "adjoint")}
-    device = {k: profile_calls(calls[k], 20) for k in ("kernel", "adjoint", "autograd")}
+    table = []
+    device = {k: profile_calls(calls[k], 20, table if k == "kernel" else None)
+              for k in ("kernel", "adjoint", "autograd")}
     events = warm_cold_ms(calls["kernel"])
     got = calls["kernel"]()
     with torch.no_grad():
@@ -617,7 +616,8 @@ def _time_backward(name: str, shape) -> dict:
             "plain_device_us": device["adjoint"][1],
             "plain_launches_per_call": device["adjoint"][0],
             "autograd_ms": ms["autograd"], "autograd_device_us": device["autograd"][1],
-            "autograd_launches_per_call": device["autograd"][0], **events}
+            "autograd_launches_per_call": device["autograd"][0],
+            "device_kernels": sorted({row["name"] for row in table}), **events}
 
 
 def _timed(fn):

@@ -23,27 +23,32 @@
 // consecutive threads on consecutive positions); p0p, read at the centre
 // only, is read like a centred input. While the copies are in flight each
 // thread loads its cells' centred inputs (one or two cells a thread,
-// fwd_threads), sums their mbc terms, and the block takes its ticket
+// fwd_passes), sums their mbc terms, and the block takes its ticket
 // (block_partial), so the ticket's round trip overlaps the staging. Then
 // the neighbourhoods are read from shared memory: each padded value leaves
 // device memory about once per tile instead of about five times through
 // L1. The block that took a sample's last ticket sums its partials
 // (sample_sum) before the fields are stored. No atomics touch a value: the
 // same bits from run to run.
-// The tile plan (stencil.py::fwd_tile_plan, fwd_threads; measured on an
+// The tile plan (stencil.py::fwd_tile_plan, fwd_passes; measured on an
 // H100, PERF.md): tiles of at most 32x32 positions (21x21 at 39x39, 4 a
-// sample), or of at most 16x16 where a plane needs more than 4 of those
-// (15x15 at 117x117, 64 a sample); a thread per position while the grid
-// has at most one block per SM (B=32 at 39x39: 128 blocks of 448
+// sample; 30x30 at 117x117, 16 a sample); a thread per position while the
+// grid has at most one block per SM (B=32 at 39x39: 128 blocks of 448
 // threads), else a thread per two (B=128: 512 blocks of 224 threads at
-// 39x39, 8,192 of 128 at 117x117). 50 registers, no spill; 6,348 B of
-// shared memory a block at 21x21, 3,468 B at 15x15, and 64 B static.
-// Tiles of at most 16x16 at 39x39 took 5.44 and 7.94 us at B=32 and 128,
-// against 4.58 and 7.18; at 117x117 the 32x32 plan and the 16x16 one took
-// 54.7 and 54.6-55.3 us (B3's 165.5 and 151.0 decided it). The fields
-// are bitwise those of the former two-launch forward; mbc, summed in
-// another order, lies within 2.7 float32 ulps of its largest magnitude of
-// that forward's on chip_smoke.py's inputs.
+// 39x39, 2,048 of 480 at 117x117). 50 registers, no spill; 6,348 B of
+// shared memory a block at 21x21, 12,288 B at 30x30, and 64 B static.
+// Measured device us at B=32 and 128 on 39x39 and B=128 on 117x117: this
+// plan 4.55-4.57, 7.05-7.15, 54.7-54.9; a thread per two everywhere
+// 5.09-5.11, 7.12-7.16, 54.0-54.5; a thread per position everywhere, built
+// for 1,024 threads a block (44 registers), 4.48-4.49, 8.95-8.96,
+// 80.8-81.0; the former two-launch forward 4.61-4.71, 7.28-7.41,
+// 54.5-55.0. Tiles of at most 16x16 at 39x39 took 5.44 and 7.94 us at B=32
+// and 128. The fields are bitwise those of the former forward; mbc, summed
+// in another order, lay within 2.7 float32 ulps of its largest magnitude
+// of that forward's on chip_smoke.py's inputs (at 117x117 with 15x15
+// tiles). Its order follows the passes, so a sample's mbc has the same
+// bits from run to run at one batch size, not from one batch size to
+// another.
 //
 // Rounding: the scalar products that JAX folds from Python floats (in
 // double) arrive here already folded and rounded to float, and the
@@ -466,29 +471,35 @@ extern "C" {
 //   qwell (H, W); tsteps (B, 2); partial (B, plan.n_ti * plan.n_tj); mbc (B,);
 //   tickets: B unsigned ints, 0 on entry (and on return)
 // `plan` cuts the padded (H+2, W+2) plane into tiles (stencil_adjoint.cuh),
-// one block of `threads` threads each.
+// one block each, whose threads take `passes` (1 or 2) positions each.
 int dg_stencil_forward(const float* p0p, const float* p1p, const float* kxp,
                        const float* bgugp, const float* invBg0, const float* invBg1,
                        const float* dinvBg0, const float* q, const float* qwell,
                        const float* tsteps, float* dom, float* ibc, float* tde,
                        float* partial, float* mbc, unsigned* tickets, int B, int H, int W,
-                       sa::TilePlan plan, int threads, DGStencilScalars s, void* stream) {
+                       sa::TilePlan plan, int passes, DGStencilScalars s, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || B > 65535 || !sa::plan_fits(plan, H + 2, W + 2) ||
-      !sa::forward_threads_fit(plan, threads))
+      (passes != 1 && passes != 2))
     return (int)cudaErrorInvalidValue;
   static size_t allowed = 0;
   const size_t shared = sizeof(float) * sa::staged_floats(plan, kFwdStaged, sa::kFwdRing);
   const cudaError_t err = sa::allow_shared(dg_stencil_fwd, shared, allowed);
   if (err != cudaSuccess) return (int)err;
-  dg_stencil_fwd<<<dim3(plan.n_ti * plan.n_tj, B), threads, shared,
+  dg_stencil_fwd<<<dim3(plan.n_ti * plan.n_tj, B), sa::forward_threads(plan, passes), shared,
                    static_cast<cudaStream_t>(stream)>>>(
       p0p, p1p, kxp, bgugp, invBg0, invBg1, dinvBg0, q, qwell, tsteps, dom, ibc, tde, partial,
       mbc, tickets, H, W, plan, s);
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory a block of the backward may have on the
-// current device, into *bytes; returns the CUDA error (0 = success).
+// The dynamic shared memory a block of the forward, or of the backward, may
+// have on the current device, into *bytes; returns the CUDA error (0 =
+// success).
+int dg_stencil_fwd_shared_budget(int* bytes) {
+  if (bytes == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)sa::shared_budget(dg_stencil_fwd, bytes);
+}
+
 int dg_stencil_bwd_shared_budget(int* bytes) {
   if (bytes == nullptr) return (int)cudaErrorInvalidValue;
   return (int)sa::shared_budget(dg_stencil_bwd, bytes);

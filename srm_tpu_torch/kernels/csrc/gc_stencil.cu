@@ -27,7 +27,7 @@
 // with cp.async (stage_inputs: consecutive threads on consecutive
 // positions), and while the copies are in flight each thread loads its
 // cells' fifteen centred inputs and well rate (one or two cells a thread,
-// fwd_threads), sums their balance terms, and the block takes its ticket
+// fwd_passes), sums their balance terms, and the block takes its ticket
 // (block_partial), so the ticket's round trip overlaps the staging. Then
 // the five-point neighbourhoods are read from shared memory: each padded
 // value leaves device memory about once per tile instead of about five
@@ -37,17 +37,22 @@
 // passed by value to the kernel. No atomics touch a value: the same bits
 // from run to run.
 // The tile plan is B1's (dg_stencil.cu; stencil.py::fwd_tile_plan,
-// fwd_threads; measured on an H100, PERF.md): 21x21 tiles at 39x39 (448
-// threads a block at B=32, 224 at B=128), 15x15 at 117x117 (128
-// threads). 110 registers, no spill: two blocks of 224 threads fit an SM,
-// one of 448. 21,160 B of shared memory a block at 21x21, 11,560 B at
-// 15x15, and 128 B static. Tiles of at most 16x16 at 39x39 took 9.11 and
-// 23.44 us at B=32 and 128, against 7.25 and 18.19; at 117x117 the 32x32
-// plan (30x30 tiles, 480 threads, one block an SM) took 165.5 us against
-// the 16x16 plan's 151.0. The fields are bitwise those of the former
-// two-launch forward; mbc_g and mbc_o, summed in another order, lie within
-// 3.5 float32 ulps of their largest magnitude of that forward's on
-// chip_smoke.py's inputs.
+// fwd_passes; measured on an H100, PERF.md): 21x21 tiles at 39x39 (448
+// threads a block at B=32, 224 at B=128), 30x30 at 117x117 (480 threads
+// at B=128). 110 registers, no spill: two blocks of 224 threads fit an SM,
+// one of 448 or 480. 21,160 B of shared memory a block at 21x21, 40,960 B
+// at 30x30, and 128 B static. Measured device us at B=32 and 128 on 39x39
+// and B=128 on 117x117: this plan 7.25-7.34, 17.9-18.1, 172.3-173.9; a
+// thread per two everywhere 8.37, 18.13-18.15, 172.0-172.6; a thread per
+// position everywhere, built for 1,024 threads a block (64 registers, 92
+// B spilled), 7.41-7.46, 18.95-18.97, 176.2-178.5. The former two-launch
+// forward took 6.62-6.73, 15.3-15.6 and 171.1-171.5: at 39x39 this design
+// is slower (ROADMAP queue B). Tiles of at most 16x16 at 39x39 took 9.11
+// and 23.44 us at B=32 and 128. The fields are bitwise those of the
+// former forward; mbc_g and mbc_o, summed in another order, lay within 3.5
+// float32 ulps of their largest magnitude of that forward's on
+// chip_smoke.py's inputs (at 117x117 with 15x15 tiles). Their order
+// follows the passes, as B1's does.
 //
 // Rounding: the scalar products that JAX folds from Python floats (in
 // double) arrive here already folded and rounded to float, and the
@@ -840,23 +845,30 @@ extern "C" {
 // `args` is read on the host before the launch; its partial holds
 // (B, plan.n_ti * plan.n_tj, 2) floats and its tickets B unsigned ints, 0 on
 // entry (and on return). `plan` cuts the padded (H+2, W+2) plane into tiles
-// (stencil_adjoint.cuh), one block of `threads` threads each.
+// (stencil_adjoint.cuh), one block each, whose threads take `passes` (1 or
+// 2) positions each.
 int gc_stencil_forward(const GCStencilArgs* args, int B, int H, int W, sa::TilePlan plan,
-                       int threads, GCStencilScalars s, void* stream) {
+                       int passes, GCStencilScalars s, void* stream) {
   if (args == nullptr || B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
-      !sa::plan_fits(plan, H + 2, W + 2) || !sa::forward_threads_fit(plan, threads))
+      !sa::plan_fits(plan, H + 2, W + 2) || (passes != 1 && passes != 2))
     return (int)cudaErrorInvalidValue;
   static size_t allowed = 0;
   const size_t shared = sizeof(float) * sa::staged_floats(plan, kPadded, sa::kFwdRing);
   const cudaError_t err = sa::allow_shared(gc_stencil_fwd, shared, allowed);
   if (err != cudaSuccess) return (int)err;
-  gc_stencil_fwd<<<dim3(plan.n_ti * plan.n_tj, B), threads, shared,
+  gc_stencil_fwd<<<dim3(plan.n_ti * plan.n_tj, B), sa::forward_threads(plan, passes), shared,
                    static_cast<cudaStream_t>(stream)>>>(*args, H, W, plan, s);
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory a block of the backward may have on the
-// current device, into *bytes; returns the CUDA error (0 = success).
+// The dynamic shared memory a block of the forward, or of the backward, may
+// have on the current device, into *bytes; returns the CUDA error (0 =
+// success).
+int gc_stencil_fwd_shared_budget(int* bytes) {
+  if (bytes == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)sa::shared_budget(gc_stencil_fwd, bytes);
+}
+
 int gc_stencil_bwd_shared_budget(int* bytes) {
   if (bytes == nullptr) return (int)cudaErrorInvalidValue;
   return (int)sa::shared_budget(gc_stencil_bwd, bytes);

@@ -84,12 +84,13 @@ __host__ __device__ inline int tile_threads(const TilePlan& t) {
   return n < kMaxThreads ? n : kMaxThreads;
 }
 
-// A forward block's thread count the kernels take for a plan: whole warps,
-// at most kFwdThreads, and at most kFwdPasses positions of the tile a thread
-// (the wrapper chooses it: stencil.py::fwd_threads).
-inline bool forward_threads_fit(const TilePlan& t, int threads) {
-  return threads % 32 == 0 && threads >= 32 && threads <= kFwdThreads &&
-         threads * kFwdPasses >= t.tw * t.tj;
+// A forward block's threads for a plan when each thread is to take
+// `passes` (1 or 2) of the tile's positions: whole warps, at most
+// kFwdThreads, so a tile of over kFwdThreads positions takes two a thread
+// either way (the wrapper chooses the passes: stencil.py::fwd_passes).
+__host__ __device__ inline int forward_threads(const TilePlan& t, int passes) {
+  const int n = cdiv(cdiv(t.tw * t.tj, passes), 32) * 32;
+  return n < kFwdThreads ? n : kFwdThreads;
 }
 
 // floats of n_staged inputs staged over the tile and a ring of positions

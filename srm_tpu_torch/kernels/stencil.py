@@ -946,18 +946,11 @@ def bwd_tile_plan(H: int, W: int, inputs: Tuple[int, int], shared_bytes: int) ->
 
 #: the largest tile (width, height) of B1's and B3's forward kernels, in
 #: padded positions (at most 1024; a thread takes one or two of them, see
-#: fwd_threads); chosen from measured times on the card (PERF.md)
+#: fwd_passes); chosen from measured times on the card (PERF.md)
 FWD_TILE = (32, 32)
-#: threads per block of the forward kernels, at most
-#: (``stencil_adjoint::kFwdThreads``)
-FWD_MAX_THREADS = 512
 #: the padded inputs each forward kernel stages over a tile and its
 #: one-position ring (B1's p0p, read at the centre only, is not staged)
 FWD_STAGED = {"dg": 3, "gc": 10}
-#: the dynamic shared memory a forward block may take: the 48 KB a block may
-#: have without opting in to more, less 256 bytes for the static shared
-#: memory of the kernels' per-sample sum (132 bytes for B3's)
-FWD_SHARED_BYTES = 48 * 1024 - 256
 
 
 def fwd_tile_shared_bytes(tw: int, tj: int, n_staged: int) -> int:
@@ -967,17 +960,24 @@ def fwd_tile_shared_bytes(tw: int, tj: int, n_staged: int) -> int:
     return 4 * n_staged * (tj + 2) * (tw + 2)
 
 
-def fwd_threads(plan: TilePlan, B: int, sms: int) -> int:
-    """Threads per block of the forward kernels for ``plan`` at batch ``B``
-    on a device of ``sms`` SMs: a thread per position of the tile while the
-    grid (``B`` × tiles blocks) has at most one block per SM, so that each
-    SM's one block computes its cells at once; a thread per two positions
-    otherwise, so that smaller blocks, more of them resident, overlap one
-    another's staging and sums. Whole warps, at most FWD_MAX_THREADS (a tile
-    of over 512 positions takes two per thread either way)."""
-    passes = 1 if B * plan.n_ti * plan.n_tj <= sms else 2
-    per_pass = -(-plan.tw * plan.tj // passes)
-    return min(-(-per_pass // 32) * 32, FWD_MAX_THREADS)
+def fwd_tile_plan(H: int, W: int, kind: str, shared_bytes: int) -> TilePlan:
+    """The forward kernels' :func:`tile_plan` for ``kind`` ("dg" or "gc"):
+    tiles of at most :data:`FWD_TILE` positions whose staged inputs fit
+    ``shared_bytes``."""
+    return tile_plan(H, W, FWD_TILE, lambda tw, tj: fwd_tile_shared_bytes(tw, tj, FWD_STAGED[kind]),
+                     shared_bytes)
+
+
+def fwd_passes(plan: TilePlan, B: int, sms: int) -> int:
+    """The tile's positions each thread of a forward block takes for
+    ``plan`` at batch ``B`` on a device of ``sms`` SMs: one while the grid
+    (``B`` × tiles blocks) has at most one block per SM, so that each SM's
+    one block computes its cells at once; two otherwise, so that smaller
+    blocks, more of them resident, overlap one another's staging and sums
+    (measured on the card: PERF.md). The kernel's block is then whole warps
+    of at most 512 threads (``stencil_adjoint::forward_threads``), so a
+    tile of over 512 positions takes two a thread either way."""
+    return 1 if B * plan.n_ti * plan.n_tj <= sms else 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -985,21 +985,14 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def fwd_tile_plan(H: int, W: int, kind: str) -> TilePlan:
-    """The forward kernels' :func:`tile_plan` for ``kind`` ("dg" or "gc"):
-    tiles of at most :data:`FWD_TILE` positions whose staged inputs fit
-    :data:`FWD_SHARED_BYTES`."""
-    return tile_plan(H, W, FWD_TILE, lambda tw, tj: fwd_tile_shared_bytes(tw, tj, FWD_STAGED[kind]),
-                     FWD_SHARED_BYTES)
-
-
 @functools.lru_cache(maxsize=None)
-def _bwd_shared_budget(kind: str, device: torch.device) -> int:
-    """The dynamic shared memory a block of ``kind``'s backward kernel may
-    have on ``device`` (the per-block opt-in limit less the kernel's static
-    shared memory), asked of the library once per device."""
+def _shared_budget(kind: str, direction: str, device: torch.device) -> int:
+    """The dynamic shared memory a block of ``kind``'s forward or backward
+    kernel (``direction`` "fwd" or "bwd") may have on ``device`` (the
+    per-block opt-in limit less the kernel's static shared memory), asked
+    of the library once per device."""
     lib = _library() if kind == "dg" else _library_gc()
-    fn = getattr(lib, f"{kind}_stencil_bwd_shared_budget")
+    fn = getattr(lib, f"{kind}_stencil_{direction}_shared_budget")
     budget = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = fn(ctypes.byref(budget))
@@ -1008,9 +1001,14 @@ def _bwd_shared_budget(kind: str, device: torch.device) -> int:
     return budget.value
 
 
+def _fwd_plan(kind: str, like: torch.Tensor) -> TilePlan:
+    H, W = like.shape[-2:]
+    return fwd_tile_plan(H, W, kind, _shared_budget(kind, "fwd", like.device))
+
+
 def _bwd_plan(kind: str, like: torch.Tensor) -> TilePlan:
     H, W = like.shape[-2:]
-    return bwd_tile_plan(H, W, BWD_INPUTS[kind], _bwd_shared_budget(kind, like.device))
+    return bwd_tile_plan(H, W, BWD_INPUTS[kind], _shared_budget(kind, "bwd", like.device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1034,8 +1032,9 @@ def _library() -> ctypes.CDLL:
     lib.dg_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgs)] + [ctypes.c_int] * 3
                                         + [TilePlan, _Scalars, ctypes.c_void_p])
     lib.dg_stencil_backward.restype = ctypes.c_int
-    lib.dg_stencil_bwd_shared_budget.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.dg_stencil_bwd_shared_budget.restype = ctypes.c_int
+    for direction in ("fwd", "bwd"):
+        fn = getattr(lib, f"dg_stencil_{direction}_shared_budget")
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     return lib
 
 
@@ -1083,8 +1082,9 @@ def _library_gc() -> ctypes.CDLL:
     lib.gc_stencil_backward.argtypes = ([ctypes.POINTER(_BwdArgsGC)] + [ctypes.c_int] * 3
                                         + [TilePlan, _ScalarsGC, ctypes.c_void_p])
     lib.gc_stencil_backward.restype = ctypes.c_int
-    lib.gc_stencil_bwd_shared_budget.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.gc_stencil_bwd_shared_budget.restype = ctypes.c_int
+    for direction in ("fwd", "bwd"):
+        fn = getattr(lib, f"gc_stencil_{direction}_shared_budget")
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     return lib
 
 
@@ -1122,14 +1122,14 @@ def _cuda_forward(*args):
     lib = _library()
     q = ins[7]
     B, H, W = q.shape
-    plan = fwd_tile_plan(H, W, "dg")
+    plan = _fwd_plan("dg", q)
     # the outputs (dom, ibc, tde, mbc) and the ticketed sum's partials (one
     # per tile) in one allocation
     dom, ibc, tde, mbc, partial = _alloc(q, (q.shape,) * 3 + ((B,), (B, plan.n_ti * plan.n_tj)))
     _call(lib.dg_stencil_forward, q.device,
           *(t.data_ptr() for t in tuple(ins) + (dom, ibc, tde, partial, mbc,
                                                 _tickets(q.device, B))),
-          B, H, W, plan, fwd_threads(plan, B, _sm_count(q.device)), _pack(_Scalars, cfg))
+          B, H, W, plan, fwd_passes(plan, B, _sm_count(q.device)), _pack(_Scalars, cfg))
     launches += 1
     return dom, ibc, tde, mbc
 
@@ -1156,14 +1156,14 @@ def _cuda_forward_gc(*args):
     lib = _library_gc()
     p0 = ins[0]
     B, H, W = p0.shape
-    plan = fwd_tile_plan(H, W, "gc")
+    plan = _fwd_plan("gc", p0)
     # dom_g dom_o ibc trn_g trn_o mbc_g mbc_o and the ticketed sums' partials
     # (two per tile) in one allocation
     out = _alloc(p0, (p0.shape,) * 5 + ((B,),) * 2 + ((B, plan.n_ti * plan.n_tj, 2),))
     ptrs = _PointersGC(*(t.data_ptr() for t in tuple(ins) + tuple(out)),
                        _tickets(p0.device, B).data_ptr())
     _call(lib.gc_stencil_forward, p0.device, ctypes.byref(ptrs), B, H, W, plan,
-          fwd_threads(plan, B, _sm_count(p0.device)), _pack_gc(cfg))
+          fwd_passes(plan, B, _sm_count(p0.device)), _pack_gc(cfg))
     launches_gc += 1
     return tuple(out[:7])
 

@@ -239,9 +239,10 @@ def profile_calls(fn, n: int, table: list = None):
     (a list), appends the trace's :func:`top_kernels` per call to it.
 
     CUPTI can miss a window's first kernels (a one-kernel call showed 16
-    to 19 launches in 20 calls on the card), so the device µs per call are
-    the recorded kernels' mean times the launches per call rounded; the
-    kernels per call are reported as recorded."""
+    to 19 launches in 20 calls on the card, and 0.47 a call for a 0.47 ms
+    kernel), so the device µs per call are the recorded kernels' mean times
+    the launches per call rounded, and at least one where any was recorded;
+    the kernels per call are reported as recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -255,7 +256,7 @@ def profile_calls(fn, n: int, table: list = None):
     count, device_us = _device_events(prof)
     if table is not None:
         table.extend(top_kernels(prof, n))
-    per_call = round(count / n)
+    per_call = max(1, round(count / n))
     return count / n, (device_us / count * per_call if count else 0.0), window_ms
 
 

@@ -383,7 +383,14 @@ def test_backward_kernel_matches_plain_adjoint(cuda, kind, shape):
 def test_backward_shared_budget_is_an_h100s(cuda, kind):
     """The shared memory the tile plan is sized to on this device is at
     least what the CPU tests of the plan assume for an H100."""
-    assert st._bwd_shared_budget(kind, torch.device(cuda)) >= 227 * 1024 - 128
+    assert st._shared_budget(kind, "bwd", torch.device(cuda)) >= 227 * 1024 - 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dg", "gc"])
+def test_forward_shared_budget_is_an_h100s(cuda, kind):
+    """Likewise for the forward kernels' tile plan."""
+    assert st._shared_budget(kind, "fwd", torch.device(cuda)) >= 227 * 1024 - 128
 
 
 @pytest.mark.cuda
