@@ -114,13 +114,27 @@ the process exits non-zero:
 13. knobs — ``spatial_pad_to=48`` and ``network_width=64`` on DG 2D: two
     graphed epochs through B1, B1 against its plain version on the trained
     inputs.
+14. data generation (run first, after the kernels) — ``python -m
+    srm_tpu_torch generate-data`` at the default case (39×39, 200
+    realizations, the Eclipse decks; host numpy work), timed and its tree
+    checked; the on-device KLE sampler at 39×39 and 200 realizations: its
+    mode count against the numpy sampler's, the log-field statistics, its
+    host and CUDA-event times.
+15. well solvers (last) — the Newton BHP on DG 2D (B1) and the blocking
+    factor on GC 2D (B3), ``setup_case(..., well_solver_kwargs=)`` at
+    39×39, 20 realizations, batch 32: two graphed epochs, the kernel's and
+    its backward's launches, the kernel against its plain version on the
+    trained inputs, ``phase_graph``'s checks with the replay bitwise the
+    eager step over 6 steps (its restore check left to the main paths);
+    steps/s, device ms and operations per step and capture seconds beside
+    the default paths'; ``log_iterations`` under replay.
 
 The line before the last is a JSON object describing each kernel (its
 numbers at batch 32, under ``at_b128`` those at batch 128, under
 ``at_128x117x117`` or ``at_256x10x39x39`` those at the last
 configurations' shape, its launches on its f32 main path and, under
-``launches_by_path``, on every path of this run that runs it); the last
-line is ``{"ok": true, "device": {...}}``.
+``launches_by_path``, on every path of this run that runs it, the well
+solver's paths among them); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -804,9 +818,11 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
         raise AssertionError(f"graph replays {trainer.replays}, expected {want_replays} "
                              f"({warm} eager warm-up steps of each kind)")
     steps_per_s = n_train / (history["epoch_times"][1] / 1000.0)
+    capture_s = dict(trainer.capture_seconds)
     log(f"main path {fluid} {grid}: {len(steps)} steps, {warm} eager warm-up steps and "
         f"replays {trainer.replays}, launches {counts}, {recomputes} plain recomputes, "
-        f"{steps_per_s:.2f} steps/s in epoch 2, peak memory "
+        f"{steps_per_s:.2f} steps/s in epoch 2, capture {capture_s['train']:.3f} s (train) and "
+        f"{capture_s['eval']:.3f} s (eval), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
     # the kernel and its plain version on the stencil inputs that the
@@ -822,7 +838,8 @@ def phase_main_path(base_dir: str, kernel: str, fluid: str = "DG", **case_kwargs
         f"stencil inputs; total loss {float(total):.6e}")
     if case["general_config"].get("label_source") == "simulator":
         phase_rmse(case)
-    return counts, case, {"steps_per_s": steps_per_s, **phase_graph(trainer, kernel)}
+    return counts, case, {"steps_per_s": steps_per_s, "capture_s": capture_s,
+                          **phase_graph(trainer, kernel)}
 
 
 def _copy_loss(loss_fn):
@@ -873,7 +890,8 @@ def _device_per_step(trainer, steps: int = 3, names=None) -> dict:
             "stencil_kernels": sorted({e.name for e in device if "stencil" in e.name})}
 
 
-def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) -> dict:
+def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True,
+                bitwise: bool = False, restore: bool = True, steps: int = 9) -> dict:
     """After a path's training, on its graphed trainer (steps run epoch after
     epoch where the staged split holds fewer; the trainers built here take
     ``optimizer_configs``, the path's):
@@ -886,15 +904,18 @@ def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) ->
        eager warm-up steps, then replays) and the eager one
        (``cuda_graph=False``), with cuDNN deterministic, give the same step
        losses up to the first replayed step within GRAPH_LOSS_RTOL, Model
-       1's weights after 9 steps within GRAPH_WEIGHT_REL of their update and
+       1's weights after ``steps`` steps within GRAPH_WEIGHT_REL of their
+       update and
        Model 2's after the first replayed step within GRAPH_MODEL2_REL (held
        on one step only: its float32 gradient is rounding noise once the
        weights move, ROADMAP C2), or on a path without a kernel within
-       GRAPH_UNFUSED_WEIGHT_REL; with ``spread`` the eager step against a
+       GRAPH_UNFUSED_WEIGHT_REL (with ``bitwise``, bit for bit: losses and
+       weights); with ``spread`` the eager step against a
        second eager run is logged beside it and must agree bit for bit
        (losses and weights): since the pads' backward is fixed-order
        (ROADMAP C16) no op of a step adds in a varying order;
-    3. a best-epoch restore (``load_snapshot``, in place) is seen by the next
+    3. with ``restore``, a best-epoch restore (``load_snapshot``, in place)
+       is seen by the next
        replay: the replayed eval losses on the restored weights equal the
        eager eval step's; before the restore the weights are trained (whole
        replayed epochs) until their eval losses lie beyond twice
@@ -915,10 +936,11 @@ def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) ->
     if kernel is not None:
         bwd = next(b for b in BACKWARD.values() if b["forward"] == kernel)
         names = {"forward": KERNELS[kernel]["device_name"], "backward": bwd["device_name"]}
-    snap = trainer.snapshot()
-    eager = Trainer(trainer.loss_fn, cuda_graph=False)
-    eager._resident["train"] = trainer._resident["train"]
-    at_snap = eager.eval_epoch_resident("train")["total"]
+    if restore:
+        snap = trainer.snapshot()
+        eager = Trainer(trainer.loss_fn, cuda_graph=False)
+        eager._resident["train"] = trainer._resident["train"]
+        at_snap = eager.eval_epoch_resident("train")["total"]
     device = _device_per_step(trainer, 3, names)
     seen = device["seen"]
     if seen != {k: 3 for k in names} or (kernel is None and device["stencil_kernels"]):
@@ -944,7 +966,7 @@ def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) ->
             # the warm-up steps, then the first replayed step
             first = _train_steps(t, warm + 1)
             after_first = [p.detach().clone() for p in t.optimizers[m2].params]
-            rest = _train_steps(t, 8 - warm)
+            rest = _train_steps(t, steps - 1 - warm)
             runs[name] = ([p.detach().clone() for p in t.optimizers[m1].params],
                           np.concatenate([first, rest]), after_first)
             if graph:
@@ -955,8 +977,8 @@ def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) ->
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.deterministic = False
-    if replayed != 9 - warm:
-        raise AssertionError(f"the graphed trainer replayed {replayed} of 9 steps")
+    if replayed != steps - warm:
+        raise AssertionError(f"the graphed trainer replayed {replayed} of {steps} steps")
 
     def apart(a, b):
         (pa, la, a2), (pb, lb, b2) = runs[a], runs[b]
@@ -972,13 +994,16 @@ def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) ->
     if spread:
         compared.append(("eager vs eager", apart("eager again", "eager")))
     for what, (l1, l9, w1, w2) in compared:
-        log(f"{what} from the same weights, 9 steps ({warm} warm-up): step losses {l1:.3e} apart "
-            f"up to the first "
-            f"replayed step, {l9:.3e} over all 9 (relative); {m1} weights after 9 steps "
+        log(f"{what} from the same weights, {steps} steps ({warm} warm-up): step losses "
+            f"{l1:.3e} apart up to the first "
+            f"replayed step, {l9:.3e} over all {steps} (relative); {m1} weights after "
+            f"{steps} steps "
             f"{w1:.3e} and {m2} after the first replayed step {w2:.3e} of their update")
     if spread and any(v != 0.0 for v in compared[1][1]):
         raise AssertionError(f"two eager runs from the same weights differ: {compared[1][1]} "
                              f"(each op of the step is deterministic; ROADMAP C16)")
+    if bitwise and any(v != 0.0 for v in got):
+        raise AssertionError(f"the replayed step is not bitwise the eager one: {got}")
     l1, _, w1, w2 = got
     bounds = (GRAPH_WEIGHT_REL, GRAPH_MODEL2_REL)
     if kernel is None:
@@ -988,6 +1013,10 @@ def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) ->
         raise AssertionError(f"the replayed step differs from the eager one: {got} (bounds "
                              f"{bounds})")
 
+    result = {"device_ms_per_step": device["device_ms_per_step"],
+              "device_ops_per_step": device["device_ops_per_step"]}
+    if not restore:
+        return result
     # 3. a restore seen by the next replay: eval steps over the train split
     # (the cases have no val split at 20 realizations), the warm-up steps
     # and capture before the restore
@@ -1019,8 +1048,7 @@ def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True) ->
     if err > GRAPH_LOSS_RTOL or np.allclose(moved, want, rtol=GRAPH_LOSS_RTOL, atol=0):
         raise AssertionError("the replay after a restore did not compute with the restored "
                              "weights")
-    return {"device_ms_per_step": device["device_ms_per_step"],
-            "device_ops_per_step": device["device_ops_per_step"]}
+    return result
 
 
 def _counted_training(kernel: str, train):
@@ -1708,28 +1736,190 @@ def phase_knobs(base_dir: str) -> dict:
     return counts
 
 
+def phase_datagen(base_dir: str) -> dict:
+    """Data generation at the default case: ``python -m srm_tpu_torch
+    generate-data`` (39×39×1, 200 realizations, with the Eclipse decks; host
+    work with the numpy sampler, as in the JAX package) into ``base_dir``,
+    timed, its tree checked (the splits, the 200 PERMX decks, the grid's
+    mode count); then the on-device sampler ``generate_kle_torch`` at the
+    same grid and 200 realizations (``tools/kle_sampler.py``: two calls,
+    host and CUDA-event times, the same fields from the same seed, the
+    log-field mean and pooled variance within their statistical bounds),
+    its mode count against the numpy sampler's (equal, or one apart: the
+    float32 eigendecomposition may put the energy cut one mode off).
+    Returns the numbers."""
+    import numpy as np
+    from srm_tpu_torch.tools.kle_sampler import run
+
+    out_dir = os.path.join(base_dir, "generate_data")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "srm_tpu_torch", "generate-data", "--base-dir",
+                           out_dir], cwd=ROOT, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"generate-data failed: {proc.stderr[-3000:]}")
+    folder = proc.stdout.strip().splitlines()[-1].split("written to ", 1)[1]
+    with open(os.path.join(folder, "grid.json")) as f:
+        host_modes = json.load(f)["num_modes"]
+    with open(os.path.join(folder, "split_info.json")) as f:
+        counts = json.load(f)["counts"]
+    decks = [os.path.join(d, f) for d, _, files in os.walk(folder) for f in files
+             if f.endswith(".dat")]
+    fields = np.load(os.path.join(folder, "realizations_all.npy"))
+    if counts != {"train": 60, "val": 0, "test": 140} or len(decks) != 200 or \
+            fields.shape != (200, 1, 39, 39) or not np.all(fields > 0):
+        raise AssertionError(f"generate-data tree: counts {counts}, {len(decks)} decks, fields "
+                             f"{fields.shape}")
+    log(f"generate-data (39x39x1, 200 realizations, 200 decks): {secs:.2f} s, "
+        f"{host_modes} modes (numpy sampler, float64 eigh on the host)")
+    kle = run(39, 1, 200, reps=2, device="cuda")
+    log(f"generate_kle_torch on the card (39x39, 200 realizations): {kle['num_modes']} modes "
+        f"against the numpy sampler's {host_modes} (difference "
+        f"{kle['num_modes'] - host_modes}); calls {kle['host_s']} s on the host, "
+        f"{kle['event_ms']} ms by CUDA events, peak {kle['peak_alloc_mib']:.1f} MiB; log-field "
+        f"mean {kle['log_mean']:.5f} (mu_log {kle['mu_log']:.5f} +- {kle['mean_bound']:.5f}), "
+        f"pooled variance {kle['pooled_var']:.5f} ({kle['want_var']:.5f} +- "
+        f"{kle['var_bound']:.5f})")
+    if abs(kle["num_modes"] - host_modes) > 1:
+        raise AssertionError(f"mode counts {kle['num_modes']} (card) and {host_modes} (numpy)")
+    return {"generate_data_s": secs, "numpy_modes": host_modes, **kle}
+
+
+# the well solver's paths (well_solver_kwargs of setup_case) and the default
+# paths they are set beside: the Newton BHP on DG 2D (B1), the blocking
+# factor with its Newton saturation roots on GC 2D (B3)
+WELL_PATHS = {
+    "dg2d_newton_bhp": dict(fluid="DG", kernel="dg_stencil_residual",
+                            well_solver_kwargs={"use_non_iterative": False}),
+    "gc2d_blocking": dict(fluid="GC", kernel="gc_stencil_residual",
+                          well_solver_kwargs={"use_blocking_factor": True}),
+}
+
+
+def phase_well_solvers(base_dir: str, defaults: dict) -> dict:
+    """The well solver's two paths at 39×39, 20 realizations, full widths,
+    batch 32, f32: ``setup_case(..., well_solver_kwargs=)``, two epochs
+    through the graphed trainer (each loss evaluation through its kernel,
+    each step's backward through its backward kernel, nothing else), the
+    kernel against its plain version on the trained models' inputs,
+    ``phase_graph``'s checks with the replay bitwise the eager step; the
+    steps/s, device ms and operations per step and capture seconds printed
+    beside the default path's (``defaults``, the main paths' numbers); the
+    replay is held to the eager step over 6 steps and the restore check is
+    left to the main paths. On
+    the Newton path also ``log_iterations`` under replay: one file per
+    step, each replay's its own. Returns the launch counts of each path."""
+    from srm_tpu_torch.examples.common import setup_case
+
+    counts = {}
+    for name, spec in WELL_PATHS.items():
+        t_path = time.time()
+        kernel, kw = spec["kernel"], spec["well_solver_kwargs"]
+        g = _labelled_config("DG") if spec["fluid"] == "DG" else None
+        case, secs = _timed(lambda: setup_case(spec["fluid"], base_dir=base_dir,
+                                               n_realizations=20, general_config=g,
+                                               well_solver_kwargs=kw, device="cuda"))
+        well = case["models"]["well_rate_bhp_model"]
+        if any(getattr(well, k) != v for k, v in kw.items()) or \
+                not case["loss_fn"].use_cuda_stencil:
+            raise AssertionError(f"{name}: the well solver's knobs or the stencil not taken")
+        trainer, history, counts[name], steps_per_s, peak = _train_epochs(case, kernel, 32)
+        capture = dict(trainer.capture_seconds)
+        x_all = trainer._resident["train"][0]
+        _stencil_agrees(case["loss_fn"], kernel, x_all[:32], x_all.shape[2:-1])
+        # the restore check is the trainer's, held on the main paths, and 6
+        # steps (3 replayed) in place of 9: the blocking path's eager steps
+        # take seconds each (~95k launches)
+        device = phase_graph(trainer, kernel, bitwise=True, restore=False, steps=6)
+        base = defaults[kernel]
+        log(f"{name} (setup {secs:.1f} s): last step loss {history['step_total_loss'][-1]:.6e}; "
+            f"launches {counts[name]}; {steps_per_s:.3f} steps/s in epoch 2 (default path "
+            f"{base['steps_per_s']:.3f}), {device['device_ms_per_step']:.3f} device ms "
+            f"({base['device_ms_per_step']:.3f}) and {device['device_ops_per_step']:.1f} "
+            f"device operations per step ({base['device_ops_per_step']:.1f}), capture "
+            f"{capture['train']:.3f} s train + {capture['eval']:.3f} s eval "
+            f"({base['capture_s']['train']:.3f} + {base['capture_s']['eval']:.3f}), peak "
+            f"memory {peak:.1f} MiB")
+        if name == "dg2d_newton_bhp":
+            _replayed_iteration_logs(case, os.path.join(base_dir, "iteration_logs"))
+        log(f"[{name}: {time.time() - t_path:.1f} s]")
+        del case, trainer, well
+        _free_cached()
+    return counts
+
+
+def _replayed_iteration_logs(case, log_dir: str, steps: int = 6) -> None:
+    """``log_iterations`` on the trained Newton-BHP path under replay: a
+    graphed trainer of a copy of its loss (the well model logging into
+    ``log_dir``) runs ``steps`` steps, 3 eager then replays; each step
+    writes one file of the pwf history (max_iters rows and the final one)
+    after it, and no two steps' files are the same (a replay that left its
+    buffer stale would repeat the step before)."""
+    import copy
+
+    from srm_tpu_torch.training.trainer import Trainer
+    loss = _copy_loss(case["loss_fn"])
+    well = copy.copy(loss.models["well_rate_bhp_model"])
+    well.log_iterations, well.log_dir = True, log_dir
+    well._log_buffers, well._log_written = {}, {}
+    loss.models = {**loss.models, "well_rate_bhp_model": well}
+    trainer = Trainer(loss, seed=3)
+    trainer.stage_dataset("train", case["train_groups"], 32)
+    _, secs = _timed(lambda: _train_steps(trainer, steps))
+    texts = []
+    for f in os.listdir(log_dir):
+        with open(os.path.join(log_dir, f)) as fh:
+            texts.append(fh.read())
+    rows = {len(t.splitlines()) for t in texts}
+    if len(texts) != steps or trainer.replays["train"] != steps - trainer.warmup_steps or \
+            rows != {well.max_iters + 2} or len(set(texts)) != steps:
+        raise AssertionError(f"log_iterations under replay: {len(texts)} files "
+                             f"({len(set(texts))} distinct) for {steps} steps "
+                             f"({trainer.replays} replays), rows {rows}")
+    log(f"log_iterations under replay: {len(texts)} pwf histories for {steps} steps "
+        f"({trainer.replays['train']} replays) in {secs:.2f} s, each replay's its own")
+    del trainer, loss
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "srm_tpu_torch")):
         raise SystemExit("chip_smoke: run from the root of a checkout of the repository")
     sys.path.insert(0, ROOT)
     t_start = time.time()
+    marks = [t_start]
+
+    def mark(what: str) -> None:
+        """The host seconds since the previous mark, logged."""
+        marks.append(time.time())
+        log(f"[{what}: {marks[-1] - marks[-2]:.1f} s]")
+
     phase_device()
     phase_build()
+    mark("device and build")
     measured = {name: phase_kernels(name) for name in KERNELS}
     measured.update({name: phase_backward(name) for name in BACKWARD})
+    mark("kernels")
     # the cases' datasets go under the checkout's build/ (listed in .gitignore)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     counts, f32 = {}, {}
     with tempfile.TemporaryDirectory(prefix="smoke_data_", dir=os.path.join(ROOT, "build")) as tmp:
+        phase_datagen(tmp)
+        mark("datagen")
         phase_labels(tmp)
+        mark("labels")
         counts["dg_stencil_residual"], dg_case, f32["dg_stencil_residual"] = phase_main_path(
             tmp, "dg_stencil_residual", general_config=_labelled_config("DG"))
+        mark("main path DG 2D")
         counts["dg3d_stencil_residual"], _, f32["dg3d_stencil_residual"] = phase_main_path(
             tmp, "dg3d_stencil_residual", nz=10, kle_method="uncorrelated")
-        counts["gc_stencil_residual"], gc_case, _ = phase_main_path(tmp, "gc_stencil_residual",
-                                                                    fluid="GC")
+        mark("main path DG 3D")
+        counts["gc_stencil_residual"], gc_case, f32["gc_stencil_residual"] = phase_main_path(
+            tmp, "gc_stencil_residual", fluid="GC")
+        mark("main path GC 2D")
         phase_serving(tmp, dg_case, gc_case)
+        mark("serving")
         porosity = phase_porosity(dg_case)
+        mark("porosity")
         del dg_case, gc_case
         production = {
             "dg_stencil_residual": phase_production(tmp, "dg_stencil_residual",
@@ -1737,10 +1927,17 @@ def main() -> int:
             "dg3d_stencil_residual": phase_production(
                 tmp, "dg3d_stencil_residual", f32["dg3d_stencil_residual"], nz=10,
                 kle_method="uncorrelated")}
+        mark("production")
         drawdown = {"gc_stencil_residual": phase_drawdown(tmp)}
+        mark("drawdown")
         gc3d = phase_gc3d(tmp)
+        mark("gc3d")
         remat = phase_remat(tmp)
+        mark("remat")
         knobs = phase_knobs(tmp)
+        mark("knobs")
+        well = phase_well_solvers(tmp, f32)
+        mark("well solvers")
     # each kernel's launches on its own f32 main path (a backward kernel's on
     # its forward's), and on each path of this run that runs it (the per-cell
     # porosity path runs the unfused residual: B1 0; gas condensate in 3D
@@ -1749,7 +1946,8 @@ def main() -> int:
              "b256": {"dg3d_stencil_residual": remat["b256"]},
              "b256_remat": {"dg3d_stencil_residual": remat["b256_remat"]},
              "pad48_width64": {"dg_stencil_residual": knobs},
-             "porosity_field": {"dg_stencil_residual": porosity["field"]}}
+             "porosity_field": {"dg_stencil_residual": porosity["field"]},
+             **{path: {WELL_PATHS[path]["kernel"]: c} for path, c in well.items()}}
     log(f"gas condensate 3D launches (no kernel): {gc3d}")
     by_path = {name: {path: c[fwd][spec["counter"]] for path, c in paths.items() if fwd in c}
                for name, spec in {**KERNELS, **BACKWARD}.items()

@@ -1,5 +1,6 @@
 """srm_tpu_torch command-line interface.
 
+    python -m srm_tpu_torch generate-data [--base-dir DIR] [--realizations N] [--no-dat]
     python -m srm_tpu_torch train --fluid DG|GC [--epochs N] [--batch-size B]
                                   [--nx N] [--realizations K] [--base-dir DIR]
                                   [--checkpoint-dir DIR] [--resume]
@@ -13,8 +14,12 @@
                                    [--platforms cpu,cuda] [--checkpoint-dir DIR]
                                    [--device cuda|cpu] ...
 
-Port of the ``train``, ``predict`` and ``export`` commands of
-``srm_tpu/__main__.py`` for dry gas and gas condensate.
+Port of the ``generate-data``, ``train``, ``predict`` and ``export``
+commands of ``srm_tpu/__main__.py`` for dry gas and gas condensate.
+``generate-data`` writes the KLE dataset tree (grids, splits, summaries
+and the ``PERMX_nnnn.dat`` Eclipse decks, ``--no-dat`` without them) under
+``--base-dir``: host work with the numpy sampler in both packages, so the
+files are byte-identical to the JAX package's; it uses no device.
 ``train`` builds the case (dataset, models, loss),
 trains on the first GPU (``--device cuda``, the default; without a usable
 CUDA device it fails) or, when asked with ``--device cpu``, on the CPU, and
@@ -81,6 +86,17 @@ def _case_presets(args, train: bool = False):
             opt_cfgs = drawdown_optimizer_configs()
         setup_kwargs = dict(GC_DRAWDOWN_CASE)
     return fluid, g, opt_cfgs, setup_kwargs
+
+
+def cmd_generate_data(args) -> int:
+    from srm_tpu_torch.data.kle_generator import KLConfig, generate_and_save_realizations
+    cfg = KLConfig.from_reservoir_config()
+    if args.realizations:
+        cfg.n_realizations = args.realizations
+    folder = generate_and_save_realizations(cfg, base_dir=args.base_dir,
+                                            write_dat_files=not args.no_dat)
+    print(f"KLE dataset written to {folder}")
+    return 0
 
 
 def cmd_train(args) -> int:
@@ -200,6 +216,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="srm_tpu_torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="command", required=True)
+    gd = sub.add_parser("generate-data",
+                        help="generate the KLE dataset + Eclipse decks (host work with the "
+                             "numpy sampler, as in the JAX package; no device)")
+    gd.add_argument("--base-dir", default=None)
+    gd.add_argument("--realizations", type=int, default=None)
+    gd.add_argument("--no-dat", action="store_true")
+    gd.set_defaults(fn=cmd_generate_data)
+
     t = sub.add_parser("train", help="train the SRM")
     t.add_argument("--fluid", default="DG", type=str.upper, choices=["DG", "GC"])
     t.add_argument("--epochs", type=int, default=5)

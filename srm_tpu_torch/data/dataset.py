@@ -4,12 +4,16 @@ Port of ``srm_tpu/data/dataset.py::SRMDataProcessor``: KLE realizations →
 per-split time tensors (with shut-in times) → positional midpoint grids →
 woven features ``(K, T, D, H, W, 5)`` with channels
 ``(z, y, x, time, permx)`` → train-split statistics → lnk-linear
-normalization → (features, labels) groups. With
-``label_source="simulator"`` labels come from the port's FV simulator
-(``srm_tpu_torch.sim``, on the processor's ``device``): in physics mode
-(``physics_mode_fraction >= 1``) the test split's only, the others being
-zeros; in data and mixed mode every split's (``srm_tpu/data/dataset.py:217-243``),
-so the label statistics come from real train labels. The prediction split
+normalization → (features, labels) groups. A split's labels come, first,
+from simulator output files parsed by ``pipeline.py`` when the split's
+``dat_files_{split}_{hash}/dynamic`` directory exists; else, with
+``label_source="simulator"``, from the port's FV simulator
+(``srm_tpu_torch.sim``, on the processor's ``device``); else they are
+zeros. In physics mode (``physics_mode_fraction >= 1``) only the test split
+is labelled; in data and mixed mode with simulator labels every split is
+(``srm_tpu/data/dataset.py:217-243``), so the label statistics come from
+real train labels. ``general_config["array_pipeline"]["slices"]`` re-slices
+the labels' time axis (``pipeline.process_array``). The prediction split
 takes its labels from the test split's.
 
 The cache files are the reference's: ``training_data_{hash}.npz`` and
@@ -17,8 +21,8 @@ The cache files are the reference's: ``training_data_{hash}.npz`` and
 ``static_dynamic/{name}_{hash}/``, keyed by
 ``srm_tpu_torch.config.generate_full_config_hash``, the port's copy of the
 JAX package's: while the two hashes agree (``tests/test_torch_config.py``),
-either package reads what the other wrote. Labels parsed from simulator
-files and their time re-slicing (ROADMAP A15) are not ported.
+either package reads what the other wrote, and so is the parsed-results
+cache ``dynamic/output/combined_results.npz``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from srm_tpu_torch.config import (
     generate_full_config_hash,
 )
 from srm_tpu_torch.data.kle import generate_kle_numpy, split_realizations
+from srm_tpu_torch.data.pipeline import process_array, run_pipeline_for_directory
 from srm_tpu_torch.data.weave import (align_and_trim_pair_lists, create_positional_grids,
                                       split_tensor_sequence, weave_tensors)
 from srm_tpu_torch.utils.stats import DataSummary, compute_statistics, normalize_channels
@@ -82,13 +87,13 @@ class SRMDataProcessor:
 
     # -- pieces ---------------------------------------------------------------
     def generate_kle_splits(self) -> Dict[str, np.ndarray]:
-        """Permeability realizations split along axis 0: the dense KLE
-        sampler, or iid log-normal fields for ``method="uncorrelated"``
-        (srm_tpu/data/dataset.py:79-91), the 3D cases' sampler."""
+        """Permeability realizations split along axis 0: iid log-normal
+        fields for ``method="uncorrelated"`` (the 3D cases' sampler), the
+        dense KLE sampler for any other method, as in
+        ``srm_tpu/data/dataset.py:79-104``."""
         res = self.reservoir_config
         spec = res["realizations"]["permx"]
-        method = spec.get("method", "KLE")
-        if method == "uncorrelated":
+        if spec.get("method") == "uncorrelated":
             rng = np.random.RandomState(spec.get("seed") or self.seed)
             shape = (spec["number"], res["Nz"], res["Ny"], res["Nx"])
             mu, sig = np.log(spec["mean"]), spec["std"] / spec["mean"]
@@ -97,8 +102,6 @@ class SRMDataProcessor:
                                         self.general_config["split_sampling_method"],
                                         self.seed)
             return {k: splits[k] for k in self.split_keys}
-        if method != "KLE":
-            raise NotImplementedError(f"permeability method {method!r} is not ported yet")
         fields, num_modes, _ = generate_kle_numpy(
             n_realizations=spec["number"],
             Nx=res["Nx"], Ny=res["Ny"], Nz=res["Nz"],
@@ -158,32 +161,42 @@ class SRMDataProcessor:
     def label_keys(self) -> List[str]:
         return ["PRESSURE"] if self.general_config["fluid_type"] == "DG" else ["PRESSURE", "SGAS"]
 
-    def _check_physics_mode(self):
-        """Refuse what the port cannot build yet, before any work."""
-        g = self.general_config
-        if (g.get("array_pipeline") or {}).get("slices") is not None:
-            raise NotImplementedError("array_pipeline.slices (the labels' time re-slicing, "
-                                      "pipeline.process_array) is not ported yet (ROADMAP A15)")
-        _, h = self.config_hash()
-        sim_dir = os.path.join(self.kle_folder(), f"dat_files_test_{h}", "dynamic")
-        if os.path.isdir(sim_dir):
-            raise NotImplementedError(
-                f"labels parsed from the simulator files in {sim_dir} (the Eclipse parsers) "
-                f"are not ported yet (ROADMAP A15)")
-
     def simulation_labels(self, split: str, permx: Optional[np.ndarray] = None,
                           times: Optional[np.ndarray] = None) -> Optional[Dict[str, np.ndarray]]:
-        """The split's labels from the FV simulator, in feature grid order
-        ``(K, T, Nz, Ny, Nx)``, when ``label_source == "simulator"``; else
-        None (the caller falls back to zero labels)."""
-        if self.general_config.get("label_source") != "simulator":
+        """The split's labels in feature grid order ``(K, T, Nz, Ny, Nx)``, or
+        None (the caller falls back to zero labels); as
+        ``srm_tpu/data/dataset.py:161-205``:
+
+        1. parsed simulator files, if ``dat_files_{split}_{hash}/dynamic``
+           exists (``pipeline.run_pipeline_for_directory``, whose Eclipse
+           F-order ``(..., Nx, Ny, Nz)`` arrays are transposed here);
+        2. the FV simulator, when ``label_source == "simulator"``;
+
+        then re-sliced on the time axis by
+        ``general_config["array_pipeline"]["slices"]`` (``process_array``)."""
+        _, h = self.config_hash()
+        sim_dir = os.path.join(self.kle_folder(), f"dat_files_{split}_{h}", "dynamic")
+        data = None
+        if os.path.isdir(sim_dir):
+            res = self.reservoir_config
+            data = run_pipeline_for_directory(sim_dir, shape=(res["Nx"], res["Ny"], res["Nz"]))
+            if data is not None:
+                data = {k: np.transpose(v, tuple(range(v.ndim - 3))
+                                        + (v.ndim - 1, v.ndim - 2, v.ndim - 3))
+                        for k, v in data.items()}
+        if data is None and self.general_config.get("label_source") == "simulator":
+            from srm_tpu_torch.sim import simulate_labels
+            data = simulate_labels(self, split, permx=permx, times=times, device=self.device)
+        if data is None:
             return None
-        from srm_tpu_torch.sim import simulate_labels
-        return simulate_labels(self, split, permx=permx, times=times, device=self.device)
+        ap = self.general_config.get("array_pipeline") or {}
+        if ap.get("slices") is not None:
+            data = {k: process_array(v, slices=ap["slices"], slice_dim=ap.get("slice_dim", 1),
+                                     reshape_dims=None) for k, v in data.items()}
+        return data
 
     # -- full pipeline ----------------------------------------------------------
     def process_data(self):
-        self._check_physics_mode()
         kle = self.generate_kle_splits()
         times = self.generate_time_tensor()
         grids = self.positional_grids()

@@ -11,7 +11,10 @@ encoder depth (``EncoderDecoder``). For gas condensate in 3D,
 ``general_config["label_source"] = "files"`` gives zero labels, which the
 physics-mode loss never reads, so that no split is simulated. ``pi`` and ``min_bhp`` set the initial pressure and
 the wells' BHP floor (the reference's drawdown scenarios); both enter the
-config hash.
+config hash. ``well_solver_kwargs`` pass through to the well model
+(``physics/well_solver.py``): ``{"use_non_iterative": False}`` solves the
+BHP by Newton, ``{"use_blocking_factor": True}`` adds the blocking-factor
+integral; the JAX CLI has no flag for either, so these paths run from here.
 
 The case runs on the GPU: ``device=None`` means ``"cuda"``, and without a
 usable CUDA device the call raises. Pass ``device="cpu"`` to run on the CPU.
@@ -38,6 +41,7 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
                general_config: Optional[Dict] = None, seed: Optional[int] = None,
                nz: Optional[int] = None, kle_method: Optional[str] = None,
                pi: Optional[float] = None, min_bhp: Optional[float] = None,
+               well_solver_kwargs: Optional[Dict] = None,
                device: Optional[torch.device] = None) -> Dict:
     """Build everything for one training case; returns a dict bundle."""
     fluid_type = fluid_type.upper()
@@ -84,7 +88,8 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
     data_summary = DataSummary([statistics])
     models = build_model_map(train_groups[0][0].shape, device, fluid_type=fluid_type,
                              general_config=g, reservoir_config=res,
-                             wells_config=processor.wells_config, data_summary=data_summary)
+                             wells_config=processor.wells_config, data_summary=data_summary,
+                             well_solver_kwargs=well_solver_kwargs)
     loss_fn = PhysicsLoss(models, data_summary,
                           optimizer_model_names_map=get_optimizer_model_mapping(fluid_type),
                           general_config=g, reservoir_config=res,

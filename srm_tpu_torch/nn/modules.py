@@ -157,10 +157,15 @@ def build_model_map(input_shape: Tuple[int, ...], device: torch.device,
                     general_config: Optional[Dict] = None,
                     reservoir_config: Optional[Dict] = None,
                     wells_config: Optional[Dict] = None,
-                    data_summary=None) -> Dict[str, Any]:
+                    data_summary=None,
+                    well_solver_kwargs: Optional[Dict] = None) -> Dict[str, Any]:
     """All models keyed by the reference's logical names: 'pressure',
     'time_step', 'pvt_model', 'well_rate_bhp_model' and, for gas condensate,
-    'saturation_model'.
+    'saturation_model'. ``well_solver_kwargs`` pass through to
+    ``WellRatesPressure`` (``use_non_iterative=False`` for the Newton BHP,
+    ``use_blocking_factor=True`` for the blocking integral; both
+    differentiable, so they may sit inside the training loss), as in
+    ``srm_tpu/nn/modules.py:271-274``.
 
     ``input_shape`` is the training-data shape: (K, T, 1, H, W, C) in 2D,
     where a model input (B, 1, H, W, C) folds the singleton as its temporal
@@ -177,7 +182,7 @@ def build_model_map(input_shape: Tuple[int, ...], device: torch.device,
         "pvt_model": build_pvt_model(fluid_type, g).to(device),
         "well_rate_bhp_model": WellRatesPressure(
             data_summary, device, fluid_type=fluid_type, general_config=g,
-            reservoir_config=res, wells_config=wells_config),
+            reservoir_config=res, wells_config=wells_config, **(well_solver_kwargs or {})),
     }
     if fluid_type == "GC":
         models["saturation_model"] = build_saturation_model(sample_shape, g, res,

@@ -125,6 +125,8 @@ class Trainer:
         self._pool = torch.cuda.graph_pool_handle() if self.cuda_graph else None
         self._side_stream = None
         self.replays = {"train": 0, "eval": 0}
+        #: host seconds of each kind's captures (graph recorded and instantiated)
+        self.capture_seconds = {"train": 0.0, "eval": 0.0}
 
     # -- the step function (eager on the CPU, captured on the card) ---------
     @staticmethod
@@ -172,9 +174,11 @@ class Trainer:
             return
         if s.graph is None:
             before = {c: getattr(st, c) for c in st.COUNTERS}
+            t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool):
                 body(s)
+            self.capture_seconds[kind] += time.perf_counter() - t0
             # the capture launched nothing: take its counts back, add them per replay
             s.counts = {c: getattr(st, c) - before[c] for c in st.COUNTERS}
             for c in st.COUNTERS:
@@ -184,6 +188,12 @@ class Trainer:
         for c, n in s.counts.items():
             setattr(st, c, getattr(st, c) + n)
         self.replays[kind] += 1
+        # a replayed well solve keeps its iteration logs in device buffers
+        # (an eager one writes them itself): written here, one
+        # synchronisation per replay, only with log_iterations on
+        well = self.models.get("well_rate_bhp_model")
+        if getattr(well, "log_iterations", False):
+            well.flush_iteration_logs()
 
     def _state(self, kind: str, source: str, x_all, y_all, bs: int, nb: int) -> _StepState:
         key = (kind, source, bs)

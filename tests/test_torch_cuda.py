@@ -771,3 +771,63 @@ def test_remat_graph_replay_matches_the_step_without_it(small_cases, monkeypatch
     key = graphed.optimizer_keys[0]
     start = [p.detach() for p in case["models"][key].parameters()]
     assert _updates_apart(graphed, plain, key, start) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fluid, kwargs", [
+    ("DG", {"use_non_iterative": False}),
+    ("GC", {"use_blocking_factor": True}),
+])
+def test_well_solver_paths_replay_bitwise_the_eager_step(fluid, kwargs, tmp_path, monkeypatch):
+    """The well solver's Newton BHP (dry gas) and blocking factor (gas
+    condensate) inside the captured step: from the same weights on the same
+    batches the graphed trainer and the eager one give the same step losses
+    and updates bit for bit (cuDNN deterministic; every loop of the solve
+    has a fixed trip count, so the graph replays the eager step's kernels),
+    and the stencil kernel and its backward launch once per step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from srm_tpu_torch.examples.common import setup_case
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    case = setup_case(fluid, base_dir=str(tmp_path), nx=9, n_realizations=6, device="cuda",
+                      well_solver_kwargs=kwargs)
+    eager = _trainer(case, cuda_graph=False)
+    for c in st.COUNTERS:
+        monkeypatch.setattr(st, c, 0)
+    graphed = _trainer(case)
+    losses = {name: np.concatenate([t.train_epoch_resident("train")["total"] for _ in range(2)])
+              for name, t in (("graphed", graphed), ("eager", eager))}
+    nb, warm = graphed._resident["train"][2], graphed.warmup_steps
+    assert graphed.replays["train"] == 2 * nb - warm
+    fwd, bwd = (("launches", "launches_bwd") if fluid == "DG"
+                else ("launches_gc", "launches_gc_bwd"))
+    assert getattr(st, fwd) == getattr(st, bwd) == 4 * nb        # both trainers
+    np.testing.assert_array_equal(losses["graphed"], losses["eager"])
+    for key in graphed.optimizer_keys:
+        for a, b in zip(graphed.optimizers[key].params, eager.optimizers[key].params):
+            assert torch.equal(a, b), key
+
+
+@pytest.mark.cuda
+def test_iteration_logs_are_written_after_each_replay(tmp_path):
+    """``log_iterations`` inside the captured step: the history goes to
+    device buffers, and the trainer writes one file after each step, the
+    replayed ones each with their own values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import os
+
+    from srm_tpu_torch.examples.common import setup_case
+    log_dir = tmp_path / "logs"
+    case = setup_case("DG", base_dir=str(tmp_path), nx=9, n_realizations=6, device="cuda",
+                      well_solver_kwargs={"use_non_iterative": False, "max_iters": 5,
+                                          "log_iterations": True, "log_dir": str(log_dir)})
+    trainer = _trainer(case)
+    losses = np.concatenate([trainer.train_epoch_resident("train")["total"] for _ in range(2)])
+    steps = len(losses)
+    assert trainer.replays["train"] == steps - trainer.warmup_steps > 0
+    texts = [(log_dir / f).read_text() for f in os.listdir(log_dir)]
+    assert len(texts) == len(set(texts)) == steps
+    assert {len(t.splitlines()) for t in texts} == {5 + 2}

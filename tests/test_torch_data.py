@@ -107,13 +107,40 @@ def test_collapse_groups_matches_batch_generator(both):
     np.testing.assert_array_equal(y["PRESSURE"], bg.y_all["PRESSURE"])
 
 
-def test_non_physics_modes_are_refused(tmp_path):
-    """Data and mixed modes are ported (ROADMAP A11); what they would need
-    and the port lacks, labels re-sliced in time (A15), is refused before
-    any work."""
+def _fake_simulate_labels(proc, split, permx=None, times=None, **kw):
+    """Seeded labels of the simulator's shape (K, T, Nz, Ny, Nx), the same
+    in both packages, in place of a simulator run."""
+    rng = np.random.RandomState({"train": 1, "val": 2, "test": 3}[split])
+    shape = (permx.shape[0], times.shape[0]) + permx.shape[1:]
+    return {k: rng.uniform(4000.0, 5000.0, shape).astype(np.float32)
+            for k in proc.label_keys()}
+
+
+def test_non_physics_modes_are_refused(tmp_path, monkeypatch):
+    """Data and mixed modes are ported (ROADMAP A11), and now so is what
+    they were refused for, labels re-sliced in time (A15): in mixed mode
+    with simulator labels every split's labels are re-sliced by
+    ``array_pipeline.slices`` and trimmed with their features as the JAX
+    package does; both packages build the same dataset (the simulator
+    replaced by the same seeded labels in each)."""
+    monkeypatch.setattr("srm_tpu.sim.simulate_labels", _fake_simulate_labels)
+    monkeypatch.setattr("srm_tpu_torch.sim.simulate_labels", _fake_simulate_labels)
     g = copy.deepcopy(DEFAULT_GENERAL_CONFIG)
     g["physics_mode_fraction"] = 0.5
+    g["label_source"] = "simulator"
     g["array_pipeline"] = {"slices": [0, 10]}
-    proc = _resize(SRMDataProcessor(base_dir=str(tmp_path), general_config=g))
-    with pytest.raises(NotImplementedError, match="A15"):
-        proc.get_or_generate_training_data()
+    out = {}
+    for name, cls in (("jax", JaxProcessor), ("port", SRMDataProcessor)):
+        proc = _resize(cls(base_dir=str(tmp_path / name), general_config=g))
+        out[name] = proc.get_or_generate_training_data()[1:]
+    for split, (ja, ta) in enumerate(zip(out["jax"], out["port"])):
+        for fj, ft in _pairs(ja, ta):
+            assert ft.shape == fj.shape
+            np.testing.assert_allclose(ft, fj, rtol=1e-6, atol=1e-6, err_msg=str(split))
+    # the train labels: the simulator's at the time indices 0 and 10
+    (x, y), = out["port"][0]
+    proc = _resize(SRMDataProcessor(base_dir=str(tmp_path / "port"), general_config=g))
+    full = _fake_simulate_labels(proc, "train", permx=proc.generate_kle_splits()["train"],
+                                 times=proc.generate_time_tensor()["train"])["PRESSURE"]
+    assert x.shape[1] == 2 and y["PRESSURE"].shape == x.shape[:-1]
+    np.testing.assert_array_equal(y["PRESSURE"], full[:, [0, 10]])

@@ -86,8 +86,18 @@ def test_same_statistics(both):
 
 
 def test_unknown_method_is_refused(tmp_path):
-    proc = _resize(SRMDataProcessor(base_dir=str(tmp_path),
-                                    general_config=copy.deepcopy(DEFAULT_GENERAL_CONFIG)))
-    proc.reservoir_config["realizations"]["permx"]["method"] = "gaussian_process"
-    with pytest.raises(NotImplementedError, match="gaussian_process"):
-        proc.generate_kle_splits()
+    """A method other than "uncorrelated" is no longer refused: as in the
+    JAX package (srm_tpu/data/dataset.py:79-104) it takes the dense KLE
+    sampler, so "gaussian_process" gives the "KLE" fields in both packages."""
+    splits = {}
+    for name, cls, method in (("port", SRMDataProcessor, "gaussian_process"),
+                              ("jax", JaxProcessor, "gaussian_process"),
+                              ("kle", SRMDataProcessor, "KLE")):
+        proc = _resize(cls(base_dir=str(tmp_path / name),
+                           general_config=copy.deepcopy(DEFAULT_GENERAL_CONFIG)))
+        proc.reservoir_config["realizations"]["permx"]["method"] = method
+        splits[name] = proc.generate_kle_splits()
+    for split, want in splits["jax"].items():
+        assert want.shape[1:] == (N, N, N)
+        np.testing.assert_array_equal(splits["port"][split], want)
+        np.testing.assert_array_equal(splits["kle"][split], want)

@@ -1,7 +1,8 @@
 """The port stands alone: it never imports JAX nor anything of the JAX
-package (its training steps, the production and drawdown presets among
-them, its simulator labels and its RMSE, its predictor and serving
-bundle), its entry points run on the GPU unless the
+package (its training steps, the production and drawdown presets and the
+well solver's Newton BHP and blocking factor among them, its data
+generation and parsed labels, its simulator labels and its RMSE, its
+predictor and serving bundle), its entry points run on the GPU unless the
 caller asks for the CPU,
 and its chip check imports nothing of the JAX package and refuses to run,
 and prints no result, without a GPU or outside a checkout."""
@@ -140,6 +141,67 @@ def test_drawdown_step_never_imports_jax(tmp_path):
     script = _isolated_step(
         tmp_path, "nx=9, general_config=cfg.apply_drawdown_overrides(cfg.DEFAULT_GENERAL_CONFIG), "
                   "**cfg.GC_DRAWDOWN_CASE", fluid="GC")
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+@pytest.mark.parametrize("fluid, kwargs", [
+    ("DG", '{"use_non_iterative": False, "max_iters": 4}'),
+    ("GC", '{"use_blocking_factor": True}'),
+])
+def test_well_solver_paths_never_import_jax(tmp_path, fluid, kwargs):
+    """The well solver's Newton BHP (dry gas) and blocking factor (gas
+    condensate, with its Newton saturation roots) inside a training step
+    stand alone as well."""
+    script = _isolated_step(tmp_path, f"nx=9, well_solver_kwargs={kwargs}", fluid=fluid,
+                            loss_code="assert loss.models['well_rate_bhp_model'].max_iters")
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
+def test_data_generation_and_parsed_labels_never_import_jax(tmp_path):
+    """``generate-data`` (the KLE tree with its decks) and a dataset whose
+    test labels are parsed from simulator files, re-sliced in time, stand
+    alone as well."""
+    script = textwrap.dedent(f"""
+        import copy, os, sys
+        import numpy as np
+        from srm_tpu_torch.__main__ import main
+        from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG
+        from srm_tpu_torch.data.dataset import SRMDataProcessor
+        assert main(["generate-data", "--base-dir", {str(tmp_path / "gen")!r},
+                     "--realizations", "4"]) == 0
+        g = copy.deepcopy(DEFAULT_GENERAL_CONFIG)
+        g["unit_target_shape"] = (1, 1, 9, 9, 1)
+        g["array_pipeline"] = {{"slices": [0, 2]}}
+        proc = SRMDataProcessor(base_dir={str(tmp_path / "ds")!r}, general_config=g,
+                                device="cpu")
+        res = proc.reservoir_config
+        res["Nx"] = res["Ny"] = 9
+        res["realizations"]["permx"]["number"] = 6
+        res["realizations"]["permx"]["conditional_values"] = {{(5, 5, 0): 2.0}}
+        for c in proc.wells_config["connections"]:
+            c["i"], c["j"] = min(c["i"] * 9 // 39, 8), min(c["j"] * 9 // 39, 8)
+        dyn = os.path.join(proc.kle_folder(), "dat_files_test_" + proc.config_hash()[1],
+                           "dynamic")
+        os.makedirs(dyn)
+        for k in range(4):
+            with open(os.path.join(dyn, f"R_{{k}}.FUNRST"), "w") as f:
+                for t in range(3):
+                    f.write("'PRESSURE' 81 'REAL'\\n")
+                    f.write(" ".join(str(4000.0 + t + k) for _ in range(81)) + "\\n")
+        _, _, test, _ = proc.process_data()
+        (x, y), = test
+        assert y["PRESSURE"].shape == (4, 2, 1, 9, 9) and x.shape[1] == 2
+        assert float(y["PRESSURE"][1, 1].max()) == 4003.0
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+        assert not loaded, loaded
+        ref = sorted(m for m in sys.modules if m.split(".")[0] == "srm_tpu")
+        assert not ref, ref
+        print("isolated")
+    """)
     proc = _run([sys.executable, "-c", script], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "isolated" in proc.stdout

@@ -144,10 +144,28 @@ def test_gc_well_rates_split_and_bhp_match():
 
 
 def test_blocking_factor_is_refused():
-    """The blocking-factor integral needs the root solvers, which are not
-    ported: asking for it raises instead of running without it."""
-    g, res, wells, _, _ = _well_case()
-    with pytest.raises(NotImplementedError):
-        WellRatesPressure(_Summary().torch, torch.device("cpu"), fluid_type="GC",
-                          general_config=g, reservoir_config=res, wells_config=wells,
-                          use_blocking_factor=True)
+    """The blocking-factor integral is ported (with its root solvers), so
+    asking for it is no longer refused: the model takes the knob and its
+    integrals and factors equal the JAX package's on the GC well layout
+    (the saturation root's Newton solve included; tests/test_torch_well_solver.py
+    holds the rest of the blocking path)."""
+    g, res, wells, _, p = _well_case()
+    g["fluid_type"] = "GC"
+    sg = np.random.RandomState(6).uniform(0.3, SGI, p.shape).astype(np.float32)
+    pwf = np.where(p > 4100.0, 4100.0, p).astype(np.float32)
+    ds = _Summary()
+    jax_fn, pvt = _gc_pvt_pair()
+    jw = JaxWells(fluid_type="GC", data_summary=ds.jax, pvt_fn=jax_fn, general_config=g,
+                  reservoir_config=res, wells_config=wells, use_blocking_factor=True)
+    tw = WellRatesPressure(ds.torch, torch.device("cpu"), fluid_type="GC",
+                           general_config=g, reservoir_config=res, wells_config=wells,
+                           use_blocking_factor=True)
+    want = jw.compute_blocking_integral_and_factor(
+        jnp.asarray(p), jnp.asarray(sg), JaxRelperm(), jax_fn, jnp.asarray(pwf))
+    with torch.no_grad():
+        got = tw.compute_blocking_integral_and_factor(
+            torch.from_numpy(p), torch.from_numpy(sg), pvt, torch.from_numpy(pwf))
+    for name, a, b in zip(("Ig", "Io", "blk_g", "blk_o"), got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-5 * np.abs(b).max(),
+                                   err_msg=name)

@@ -344,18 +344,33 @@ def test_each_package_reads_the_others_cache(datasets, reader):
             np.testing.assert_array_equal(gy[k], wy[k])
 
 
-def test_dataset_refuses_what_is_not_ported(tmp_path):
-    """The labels' time re-slicing (A15), in physics and in mixed mode (the
-    mixed mode itself is ported, A11)."""
-    proc = port_processor(tmp_path)
-    proc.general_config["physics_mode_fraction"] = 0.5
-    proc.general_config["array_pipeline"] = {"slices": [0, 10]}
-    with pytest.raises(NotImplementedError, match="A15"):
-        proc.process_data()
-    proc = port_processor(tmp_path)
-    proc.general_config["array_pipeline"] = {"slices": [0, 10]}
-    with pytest.raises(NotImplementedError, match="A15"):
-        proc.process_data()
+def test_dataset_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """The labels' time re-slicing (A15) is ported: in physics mode the
+    simulator's test labels are re-sliced by ``array_pipeline.slices`` and
+    trimmed with their features as the JAX package does, so both packages
+    build the same dataset (each simulator replaced by the same seeded
+    labels: the simulators themselves are held together above)."""
+    def labels(proc, split, permx=None, times=None, **kw):
+        rng = np.random.RandomState(3)
+        shape = (permx.shape[0], times.shape[0]) + permx.shape[1:]
+        return {"PRESSURE": rng.uniform(4000.0, 5000.0, shape).astype(np.float32)}
+
+    monkeypatch.setattr("srm_tpu.sim.simulate_labels", labels)
+    monkeypatch.setattr("srm_tpu_torch.sim.simulate_labels", labels)
+    out = {}
+    for name, make in (("jax", jax_processor), ("port", port_processor)):
+        proc = make(tmp_path / name)
+        proc.general_config["array_pipeline"] = {"slices": [0, 10, 20]}
+        out[name] = proc.get_or_generate_training_data()[1:]
+        times = proc.generate_time_tensor()["test"]
+        permx = proc.generate_kle_splits()["test"]
+    for split in range(4):
+        (jx, jy), (tx, ty) = _payload(out["jax"][split]), _payload(out["port"][split])
+        np.testing.assert_allclose(tx, jx, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(ty["PRESSURE"], jy["PRESSURE"])
+    _, ty = _payload(out["port"][2])
+    want = labels(None, "test", permx=permx, times=times)["PRESSURE"][:, [0, 10, 20]]
+    np.testing.assert_array_equal(ty["PRESSURE"], want)
 
 
 # -- accuracy -------------------------------------------------------------------
