@@ -128,6 +128,18 @@ the process exits non-zero:
     eager step over 6 steps (its restore check left to the main paths);
     steps/s, device ms and operations per step and capture seconds beside
     the default paths'; ``log_iterations`` under replay.
+16. polynomial PVT and network options (after the well solvers) — DG 2D
+    with ``pvt_fitting_method="polynomial"`` (39×39, 20 realizations,
+    batch 32, f32): the ``fluid_property`` optimizer a third one, two
+    graphed epochs through B1 and its backward kernel, every loss finite,
+    the coefficients changed, B1 against its plain version on the trained
+    inputs, ``phase_graph``'s checks; steps/s, device ms and operations
+    per step beside dg2d's. Then the options the model map turns off, at
+    full width on one batch of 32 at 39×39 against the same modules on
+    the CPU: the encoder–decoder with skips and ``latent_flatten``
+    (forward and backward), the residual net's distribution head with
+    BatchNorm in eval and its ``dense`` variant, Model 1 under a HardLayer
+    with the RBF modulation.
 
 The line before the last is a JSON object describing each kernel (its
 numbers at batch 32, under ``at_b128`` those at batch 128, under
@@ -383,13 +395,17 @@ def phase_device():
     from srm_tpu_torch.kernels.build import find_nvcc
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  nvcc: {nvcc}")
     log(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
-    log(smi)                                   # the card's name and power limit
+    log(card_line())
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def phase_build():
@@ -1881,6 +1897,157 @@ def _replayed_iteration_logs(case, log_dir: str, steps: int = 6) -> None:
     del trainer, loss
 
 
+# the network options on the card against the same modules on the CPU
+# (phase_options): outputs as tests/test_torch_nn.py holds the networks
+# (RTOL, atol RTOL of the output's largest magnitude: float32 convolutions
+# summed in another order), parameter gradients of sum(out · c) by their
+# relative L2 distance
+OPTIONS_RTOL, OPTIONS_GRAD_REL = 1e-4, 1e-4
+
+
+def phase_polynomial_pvt(base_dir: str, defaults: dict) -> dict:
+    """The trainable polynomial PVT (``pvt_fitting_method="polynomial"``)
+    on DG 2D at 39×39, 20 realizations, full widths, batch 32, f32: the
+    ``fluid_property`` optimizer (AdamW on the coefficients) a third one;
+    two epochs through the graphed trainer (B1 at each loss evaluation, its
+    backward kernel at each step, nothing else; every loss finite; every
+    trained model moved, the coefficients among them); B1 against its plain
+    version on the trained inputs; ``phase_graph``'s checks; steps/s,
+    device ms and operations per step beside the spline path's
+    (``defaults``). Returns the launch counts."""
+    from srm_tpu_torch.examples.common import setup_case
+
+    kernel = "dg_stencil_residual"
+    g = _labelled_config("DG")
+    g["pvt_fitting_method"] = "polynomial"
+    case, secs = _timed(lambda: setup_case("DG", base_dir=base_dir, n_realizations=20,
+                                           general_config=g, device="cuda"))
+    loss_fn, pvt = case["loss_fn"], case["models"]["pvt_model"]
+    if loss_fn.trainable_models_keys != ["pressure", "time_step", "fluid_property"] or \
+            not loss_fn.use_cuda_stencil or type(pvt).__name__ != "PolynomialPVT":
+        raise AssertionError(f"the polynomial PVT path: {loss_fn.trainable_models_keys}, "
+                             f"{type(pvt).__name__}, stencil {loss_fn.use_cuda_stencil}")
+    start = {n: p.detach().clone() for n, p in pvt.named_parameters()}
+    trainer, history, counts, steps_per_s, peak = _train_epochs(case, kernel, 32)
+    steps = int(trainer.optimizers["fluid_property"].count)
+    moved = {n: float((p.detach() - start[n]).abs().max()) for n, p in pvt.named_parameters()}
+    if steps != len(history["step_total_loss"]) or not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"fluid_property took {steps} steps; coefficients moved {moved}")
+    coeffs = {n: [float(v) for v in p.detach().cpu()] for n, p in pvt.named_parameters()}
+    x_all = trainer._resident["train"][0]
+    _stencil_agrees(loss_fn, kernel, x_all[:32], x_all.shape[2:-1])
+    capture = dict(trainer.capture_seconds)
+    device = phase_graph(trainer, kernel)
+    base = defaults[kernel]
+    losses = history["step_total_loss"]
+    log(f"dg2d_polynomial_pvt (setup {secs:.1f} s): step losses {losses[0]:.6e} ... "
+        f"{losses[-1]:.6e}; fluid_property {steps} AdamW steps, "
+        f"coefficients {coeffs} (moved {moved}); launches {counts}; {steps_per_s:.3f} steps/s "
+        f"in epoch 2 (spline path {base['steps_per_s']:.3f}), "
+        f"{device['device_ms_per_step']:.3f} device ms ({base['device_ms_per_step']:.3f}) and "
+        f"{device['device_ops_per_step']:.1f} device operations per step "
+        f"({base['device_ops_per_step']:.1f}), capture {capture['train']:.3f} s train + "
+        f"{capture['eval']:.3f} s eval, peak memory {peak:.1f} MiB")
+    del case, trainer, pvt, loss_fn
+    _free_cached()
+    return counts
+
+
+def _option_modules(seed: int = 0) -> dict:
+    """The network options at full width (the default configs' widths), from
+    a seed: the encoder–decoder with skips and ``latent_flatten``, the
+    residual net's distribution head with BatchNorm (its statistics and
+    affine parameters drawn away from their initial values) and its
+    ``dense`` variant with the distribution head, and Model 1 under a
+    HardLayer with the RBF modulation, its output projection's bias set to
+    100 so that the departure from Pi is not ~1e-3 psia. Name → (module,
+    trained, the output's offset: Pi for Model 1, compared as the
+    departure from it; else 0)."""
+    import numpy as np
+    import torch
+    from srm_tpu_torch.config import DEFAULT_RESERVOIR_CONFIG, get_configuration
+    from srm_tpu_torch.nn import modules as tmod
+    from srm_tpu_torch.nn.encoder_decoder import EncoderDecoder
+    from srm_tpu_torch.nn.hard_layer import HardLayer
+    from srm_tpu_torch.nn.residual import BatchNorm, ResidualNetwork
+
+    gen = torch.Generator().manual_seed(seed)
+    ed = get_configuration("encoder_decoder")
+    ed["temporal"] = True
+    ed["residual_params"]["Skip_Connections"] = {"Add": True, "Layers": [1, 1, 1, 1]}
+    ed["residual_params"]["Latent_Layer"]["Flatten"] = True
+    res = get_configuration("residual")
+    res.update(temporal=True, output_distribution=True)
+    bn = ResidualNetwork.from_config(dict(res, use_batch_norm=True), 5, generator=gen)
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in bn.modules():
+            if isinstance(m, BatchNorm):
+                for t, lo, hi in ((m.scale, 0.5, 1.5), (m.bias, -0.5, 0.5),
+                                  (m.mean, -0.5, 0.5), (m.var, 0.5, 2.0)):
+                    t.copy_(torch.from_numpy(rs.uniform(lo, hi, t.shape).astype(np.float32)))
+    pi = DEFAULT_RESERVOIR_CONFIG["initialization"]["Pi"]
+    pressure = tmod.build_pressure_model((1, 39, 39, 5), generator=gen)
+    pressure.hard_layer = HardLayer((1, 39, 39, 1), init_value=pi, exponent_min=0.1,
+                                    exponent_max=1.0, use_rbf=True, generator=gen)
+    with torch.no_grad():
+        pressure.network.output_proj.bias.fill_(100.0)
+    return {
+        "encoder-decoder, skips + latent_flatten":
+            (EncoderDecoder.from_config(ed, 5, generator=gen, grid=(39, 39)), True, 0.0),
+        "residual, distribution head + BatchNorm (eval)": (bn, False, 0.0),
+        "residual, dense + distribution head":
+            (ResidualNetwork.from_config(dict(res, network_type="dense"), 5, generator=gen),
+             True, 0.0),
+        "Model 1, HardLayer with RBF": (pressure, True, pi),
+    }
+
+
+def phase_options() -> None:
+    """The network options that the model map turns off, at full width on
+    the card, one batch of 32 at 39×39 (``_option_modules``): the output
+    (``training=False``; Model 1's as its departure from Pi) and, for the
+    options that train, the parameter
+    gradients of sum(out · c) against the same module with the same
+    weights on the CPU, within OPTIONS_RTOL and OPTIONS_GRAD_REL."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.uniform(-1, 1, (32, 1, 39, 39, 5)).astype(np.float32))
+
+    def run(module, xb, trained, offset):
+        params = list(module.parameters())
+        with torch.set_grad_enabled(trained):
+            out = module(xb, training=False) - offset
+        if not trained:
+            return out.detach().cpu(), []
+        c = torch.from_numpy(np.random.RandomState(2).uniform(-1, 1, tuple(out.shape))
+                             .astype(np.float32)).to(out.device)
+        grads = torch.autograd.grad((out * c).sum(), params)
+        return out.detach().cpu(), [g.cpu() for g in grads]
+
+    for name, (module, trained, offset) in _option_modules().items():
+        want, want_g = run(module, x, trained, offset)
+        got, got_g = run(copy.deepcopy(module).cuda(), x.cuda(), trained, offset)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = OPTIONS_RTOL * (want.abs() + want.abs().max())
+        if got.shape != want.shape or not torch.isfinite(got).all() or \
+                ((got - want).abs() > tol).any():
+            raise AssertionError(f"{name}: card vs CPU output, max abs err {err:.3e} of "
+                                 f"max |out| {float(want.abs().max()):.3e}")
+        grad_rel = _rel(got_g, want_g) if trained else None
+        if trained and not grad_rel <= OPTIONS_GRAD_REL:
+            raise AssertionError(f"{name}: card vs CPU gradients {grad_rel:.3e} apart")
+        log(f"option on the card, {name}: output {tuple(got.shape)}, max abs err {err:.3e} of "
+            f"max |out - {offset}| {float(want.abs().max()):.3e} from the CPU"
+            + (f"; parameter gradients {grad_rel:.3e} apart (relative L2)" if trained else
+               "; evaluated only (BatchNorm cannot train, ROADMAP C19)"))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "srm_tpu_torch")):
         raise SystemExit("chip_smoke: run from the root of a checkout of the repository")
@@ -1938,6 +2105,9 @@ def main() -> int:
         mark("knobs")
         well = phase_well_solvers(tmp, f32)
         mark("well solvers")
+        polynomial = phase_polynomial_pvt(tmp, f32)
+        phase_options()
+        mark("polynomial PVT and network options")
     # each kernel's launches on its own f32 main path (a backward kernel's on
     # its forward's), and on each path of this run that runs it (the per-cell
     # porosity path runs the unfused residual: B1 0; gas condensate in 3D
@@ -1947,6 +2117,7 @@ def main() -> int:
              "b256_remat": {"dg3d_stencil_residual": remat["b256_remat"]},
              "pad48_width64": {"dg_stencil_residual": knobs},
              "porosity_field": {"dg_stencil_residual": porosity["field"]},
+             "dg2d_polynomial_pvt": {"dg_stencil_residual": polynomial},
              **{path: {WELL_PATHS[path]["kernel"]: c} for path, c in well.items()}}
     log(f"gas condensate 3D launches (no kernel): {gc3d}")
     by_path = {name: {path: c[fwd][spec["counter"]] for path, c in paths.items() if fwd in c}
@@ -1959,6 +2130,7 @@ def main() -> int:
 
     import torch
     log(f"all phases passed in {time.time() - t_start:.1f} s")
+    log(card_line())                           # again, beside the numbers below
     # library_ms: no single PyTorch call computes any of these stencils or
     # their gradients
     log(json.dumps({"kernels": [{

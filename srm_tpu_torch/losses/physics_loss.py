@@ -318,6 +318,25 @@ _LOGICAL_NAMES = {"pressure": "pressure", "time_step": "time_step",
                   "saturation": "saturation_model"}
 
 
+def untrainable_layers(module: torch.nn.Module) -> List[str]:
+    """The layers of ``module`` that the reference's loss cannot run in its
+    training forward: every BatchNorm, every residual block with dropout
+    and every encoder–decoder with a dropout level, by name (none for a
+    model that is a plain callable)."""
+    from srm_tpu_torch.nn.encoder_decoder import EncoderDecoder
+    from srm_tpu_torch.nn.residual import BatchNorm, ResidualBlock
+    out = []
+    named = module.named_modules() if isinstance(module, torch.nn.Module) else ()
+    for n, m in named:
+        if isinstance(m, BatchNorm):
+            out.append(f"{n} (BatchNorm)")
+        elif isinstance(m, ResidualBlock) and m.dropout_rate > 0:
+            out.append(f"{n} (dropout {m.dropout_rate})")
+        elif isinstance(m, EncoderDecoder) and m.has_dropout:
+            out.append(f"{n or 'network'} (dropout {m.dropout_rate})")
+    return out
+
+
 class PhysicsLoss:
     """Dry-gas and gas-condensate PDE residual losses with per-model
     gradients."""
@@ -407,9 +426,16 @@ class PhysicsLoss:
                              "ibc": w[ph]["ibc"], "ic": w[ph]["ic"], "mbc": w[ph]["mbc"],
                              "cmbc": w[ph]["cmbc"], "tde": w[ph]["tde"], "td": w[ph]["td"]}
                         for ph in self.phases}
-        # the conv nets train; the spline PVT has no parameters (:395-400)
+        # the conv nets train, and the PVT where it is the polynomial one
+        # (its coefficients); the spline PVT has no parameters (:387-400).
+        # The optimizer config's "trainable": False is not read, as in the
+        # reference (ROADMAP C20)
+        trainable = {"pressure", "time_step", "saturation"}
+        pvt = models.get("pvt_model")
+        if getattr(getattr(pvt, "pvt_layer", pvt), "fitting_method", None) == "polynomial":
+            trainable.add("fluid_property")
         self.trainable_models_keys = [k for k in self.optimizer_model_names_map
-                                      if k in ("pressure", "time_step", "saturation")]
+                                      if k in trainable]
 
     @staticmethod
     def logical_name(optimizer_key: str) -> str:
@@ -440,8 +466,16 @@ class PhysicsLoss:
         the forward (its dtype casts included) instead of keeping its
         activations. No ported network draws random numbers, so the RNG
         state is neither saved nor restored, which a CUDA graph capture
-        would not allow."""
+        would not allow. A network with dropout or BatchNorm is refused, as
+        the reference's loss fails on it (:func:`untrainable_layers`)."""
         mod = self.models[name]
+        refused = untrainable_layers(mod)
+        if refused:
+            raise ValueError(
+                f"{name}: {', '.join(refused)} cannot run in the loss's training forward. The "
+                f"reference's loss applies its networks with training=True and neither a "
+                f"dropout rng nor a mutable batch_stats collection, which fails for these "
+                f"layers (ROADMAP C19); evaluate them with training=False outside the loss")
         s = self.dt_input_stride
         if name == "time_step" and s > 1:
             x = x[..., ::s, ::s, :]

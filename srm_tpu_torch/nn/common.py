@@ -2,9 +2,13 @@
 per-layer compute dtypes.
 
 Port of ``srm_tpu/nn/common.py``. flax's ``swish`` is SiLU. The
-initializer is flax's ``glorot_normal`` (variance scaling over fan_avg with
-a normal truncated at ±2σ), drawn from an explicit ``torch.Generator``; it
-matches the reference in distribution only, since the random streams differ.
+initializers are ``get_initializer``'s table (the reference's ``:36-46``):
+flax's variance-scaling ``glorot_normal``, ``glorot_uniform``,
+``he_normal`` and ``he_uniform`` (a normal truncated at ±2σ, or a uniform),
+``None`` giving glorot uniform and any other name glorot normal, plus
+``lecun_normal``, flax's default for a ``Dense`` given no initializer. Each
+is drawn from an explicit ``torch.Generator``: it matches the reference in
+distribution only, since the random streams differ.
 
 :func:`apply_layer` runs a convolution under flax's rule for a layer's
 ``dtype`` (the reference's ``compute_dtype``): parameters stay float32 and
@@ -49,7 +53,8 @@ def resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:
 
 def apply_layer(layer: torch.nn.Module, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """A 2D or 3D (transposed) convolution under flax's per-layer dtype rule:
+    """A 2D or 3D (transposed) convolution, or a ``Linear`` (flax's
+    ``Dense``) on the channel axis 1 of ``x``, under flax's per-layer dtype rule:
     with ``dtype`` its input, kernel and bias are cast to ``dtype`` and so is
     its result; with None it computes in the promoted type of its input and
     its parameters (float32 for float32 parameters, whatever the input).
@@ -59,6 +64,8 @@ def apply_layer(layer: torch.nn.Module, x: torch.Tensor,
     w = layer.weight.to(dt)
     b = layer.bias.to(dt) if layer.bias is not None else None
     x = x.to(dt)
+    if isinstance(layer, torch.nn.Linear):
+        return F.linear(x.movedim(1, -1), w, b).movedim(-1, 1)
     if isinstance(layer, torch.nn.ConvTranspose2d):
         return F.conv_transpose2d(x, w, b, layer.stride, layer.padding, layer.output_padding,
                                   layer.groups, layer.dilation)
@@ -117,25 +124,64 @@ def safe_pow(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return torch.where(pos, torch.exp(e * log_x), torch.zeros_like(x * e))
 
 
-def glorot_normal_(weight: torch.Tensor, fan_in: int, fan_out: int,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """flax ``glorot_normal``: truncated normal with variance 2/(fan_in+fan_out)."""
-    # 0.8796… is the std of a unit normal truncated to [-2, 2]
-    std = np.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
+# name → (scale, fan, distribution) of flax's variance-scaling initializers
+_INITIALIZERS = {
+    "glorot_normal": (1.0, "fan_avg", "truncated_normal"),
+    "glorot_uniform": (1.0, "fan_avg", "uniform"),
+    "he_normal": (2.0, "fan_in", "truncated_normal"),
+    "he_uniform": (2.0, "fan_in", "uniform"),
+    "lecun_normal": (1.0, "fan_in", "truncated_normal"),
+}
+# the std of a unit normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def initializer_name(name: Optional[str]) -> str:
+    """The initializer that ``get_initializer(name)`` selects in the
+    reference: ``None`` → glorot uniform, one of the four names → itself,
+    any other name → glorot normal."""
+    if name is None:
+        return "glorot_uniform"
+    if not isinstance(name, str):
+        raise TypeError(f"initializer {name!r}: the port takes an initializer's name")
+    return name if name in _INITIALIZERS and name != "lecun_normal" else "glorot_normal"
+
+
+def init_weight_(weight: torch.Tensor, fan_in: int, fan_out: int, name: str = "glorot_normal",
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Fill ``weight`` from flax's variance-scaling initializer ``name`` (a
+    key of ``_INITIALIZERS``) at the fans given: variance scale/fan, a
+    normal truncated at ±2σ rescaled to that variance, or a uniform of
+    limit √(3·variance)."""
+    scale, mode, distribution = _INITIALIZERS[name]
+    fan = {"fan_in": fan_in, "fan_out": fan_out, "fan_avg": (fan_in + fan_out) / 2.0}[mode]
+    variance = scale / fan
     with torch.no_grad():
+        if distribution == "uniform":
+            limit = float(np.sqrt(3.0 * variance))
+            return weight.uniform_(-limit, limit, generator=generator)
+        std = float(np.sqrt(variance)) / _TRUNCATED_STD
         return torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                                            generator=generator)
 
 
-def init_conv_(conv: torch.nn.Module, generator: Optional[torch.Generator] = None):
-    """Glorot-normal weights and zero bias for a 2D or 3D convolution or
-    transposed convolution, with flax's fans: (receptive field)·in and
-    (receptive field)·out."""
+def glorot_normal_(weight: torch.Tensor, fan_in: int, fan_out: int,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``glorot_normal``: truncated normal with variance 2/(fan_in+fan_out)."""
+    return init_weight_(weight, fan_in, fan_out, "glorot_normal", generator)
+
+
+def init_conv_(conv: torch.nn.Module, generator: Optional[torch.Generator] = None,
+               name: str = "glorot_normal"):
+    """Weights from the initializer ``name`` and zero bias for a 2D or 3D
+    convolution or transposed convolution, with flax's fans: (receptive
+    field)·in and (receptive field)·out; for a ``Linear`` (flax's
+    ``Dense``), in and out."""
     w = conv.weight
     rf = int(np.prod(w.shape[2:]))
     transposed = isinstance(conv, (torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d))
     c_in, c_out = (w.shape[0], w.shape[1]) if transposed else (w.shape[1], w.shape[0])
-    glorot_normal_(w, rf * c_in, rf * c_out, generator)
+    init_weight_(w, rf * c_in, rf * c_out, name, generator)
     if conv.bias is not None:
         with torch.no_grad():
             conv.bias.zero_()

@@ -1,8 +1,9 @@
 """Convolutional encoder–decoder over 2D or 3D grids (the pressure network).
 
-Port of ``srm_tpu/nn/encoder_decoder.py`` as the dry-gas model map
-configures it (no skip connections, no dropout, no latent flatten), with
-``spatial_dims`` 2 (Conv2d) or 3 (Conv3d over depth, height and width).
+Port of ``srm_tpu/nn/encoder_decoder.py``, with ``spatial_dims`` 2
+(Conv2d) or 3 (Conv3d over depth, height and width), and the options the
+model map turns off (skip connections, dropout, ``latent_flatten``), which
+a caller's own config reaches.
 The geometry is the reference's (``:170-195``), which matters on
 non-power-of-2 grids; per spatial axis:
 
@@ -12,8 +13,14 @@ encoder (depth 4, k 3):
   L3: ZeroPad(1) → Conv(k+2, s2, VALID)        18 → 20 → 8  3 → 5 → 1
   L4: ZeroPad(1) → Conv(k,   s2, VALID)         8 → 10 → 4  1 → 3 → 1
   + 2 extra SAME convs, filters [32, 48, 72, 108]
-latent: Dense on the channel axis (a 1×1 conv here)
-decoder: act, then {ConvTranspose(k, s2, VALID) → act} × (depth − 1):
+latent: Dense on the channel axis (a 1×1 conv here), or with
+  ``latent_flatten`` one Dense over the flattened channels-last features
+  (``latent_dense``, an ``nn.Linear``) to ``channels·(cells)`` features,
+  ``channels = max(Width, cells) // cells`` (the reference's ``:199-210``);
+  the encoded grid is fixed at construction from ``grid``
+decoder: [Dense to filters[-1] → act (``dec_dense_start``, when the
+  innermost skip is on)], then {ConvTranspose(k, s2, VALID) [+ skip] → act
+  [→ dropout]} × (depth − 1):
   4 → 9 → 19 → 39 (and 1 → 3 → 7 → 15); then, only where the shape still
   differs from the input's, the reference's resize (``:259-277``): in 2D a
   bilinear resize (antialiased, as ``jax.image.resize``); in 3D the same
@@ -46,7 +53,19 @@ size before the first convolution; the decoder resizes to the padded grid,
 and the padding is cropped off after the extra decoder convolutions, before
 the output chain, so the output has the input's grid.
 
-Input and output are channels-last ``(B, T, *spatial, C)``; the layers run
+Skip connections (``Skip_Connections``, the reference's ``:184-185``,
+``:231-254``): encoder level ``i`` with ``Layers[i]`` set keeps its
+pre-activation output; the decoder step at that level zero-pads it,
+centred, to its own grid, projects its channels with ``skip_proj_{level}``
+(a Dense, where the channels differ) and adds it before the activation.
+Dropout (``Dropout``, ``:189-191``, ``:256-258``) follows the activation of
+encoder level ``i`` with ``Layer[i]`` set and of the decoder step at level
+``i + 1``, only under the forward's explicit ``training`` flag (default
+False, as the reference's). The initializer is ``Kernel_Init``
+(``nn.common.initializer_name``: ``None`` gives glorot uniform).
+
+Input and output are channels-last ``(B, [T,] *spatial, C)``; with
+``temporal`` the leading (B, T) fold into one batch axis. The layers run
 channels-first inside.
 """
 
@@ -54,12 +73,25 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from srm_tpu_torch.nn.common import (apply_layer, fold_time, get_activation, init_conv_,
-                                     network_width_list, pad_height_width, resolve_dtype)
+                                     initializer_name, network_width_list, pad_height_width,
+                                     resolve_dtype)
+
+
+def _skip_layers_list(residual_params: Dict) -> list:
+    """The per-level skip flags of a config (the reference's ``:45-52``)."""
+    sc = residual_params.get("Skip_Connections", {}) or {}
+    if not sc.get("Add", False):
+        return []
+    layers = sc.get("Layers", [])
+    if layers and isinstance(layers[0], (list, tuple)):
+        layers = layers[0]
+    return list(layers)
 
 
 class EncoderDecoder(nn.Module):
@@ -71,7 +103,11 @@ class EncoderDecoder(nn.Module):
                  extra_dec_conv_layers: int = 2, decoder_filter_fac: float = 1.0,
                  spatial_dims: int = 2, compute_dtype: Optional[str] = None,
                  f32_io: bool = False, spatial_pad_to: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 kernel_initializer: Optional[str] = "glorot_normal",
+                 skip_layers: Sequence[int] = (), dropout_rate: float = 0.0,
+                 dropout_layers: Sequence[int] = (), latent_flatten: bool = False,
+                 grid: Optional[Sequence[int]] = None, temporal: bool = True):
         super().__init__()
         if spatial_dims not in (2, 3):
             raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
@@ -82,11 +118,15 @@ class EncoderDecoder(nn.Module):
         self.kernel_size = k
         self.spatial_dims = spatial_dims
         self.spatial_pad_to = spatial_pad_to
+        self.temporal = temporal
         self.cdt = resolve_dtype(compute_dtype)
         self.cdt_io = None if f32_io else self.cdt
         self.act = get_activation(activation)
         self.out_act = get_activation(out_activation)
         self.latent_act = get_activation(latent_activation)
+        self.skip_layers = tuple(skip_layers)
+        self.dropout_rate = float(dropout_rate)
+        self.dropout_layers = tuple(dropout_layers)
         f = network_width_list(depth, bottom_size, ngens=depth, growth_rate=growth_rate)
 
         enc = [Conv(in_channels, f[0], k)]
@@ -97,16 +137,35 @@ class EncoderDecoder(nn.Module):
             Conv(f[-1], f[-1], k, padding=k // 2) for _ in range(extra_conv_layers))
         lat = []
         c = f[-1]
-        for _ in range(latent_depth):
-            lat.append(Conv(c, latent_width, 1))
-            c = latent_width
+        self.latent_dense, self.latent_grid = None, None
+        if latent_flatten:
+            if grid is None:
+                raise ValueError("latent_flatten needs the input grid (grid=) to size its "
+                                 "Dense layer")
+            self.latent_grid = self._encoded_grid(grid)
+            cells = int(np.prod(self.latent_grid))
+            c = max(max(latent_width, cells) // cells, 1)
+            self.latent_dense = nn.Linear(cells * f[-1], c * cells)
+        else:
+            for _ in range(latent_depth):
+                lat.append(Conv(c, latent_width, 1))
+                c = latent_width
         self.latent = nn.ModuleList(lat)
-        dec = []
-        for i in range(1, depth):
-            out = int(f[depth - i - 1] * decoder_filter_fac)
-            dec.append(ConvT(c, out, k, stride=2))
-            c = out
+        self.dec_dense_start = None
+        if self.skip_layers and self.skip_layers[-1] == 1:
+            self.dec_dense_start = Conv(c, f[depth - 1], 1)
+            c = f[depth - 1]
+        dec, proj = [], {}
+        for i in range(depth):
+            if i > 0:
+                out = int(f[depth - i - 1] * decoder_filter_fac)
+                dec.append(ConvT(c, out, k, stride=2))
+                c = out
+            level = depth - i
+            if self._use_skip(level - 1) and f[level - 1] != c:
+                proj[str(level)] = Conv(f[level - 1], c, 1)
         self.dec_deconvs = nn.ModuleList(dec)
+        self.skip_proj = nn.ModuleDict(proj)
         self.dec_extra = nn.ModuleList(
             Conv(c if j == 0 else f[0], f[0], k, padding=k // 2)
             for j in range(extra_dec_conv_layers))
@@ -116,9 +175,32 @@ class EncoderDecoder(nn.Module):
         self.dec_final_conv = Conv(width0, in_channels, 1)
         self.output_proj = (Conv(in_channels, output_filters, 1)
                             if in_channels != output_filters else None)
+        init = initializer_name(kernel_initializer)
         for m in self.modules():
-            if isinstance(m, (Conv, ConvT)):
-                init_conv_(m, generator)
+            if isinstance(m, (Conv, ConvT, nn.Linear)):
+                init_conv_(m, generator, init)
+
+    def _use_skip(self, level_i: int) -> bool:
+        return (level_i < len(self.skip_layers)
+                and self.skip_layers[level_i] not in (None, 0))
+
+    def _use_dropout(self, level_i: int) -> bool:
+        return (self.dropout_rate > 0 and level_i < len(self.dropout_layers)
+                and self.dropout_layers[level_i] == 1)
+
+    @property
+    def has_dropout(self) -> bool:
+        """Whether any level applies dropout (in a training forward)."""
+        return any(self._use_dropout(i) for i in range(self.depth))
+
+    def _encoded_grid(self, grid: Sequence[int]) -> tuple:
+        """The encoder's output grid for an input grid (height and width
+        padded to ``spatial_pad_to`` first)."""
+        grid = list(grid)
+        if self.spatial_pad_to:
+            grid[-2:] = [max(int(self.spatial_pad_to), n) for n in grid[-2:]]
+        self.check_spatial(grid)
+        return tuple(self._encoded_size(n) for n in grid)
 
     def _enc_kernel(self, i: int) -> int:
         """Kernel size of encoder level ``i`` (k+2 on the inner strided levels)."""
@@ -149,14 +231,13 @@ class EncoderDecoder(nn.Module):
 
     @classmethod
     def from_config(cls, config: Dict[str, Any], in_channels: int,
-                    generator: Optional[torch.Generator] = None) -> "EncoderDecoder":
+                    generator: Optional[torch.Generator] = None,
+                    grid: Optional[Sequence[int]] = None) -> "EncoderDecoder":
+        """``grid``: the input's spatial shape, needed with ``latent_flatten``."""
         rp = config.get("residual_params", {}) or {}
         w = config.get("width", {"Bottom_Size": 32, "Growth_Rate": 1.5})
         lat = rp.get("Latent_Layer", {}) or {}
-        if ((rp.get("Skip_Connections") or {}).get("Add")
-                or (rp.get("Dropout") or {}).get("Add") or lat.get("Flatten")):
-            raise NotImplementedError(
-                "only the encoder-decoder without skips, dropout or latent flatten is ported")
+        drop = rp.get("Dropout", {}) or {}
         return cls(in_channels, depth=config.get("depth", 4), bottom_size=w["Bottom_Size"],
                    growth_rate=w["Growth_Rate"], output_filters=config.get("output_filters", 1),
                    kernel_size=rp.get("Kernel_Size", 3),
@@ -170,7 +251,13 @@ class EncoderDecoder(nn.Module):
                    spatial_dims=config.get("spatial_dims", 2),
                    compute_dtype=config.get("compute_dtype"),
                    f32_io=bool(config.get("f32_io", False)),
-                   spatial_pad_to=config.get("spatial_pad_to"), generator=generator)
+                   spatial_pad_to=config.get("spatial_pad_to"), generator=generator,
+                   kernel_initializer=rp.get("Kernel_Init", "glorot_normal"),
+                   skip_layers=_skip_layers_list(rp),
+                   dropout_rate=drop.get("Rate", 0.0) if drop.get("Add", False) else 0.0,
+                   dropout_layers=tuple(drop.get("Layer", []) or ()),
+                   latent_flatten=lat.get("Flatten", False), grid=grid,
+                   temporal=config.get("temporal", False))
 
     def _resize(self, x: torch.Tensor, target) -> torch.Tensor:
         """The reference's resize back to the input grid (``:259-277``)."""
@@ -194,25 +281,67 @@ class EncoderDecoder(nn.Module):
             x = F.pad(x, (0, 0, 0, 0, diff // 2, diff - diff // 2))
         return x
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, level_i: int, training: bool) -> torch.Tensor:
+        if not self._use_dropout(level_i):
+            return x
+        return F.dropout(x, self.dropout_rate, training=training)
+
+    def _latent(self, x: torch.Tensor) -> torch.Tensor:
+        if self.latent_dense is None:
+            for dense in self.latent:
+                x = self.latent_act(apply_layer(dense, x, self.cdt))
+            return x
+        if tuple(x.shape[2:]) != self.latent_grid:
+            raise ValueError(f"latent_flatten was sized for an encoded grid {self.latent_grid}, "
+                             f"got {tuple(x.shape[2:])}")
+        n = x.shape[0]
+        flat = x.movedim(1, -1).reshape(n, -1)          # channels-last, as flax flattens
+        flat = self.latent_act(apply_layer(self.latent_dense, flat, self.cdt))
+        return flat.reshape((n,) + self.latent_grid + (-1,)).movedim(-1, 1)
+
+    def _add_skip(self, x: torch.Tensor, skip: torch.Tensor, level: int) -> torch.Tensor:
+        """The encoder's level output zero-padded, centred, to ``x``'s grid
+        and projected to its channels."""
+        pads = []
+        for s, t in reversed(list(zip(skip.shape[2:], x.shape[2:]))):
+            pads += [(t - s) // 2, (t - s) - (t - s) // 2]
+        skip = F.pad(skip, pads)
+        if str(level) in self.skip_proj:
+            skip = apply_layer(self.skip_proj[str(level)], skip, self.cdt)
+        return x + skip
+
+    def forward(self, inputs: torch.Tensor, training: bool = False) -> torch.Tensor:
         act, cdt = self.act, self.cdt
-        x, unfold = fold_time(inputs)
+        if self.temporal:
+            x, unfold = fold_time(inputs)
+        else:
+            x, unfold = inputs, (lambda y: y)
         x = x.movedim(-1, 1)                            # channels-last → channels-first
         true_hw = tuple(x.shape[-2:])
         x = pad_height_width(x, self.spatial_pad_to)
         target = tuple(x.shape[2:])
         self.check_spatial(target)
+        skips = {}
         for i, conv in enumerate(self.enc_convs):
             if i > 0:
                 x = F.pad(x, (1, 1) * self.spatial_dims)
-            x = act(apply_layer(conv, x, self.cdt_io if i == 0 else cdt))
+            x = apply_layer(conv, x, self.cdt_io if i == 0 else cdt)
+            if self._use_skip(i):
+                skips[i + 1] = x                        # pre-activation
+            x = self._dropout(act(x), i, training)
         for conv in self.enc_extra:
             x = act(apply_layer(conv, x, cdt))
-        for dense in self.latent:
-            x = self.latent_act(apply_layer(dense, x, cdt))
-        x = act(x)
-        for deconv in self.dec_deconvs:
-            x = act(apply_layer(deconv, x, cdt))
+        x = self._latent(x)
+        for i in range(self.depth):
+            if i == 0:
+                if self.dec_dense_start is not None:
+                    x = act(apply_layer(self.dec_dense_start, x, cdt))
+            else:
+                x = apply_layer(self.dec_deconvs[i - 1], x, cdt)
+            level = self.depth - i
+            if level in skips:
+                x = self._add_skip(x, skips[level], level)
+            x = self._dropout(act(x), level - 1, training)
         if tuple(x.shape[2:]) != target:
             x = self._resize(x.float(), target).to(x.dtype)
         for conv in self.dec_extra:

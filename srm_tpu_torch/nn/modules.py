@@ -7,10 +7,15 @@ and 3D (``Nz > 1``), with the reference's ``compute_dtype``,
 encoder–decoders' ``Bottom_Size`` (Models 1 and 1S, not Model 2):
 
 * :class:`CompleteTrainableModule` — a backbone with an optional HardLayer
-  fed the time channel (``inputs[..., -2:-1]``).
+  fed the time (``inputs[..., -2:-1]``) and property (``inputs[..., -1:]``)
+  channels, or with ``hard_enforcement_only`` the HardLayer alone on the
+  mean of the last two channels (the reference's ``:44-64``).
+* :class:`PVTModuleWithHardLayer` — a PVT with an optional HardLayer on
+  its input (``:67-83``).
 * :func:`build_model_map` — Model 1 (pressure: encoder–decoder +
   HardLayer), Model 2 (adaptive Δt: residual net with the scaled x·tanh(x)
-  head), Model 3 (spline PVT), the well rate/BHP model and, for gas
+  head), Model 3 (the PVT: spline, or the trainable polynomial with
+  ``pvt_fitting_method="polynomial"``), the well rate/BHP model and, for gas
   condensate, Model 1S (saturation: encoder–decoder + HardLayer at Sgi),
   keyed by the reference's logical names. The trainable modules are
   initialized from an explicit ``torch.Generator`` and moved to ``device``.
@@ -31,23 +36,60 @@ from srm_tpu_torch.nn.common import scaled_tanh_lisht
 from srm_tpu_torch.nn.encoder_decoder import EncoderDecoder
 from srm_tpu_torch.nn.hard_layer import HardLayer
 from srm_tpu_torch.nn.residual import ResidualNetwork
-from srm_tpu_torch.physics.pvt import SplinePVT, make_spline_pvt, properties_for
+from srm_tpu_torch.physics.pvt import make_pvt_layer, properties_for
 from srm_tpu_torch.physics.well_solver import WellRatesPressure
 
 
 class CompleteTrainableModule(nn.Module):
     """Backbone + optional HardLayer (srm_tpu/nn/modules.py:44-64)."""
 
-    def __init__(self, network: nn.Module, hard_layer: Optional[HardLayer] = None):
+    def __init__(self, network: Optional[nn.Module] = None,
+                 hard_layer: Optional[HardLayer] = None,
+                 time_slice: Tuple[int, Optional[int]] = (-2, -1),
+                 property_slice: Tuple[int, Optional[int]] = (-1, None),
+                 hard_enforcement_only: bool = False):
         super().__init__()
         self.network = network
         self.hard_layer = hard_layer
+        self.time_slice = tuple(time_slice)
+        self.property_slice = tuple(property_slice)
+        self.hard_enforcement_only = hard_enforcement_only
+
+    def forward(self, inputs: torch.Tensor, rectifier_input: Optional[torch.Tensor] = None,
+                training: bool = False) -> torch.Tensor:
+        if self.hard_enforcement_only:
+            net_out = inputs[..., -2:].mean(dim=-1, keepdim=True)
+        else:
+            net_out = self.network(inputs, training=training)
+            if self.hard_layer is None:
+                return net_out
+        t = inputs[..., slice(*self.time_slice)]
+        prop = inputs[..., slice(*self.property_slice)]
+        return self.hard_layer(t, prop, net_out, rect_input=rectifier_input)
+
+
+class PVTModuleWithHardLayer(nn.Module):
+    """Optional HardLayer + PVT (srm_tpu/nn/modules.py:67-83); the HardLayer
+    takes the whole input as its network output."""
+
+    def __init__(self, pvt_layer: nn.Module, hard_layer: Optional[HardLayer] = None,
+                 use_hard_layer: bool = False,
+                 time_slice: Tuple[int, Optional[int]] = (-2, -1),
+                 property_slice: Tuple[int, Optional[int]] = (-1, None)):
+        super().__init__()
+        self.pvt_layer = pvt_layer
+        self.hard_layer = hard_layer
+        self.use_hard_layer = use_hard_layer
+        self.time_slice = tuple(time_slice)
+        self.property_slice = tuple(property_slice)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        net_out = self.network(inputs)
-        if self.hard_layer is None:
-            return net_out
-        return self.hard_layer(inputs[..., -2:-1], net_out)
+        p = inputs
+        if self.use_hard_layer and self.hard_layer is not None:
+            t = inputs[..., slice(*self.time_slice)]
+            prop = inputs[..., slice(*self.property_slice)]
+            p = self.hard_layer(t, prop, inputs)
+        return self.pvt_layer(p)
 
 
 def _encoder_decoder_config(general_config: Dict, reservoir_config: Dict) -> Dict:
@@ -56,6 +98,7 @@ def _encoder_decoder_config(general_config: Dict, reservoir_config: Dict) -> Dic
     connections (srm_tpu/nn/modules.py:96-117, :152-165)."""
     ed = get_configuration("encoder_decoder")
     ed["spatial_dims"] = 3 if reservoir_config.get("Nz", 1) > 1 else 2
+    ed["temporal"] = True
     rp = ed["residual_params"]
     rp["Extra_Conv_Layers"]["Count"] = 2
     rp["Extra_Dec_Conv_Layers"]["Count"] = 2
@@ -84,7 +127,8 @@ def _hard_trainable(ed: Dict, hard: Dict, sample_shape: Tuple[int, ...],
     hard["kernel_exponent_config"].update(initial_value=0.5, min_value=0.1, max_value=1.0)
     # the HardLayer's exponent is per cell: (T, H, W, 1) or (1, D, H, W, 1)
     return CompleteTrainableModule(
-        EncoderDecoder.from_config(ed, in_channels=sample_shape[-1], generator=generator),
+        EncoderDecoder.from_config(ed, in_channels=sample_shape[-1], generator=generator,
+                                   grid=sample_shape[-1 - ed["spatial_dims"]:-1]),
         HardLayer.from_config(hard, exp_shape=tuple(sample_shape[:-1]) + (1,)))
 
 
@@ -132,6 +176,7 @@ def build_time_step_model(sample_shape: Tuple[int, ...], general_config: Optiona
     g = general_config or DEFAULT_GENERAL_CONFIG
     cfg = get_configuration("residual")
     cfg["network_type"] = "cnn3d" if len(sample_shape) == 5 else "cnn"
+    cfg["temporal"] = True
     cfg["output_distribution"] = False
     cfg["output_activation"] = partial(scaled_tanh_lisht, min_val=0.1,
                                        max_val=g["maximum_srm_timestep"])
@@ -141,15 +186,17 @@ def build_time_step_model(sample_shape: Tuple[int, ...], general_config: Optiona
         ResidualNetwork.from_config(cfg, in_channels=sample_shape[-1], generator=generator))
 
 
-def build_pvt_model(fluid_type: str = "DG", general_config: Optional[Dict] = None) -> SplinePVT:
-    """Model 3: the spline PVT of the fluid's properties (two for dry gas,
-    seven for gas condensate) on Model 1's pressure, spline order 1 as the
-    reference's ``build_pvt_model`` sets it."""
+def build_pvt_model(fluid_type: str = "DG", general_config: Optional[Dict] = None) -> nn.Module:
+    """Model 3: the PVT of the fluid's properties (two for dry gas, seven
+    for gas condensate) on Model 1's pressure: the spline PVT of order 1, as
+    the reference's ``build_pvt_model`` sets it, or with
+    ``pvt_fitting_method="polynomial"`` the trainable polynomial PVT from
+    the config's default coefficients (srm_tpu/nn/modules.py:212-225)."""
     g = general_config or DEFAULT_GENERAL_CONFIG
-    if g.get("pvt_fitting_method", "spline") != "spline":
-        raise NotImplementedError("only the spline PVT is ported")
-    return make_spline_pvt(get_configuration("pvt_layer", fluid_type=fluid_type),
-                           load_pvt_table(), properties=properties_for(fluid_type), order=1)
+    cfg = get_configuration("pvt_layer", fluid_type=fluid_type)
+    cfg["fitting_method"] = (g.get("pvt_fitting_method") or "spline").lower()
+    table = load_pvt_table() if cfg["fitting_method"] == "spline" else None
+    return make_pvt_layer(cfg, table, properties=properties_for(fluid_type), order=1)
 
 
 def build_model_map(input_shape: Tuple[int, ...], device: torch.device,

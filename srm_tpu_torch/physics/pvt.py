@@ -1,6 +1,8 @@
-"""Spline PVT: fluid properties and their pressure derivatives.
+"""PVT: fluid properties and their pressure derivatives.
 
-Port of the polyharmonic-spline backend of ``srm_tpu/physics/pvt.py``, for
+Port of ``srm_tpu/physics/pvt.py``: the trainable polynomial backend
+(:class:`PolynomialPVT`) and the polyharmonic-spline backend
+(:class:`SplinePVT`), built from a PVT config by :func:`make_pvt_layer`, for
 the dry-gas properties (invBg, invug) and the seven gas-condensate ones
 (invBg, invBo, invug, invuo, Rs, Rv, Vro). The
 interpolant ``f(x) = Σ w_i φ(|x − c_i|²) + v1·x + v0`` is solved once on the
@@ -13,6 +15,13 @@ the clamp's tangent (1 inside the band, 0 outside, 0.5 on a bound, as
 JAX's ``maximum``/``minimum`` give it), then φ's derivative, then the same
 matmul. The result is itself an ordinary tensor expression of the pressure,
 so autograd differentiates it — ``dinvBg0`` enters the loss.
+
+The polynomial backend holds one float32 ``nn.Parameter`` per property,
+``{prop}_coefficients`` (c[0] the constant term), evaluated by Horner at
+the clamped pressure (``pvt.py:179-188``); its d/dP is the same forward-mode
+derivative written out, Horner's tangent recurrence seeded with the clamp's
+tangent, so that autograd reaches the coefficients through the values and
+through the derivatives.
 
 Output layout is the reference's ``[2, n_props, *p.shape]`` with axis 0 =
 (value, d/dP). The contraction must run in full float32: TF32 loses ~5% on
@@ -82,11 +91,54 @@ def _clip_tangent(p: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return g1 * g2
 
 
+class PolynomialPVT(nn.Module):
+    """Fluid properties and d/dP from a pressure field, from trainable
+    polynomial coefficients (the reference's ``PVTLayer`` with
+    ``fitting_method="polynomial"``)."""
+
+    fitting_method = "polynomial"
+
+    def __init__(self, polynomial_config: Dict[str, Sequence[float]],
+                 properties: Sequence[str] = DG_PROPERTIES,
+                 min_input_threshold: float = 14.7, max_input_threshold: float = 10000.0):
+        super().__init__()
+        self.properties = tuple(properties)
+        self.lo = float(min_input_threshold)
+        self.hi = float(max_input_threshold)
+        for prop in self.properties:
+            if prop not in polynomial_config:
+                raise ValueError(f"Polynomial coefficients missing for property: {prop}")
+            coeffs = torch.tensor(np.asarray(polynomial_config[prop], np.float32))
+            self.register_parameter(f"{prop}_coefficients", nn.Parameter(coeffs))
+
+    def coefficients(self, prop: str) -> torch.Tensor:
+        return getattr(self, f"{prop}_coefficients")
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        """→ [2, P, *p.shape]: values and d/dP at the clamped pressure."""
+        lo, hi = p.new_full((), self.lo), p.new_full((), self.hi)
+        q = torch.minimum(torch.maximum(p, lo), hi)
+        dq = _clip_tangent(p, self.lo, self.hi)
+        values, derivs = [], []
+        for prop in self.properties:
+            c = self.coefficients(prop)
+            acc = torch.zeros_like(q)
+            dacc = torch.zeros_like(q)
+            for i in range(c.shape[0] - 1, -1, -1):      # Horner, and its tangent
+                dacc = dacc * q + acc * dq
+                acc = acc * q + c[i]
+            values.append(acc)
+            derivs.append(dacc)
+        return torch.stack([torch.stack(values), torch.stack(derivs)])
+
+
 class SplinePVT(nn.Module):
     """Fluid properties and d/dP from a pressure field (no trainable params).
 
     ``knots`` are the table pressures; ``values`` one vector per property.
     """
+
+    fitting_method = "spline"
 
     def __init__(self, knots: Sequence[float], values: Sequence[Sequence[float]],
                  order: int = 2, regularization_weight: float = 0.0,
@@ -142,3 +194,25 @@ def make_spline_pvt(pvt_config: Dict, table: Dict[str, np.ndarray],
         min_input_threshold=pvt_config.get("min_input_threshold", 14.7),
         max_input_threshold=pvt_config.get("max_input_threshold", 10000.0),
     )
+
+
+def make_pvt_layer(pvt_config: Dict, table: Optional[Dict[str, np.ndarray]] = None,
+                   properties: Optional[Sequence[str]] = None,
+                   order: Optional[int] = None) -> nn.Module:
+    """The PVT of a PVT config, dispatched on its ``fitting_method`` as the
+    reference's ``make_pvt_layer`` (``pvt.py:213-239``): "polynomial" from
+    its ``polynomial_config``, "spline" from the PVT table columns
+    (``table``). ``properties`` default to the config's fluid's."""
+    props = properties or properties_for(pvt_config.get("fluid_type", "DG"))
+    fitting = pvt_config.get("fitting_method", "polynomial").lower()
+    if fitting == "polynomial":
+        if pvt_config.get("polynomial_config") is None:
+            raise ValueError("polynomial_config required for polynomial fitting")
+        return PolynomialPVT(pvt_config["polynomial_config"], properties=props,
+                             min_input_threshold=pvt_config.get("min_input_threshold", 14.7),
+                             max_input_threshold=pvt_config.get("max_input_threshold", 10000.0))
+    if fitting == "spline":
+        if table is None:
+            raise ValueError("spline fitting needs the PVT table")
+        return make_spline_pvt(pvt_config, table, properties=props, order=order)
+    raise ValueError(f"Unknown fitting method: {fitting}")

@@ -146,6 +146,19 @@ def test_drawdown_step_never_imports_jax(tmp_path):
     assert "isolated" in proc.stdout
 
 
+def test_polynomial_pvt_step_never_imports_jax(tmp_path):
+    """The trainable polynomial PVT with its ``fluid_property`` optimizer
+    (a third optimizer in the step) stands alone as well."""
+    script = _isolated_step(
+        tmp_path, 'nx=9, general_config=dict(cfg.DEFAULT_GENERAL_CONFIG, '
+                  'pvt_fitting_method="polynomial")',
+        loss_code='assert loss.trainable_models_keys == ["pressure", "time_step", '
+                  '"fluid_property"]')
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
 @pytest.mark.parametrize("fluid, kwargs", [
     ("DG", '{"use_non_iterative": False, "max_iters": 4}'),
     ("GC", '{"use_blocking_factor": True}'),
