@@ -140,13 +140,35 @@ the process exits non-zero:
     (forward and backward), the residual net's distribution head with
     BatchNorm in eval and its ``dense`` variant, Model 1 under a HardLayer
     with the RBF modulation.
+17. simulator graphs, tools and examples (last) — the simulator's 3D
+    iterative solves as CUDA graphs (``sim/fv_simulator.py::SolverGraphs``,
+    blocks of 32 trips and the tail block captured once and replayed): dry
+    gas (CG) at 39×39×10 on one realization for 5 times and on a chunk of
+    4, gas condensate (BiCGStab) on one realization for 3 times, each
+    bitwise the eager loop (``cuda_graph=False``) with the same trips per
+    solve, twice on one set of graphs, one realization within
+    SOLVER_PSIA_TOL of the float64 dense solve; the eager and graphed
+    seconds and the device operations per solve. The GC 2D labels of
+    CHUNK_REALIZATIONS test realizations and CHUNK_TIMES times at chunks 8
+    and 16 (``tools/label_chunks.compare``), bitwise equal, and their
+    seconds. The two example drivers' ``main`` (``examples/
+    training_case_{dry_gas,gas_condensate}.py``) at 39×39, 20
+    realizations, one epoch, through B1 and B3 with their launches counted
+    (each loss evaluation the kernel, each step its backward kernel,
+    nothing else), the loss finite, and the steps/s of one more epoch.
+    Then the tools: ``mfu_probe`` (``base`` and ``bf16`` at batch 32, one
+    JSON line each, 0 < mfu < 1), ``flops_breakdown`` (DG 3D production at
+    batch 32, its total) and ``sg_head_probe.probe`` for one epoch on the
+    drawdown phase's trained case (B3 and its backward at every step, every
+    key of its report finite).
 
 The line before the last is a JSON object describing each kernel (its
 numbers at batch 32, under ``at_b128`` those at batch 128, under
 ``at_128x117x117`` or ``at_256x10x39x39`` those at the last
 configurations' shape, its launches on its f32 main path and, under
 ``launches_by_path``, on every path of this run that runs it, the well
-solver's paths among them); the last line is ``{"ok": true, "device": {...}}``.
+solver's paths, the example drivers' ``example_dg`` and ``example_gc`` and
+``sg_head_probe`` among them); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -682,15 +704,14 @@ def phase_labels(base_dir: str) -> None:
     """The FV simulator on the card: the test split of the DG 2D and GC 2D
     default cases at LABEL_REALIZATIONS realizations (dense solver), each
     simulated twice and required bitwise equal, held to the reference's
-    physical checks; then one DG 3D realization at 39×39×10 for 5 time
-    steps, the CG path against the dense solve in float64; prints the
-    seconds of each."""
+    physical checks; prints the seconds of each. (The 3D iterative paths
+    are checked against the float64 dense solve in ``phase_sim_graphs``.)"""
     import numpy as np
     import torch
     from srm_tpu_torch.config import DEFAULT_SCAL_CONFIG
     from srm_tpu_torch.data.dataset import SRMDataProcessor
     from srm_tpu_torch.physics.relperm import RelativePermeability
-    from srm_tpu_torch.sim import build_problem, simulate_dry_gas, simulate_labels
+    from srm_tpu_torch.sim import build_problem, simulate_labels
     from srm_tpu_torch.sim.fv_simulator import mass_balance
     scal = DEFAULT_SCAL_CONFIG
     relperm = RelativePermeability.from_config(scal["end_points"], scal["corey_exponents"])
@@ -734,39 +755,6 @@ def phase_labels(base_dir: str) -> None:
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
             raise AssertionError(f"{fluid} labels fail: {failed}")
-
-    # DG 3D: one realization at 39×39×10, 5 time steps. The float32 dense
-    # solve is itself more than 0.1 psia from the float64 solution in 3D
-    # (both packages; tests/test_torch_sim.py), so the CG path is held to
-    # the dense solve in float64 within the reference's 0.1 psia
-    import copy
-    from srm_tpu_torch.config import DEFAULT_RESERVOIR_CONFIG, DEFAULT_WELLS_CONFIG
-    res = copy.deepcopy(DEFAULT_RESERVOIR_CONFIG)
-    res["Nz"] = 10
-    g = _labelled_config("DG")
-    prob, kscale = build_problem(res, DEFAULT_WELLS_CONFIG, scal, g)
-    n = 10 * res["Ny"] * res["Nx"]
-    spec = res["realizations"]["permx"]
-    rng = np.random.RandomState(g["seed"])
-    kx = torch.from_numpy(np.exp(rng.normal(np.log(spec["mean"]), spec["std"] / spec["mean"],
-                                            (1, n))).astype(np.float32)).cuda()
-    times = np.arange(5, dtype=np.float32) * g["srm_timestep"]
-    stats = {}
-    pvt, pvt64 = simulator_pvt("DG"), simulator_pvt("DG").double()
-    exact, t_exact = _timed(lambda: simulate_dry_gas(prob, kscale, kx.double(), times, pvt64,
-                                                     solver="dense"))
-    dense, t_dense = _timed(lambda: simulate_dry_gas(prob, kscale, kx, times, pvt,
-                                                     solver="dense"))
-    cg, t_cg = _timed(lambda: simulate_dry_gas(prob, kscale, kx, times, pvt, solver="cg",
-                                               stats=stats))
-    gap = {k: float((v.double() - exact).abs().max()) for k, v in (("cg", cg), ("dense", dense))}
-    log(f"labels DG 3D {tuple(cg.shape)} (1 realization, 10x39x39, 5 times): CG {t_cg:.2f} s, "
-        f"dense {t_dense:.2f} s, dense float64 {t_exact:.2f} s; CG trips per solve (checked "
-        f"every 32) {stats['trips']}; from the float64 solution: CG {gap['cg']:.4f} psia, "
-        f"float32 dense {gap['dense']:.4f} psia; drawdown {prob.Pi - float(exact.min()):.2f} psia")
-    if not torch.isfinite(cg).all() or gap["cg"] > SOLVER_PSIA_TOL or max(stats["trips"]) >= 1000:
-        raise AssertionError(f"DG 3D: CG {gap['cg']:.4f} psia from the float64 dense solve "
-                             f"(bound {SOLVER_PSIA_TOL}), trips {stats['trips']}")
 
 
 def phase_rmse(case) -> None:
@@ -1287,7 +1275,7 @@ def phase_drawdown(base_dir: str) -> dict:
     ``export --drawdown`` through the CLI, restoring that checkpoint: the
     rollout's t = 0 at Pi and Sgi, and the bundle on cuda and cpu within
     SERVE_BUNDLE_REL of the live predictor on the trained models. Returns
-    the launch counts of the training."""
+    the launch counts of the training and the trained case."""
     import argparse
 
     import numpy as np
@@ -1380,7 +1368,7 @@ def phase_drawdown(base_dir: str) -> dict:
             raise AssertionError(f"drawdown bundle on cpu: {brel} (bound {SERVE_CPU_REL})")
     log(f"predict --drawdown {p.shape}: {rel} from the live predictor; p in "
         f"[{p.min():.2f}, {p.max():.2f}], Sg in [{sg.min():.5f}, {sg.max():.5f}]")
-    return counts
+    return counts, case
 
 
 def _rollouts(pred, permx, times, fields) -> dict:
@@ -2048,6 +2036,226 @@ def phase_options() -> None:
                "; evaluated only (BatchNorm cannot train, ROADMAP C19)"))
 
 
+# phase 17: the GC labels' chunks are compared on the first
+# CHUNK_REALIZATIONS test realizations (more than 16, so that both chunk
+# sizes run more than one chunk) and the first CHUNK_TIMES test times
+CHUNK_REALIZATIONS, CHUNK_TIMES = 17, 6
+
+
+def _sim_case(fluid: str, count: int):
+    """The default reservoir at 39×39×10, ``count`` log-normal fields from
+    the config's seed (``phase_labels``' draw), the simulator's spline PVT in
+    float32 and float64, the simulation function of ``fluid`` and Pi."""
+    import copy
+
+    import numpy as np
+    import torch
+    from srm_tpu_torch.config import (DEFAULT_RESERVOIR_CONFIG, DEFAULT_SCAL_CONFIG,
+                                      DEFAULT_WELLS_CONFIG)
+    from srm_tpu_torch.physics.relperm import RelativePermeability
+    from srm_tpu_torch.sim import build_problem, simulate_dry_gas, simulate_gas_condensate
+    scal = DEFAULT_SCAL_CONFIG
+    res = copy.deepcopy(DEFAULT_RESERVOIR_CONFIG)
+    res["Nz"] = 10
+    g = _labelled_config(fluid)
+    prob, kscale = build_problem(res, DEFAULT_WELLS_CONFIG, scal, g)
+    spec = res["realizations"]["permx"]
+    rng = np.random.RandomState(g["seed"])
+    kx = torch.from_numpy(np.exp(rng.normal(np.log(spec["mean"]), spec["std"] / spec["mean"],
+                                            (count, 10 * 39 * 39))).astype(np.float32)).cuda()
+    if fluid == "DG":
+        def sim(k, times, pvt, **kw):
+            return simulate_dry_gas(prob, kscale, k, times, pvt, **kw)
+    else:
+        relperm = RelativePermeability.from_config(scal["end_points"], scal["corey_exponents"])
+
+        def sim(k, times, pvt, **kw):
+            return simulate_gas_condensate(prob, kscale, k, times, pvt, relperm,
+                                           scal["end_points"]["Swmin"], **kw)
+    return (kx, g["srm_timestep"], sim, simulator_pvt(fluid), simulator_pvt(fluid).double(),
+            float(prob.Pi))
+
+
+def _device_ops_per_solve(run) -> tuple:
+    """``run(stats)`` under the profiler: device operations and device ms
+    per iterative solve."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    stats = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(stats)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    solves = len(stats["trips"])
+    return len(device) / solves, sum(e.time_range.elapsed_us() for e in device) / solves / 1e3
+
+
+def phase_sim_graphs() -> dict:
+    """The 3D iterative solves as CUDA graphs (``SolverGraphs``): dry gas
+    (CG) on one realization for 5 times and on a chunk of 4, gas condensate
+    (BiCGStab) on one realization for 3 times, at 39×39×10: the graphed
+    simulation bitwise the eager one (``cuda_graph=False``) with the same
+    trips per solve, twice on one set of graphs (captured once), and on one
+    realization within SOLVER_PSIA_TOL of the float64 dense solve (the
+    float32 dense solve's distance printed beside it for dry gas); the
+    seconds of each, and the device operations and device ms per solve
+    (the first solve of a run)."""
+    import numpy as np
+    import torch
+    from srm_tpu_torch.sim.fv_simulator import SolverGraphs
+    out = {}
+    for fluid, solver, n_times, blocks in (("DG", "cg", 5, (1, 4)), ("GC", "bicgstab", 3, (1,))):
+        kx_all, dt, sim, pvt, pvt64, pi = _sim_case(fluid, sum(blocks))
+        times = np.arange(n_times, dtype=np.float32) * dt
+        start = 0
+        for c in blocks:
+            kx = kx_all[start:start + c]
+            start += c
+            eager_stats, graph_stats, again_stats = {}, {}, {}
+            eager, t_eager = _timed(lambda: sim(kx, times, pvt, solver=solver,
+                                                stats=eager_stats, cuda_graph=False))
+            solvers = SolverGraphs()
+            graphed, t_first = _timed(lambda: sim(kx, times, pvt, solver=solver,
+                                                  stats=graph_stats, solvers=solvers))
+            captures = solvers.captures
+            again, t_again = _timed(lambda: sim(kx, times, pvt, solver=solver,
+                                                stats=again_stats, solvers=solvers))
+            if not (torch.equal(graphed, eager) and torch.equal(again, eager)):
+                raise AssertionError(f"{fluid} 3D c={c}: graphed {solver} differs from eager by "
+                                     f"{float((graphed - eager).abs().max())}")
+            capped = fluid == "DG" and max(graph_stats["trips"]) >= 1000
+            if not (graph_stats["trips"] == again_stats["trips"] == eager_stats["trips"]) or \
+                    solvers.captures != captures or not solvers.replays or capped:
+                raise AssertionError(f"{fluid} 3D c={c}: trips {graph_stats['trips']} / "
+                                     f"{again_stats['trips']} vs eager {eager_stats['trips']}, "
+                                     f"captures {captures} then {solvers.captures}, replays "
+                                     f"{solvers.replays}")
+            gap = ""
+            if c == 1:
+                # the float32 dense solve is itself more than 0.1 psia from
+                # the float64 solution in 3D (both packages;
+                # tests/test_torch_sim.py), so the iterative path is held
+                # to the dense solve in float64 within the reference's bound
+                exact = sim(kx.double(), times, pvt64, solver="dense")
+                pressure = (lambda o: o) if fluid == "DG" else (lambda o: o[..., 0])
+                psia = float((pressure(graphed).double() - pressure(exact)).abs().max())
+                gap = (f"; from the float64 dense solve {psia:.4f} psia, drawdown "
+                       f"{pi - float(pressure(exact).min()):.2f} psia")
+                if fluid == "DG":
+                    dense = sim(kx, times, pvt, solver="dense")
+                    gap += (f", float32 dense "
+                            f"{float((dense.double() - exact).abs().max()):.4f} psia")
+                else:
+                    gap += f", Sg {float((graphed[..., 1].double() - exact[..., 1]).abs().max()):.2e}"
+                if not torch.isfinite(graphed).all() or psia > SOLVER_PSIA_TOL:
+                    raise AssertionError(f"{fluid} 3D: graphed {solver} {psia:.4f} psia from the "
+                                         f"float64 dense solve (bound {SOLVER_PSIA_TOL})")
+            log(f"simulator graphs {fluid} 3D c={c} ({solver}, {n_times} times): eager "
+                f"{t_eager:.3f} s, graphed {t_first:.3f} s with {captures} captures, again "
+                f"{t_again:.3f} s ({solvers.replays} block replays in both), bitwise equal; "
+                f"trips per solve {graph_stats['trips']}{gap}")
+            out[f"{fluid}_c{c}"] = {"eager_s": t_eager, "graphed_first_s": t_first,
+                                    "graphed_s": t_again}
+        kx, step = kx_all[:1], times[:2]
+        inner = {"n_picard": 1} if fluid == "DG" else {"n_newton": 1}
+        solvers = SolverGraphs()
+        sim(kx, step, pvt, solver=solver, solvers=solvers, **inner)          # captures
+        ops = {mode: _device_ops_per_solve(lambda st: sim(kx, step, pvt, solver=solver,
+                                                          stats=st, **kw, **inner))
+               for mode, kw in (("eager", {"cuda_graph": False}),
+                                ("graphed", {"solvers": solvers}))}
+        log(f"simulator graphs {fluid} 3D c=1, the first solve: device operations and device "
+            f"ms: eager {ops['eager'][0]:.1f}, {ops['eager'][1]:.3f} ms; graphed "
+            f"{ops['graphed'][0]:.1f}, {ops['graphed'][1]:.3f} ms")
+        out[f"{fluid}_ops_per_solve"] = ops
+    return out
+
+
+def phase_label_chunks(base_dir: str) -> None:
+    """The GC 2D labels of the default case's first CHUNK_REALIZATIONS test
+    realizations and first CHUNK_TIMES test times at chunks 8 and 16
+    (``tools/label_chunks.compare``): bitwise equal; the seconds of each."""
+    from srm_tpu_torch.data.dataset import SRMDataProcessor
+    from srm_tpu_torch.tools.label_chunks import compare
+    proc = SRMDataProcessor(base_dir=base_dir, general_config=_labelled_config("GC"),
+                            device="cuda")
+    permx = proc.generate_kle_splits()["test"][:CHUNK_REALIZATIONS]
+    times = proc.generate_time_tensor()["test"].reshape(-1)[:CHUNK_TIMES]
+    got = compare(proc, permx, times, (8, 16))
+    log(f"GC labels {got['shapes']} at chunks 8 and 16: {got['seconds']['8']:.2f} s and "
+        f"{got['seconds']['16']:.2f} s, bitwise equal {got['bitwise_equal']}")
+    if permx.shape[0] != CHUNK_REALIZATIONS or not got["bitwise_equal"]:
+        raise AssertionError(f"GC labels at chunks 8 and 16: {got}")
+
+
+EXAMPLES = {"example_dg": ("srm_tpu_torch.examples.training_case_dry_gas", "dg_stencil_residual"),
+            "example_gc": ("srm_tpu_torch.examples.training_case_gas_condensate",
+                           "gc_stencil_residual")}
+
+
+def phase_examples(base_dir: str) -> dict:
+    """Each example driver's ``main`` at the full 39×39 widths, 20
+    realizations, one epoch, on the card: its kernel launched at every loss
+    evaluation and its backward kernel at every training step (nothing
+    else, no plain recompute), the loss finite; then one more epoch timed
+    on the same trainer (graph replays). Returns each path's launches."""
+    import importlib
+
+    import numpy as np
+    out = {}
+    for path, (module, kernel) in EXAMPLES.items():
+        main = importlib.import_module(module).main
+        args = ["--realizations", "20", "--epochs", "1", "--base-dir", base_dir]
+        ((trainer, history, _), counts, recomputes), secs = _timed(
+            lambda: _counted_training(kernel, lambda: main(args)))
+        n_train = trainer._resident["train"][2]
+        n_val = trainer._resident["val"][2] if trainer._resident["val"] else 0
+        loss = history["total_train_loss"]
+        if len(loss) != 1 or not np.isfinite(loss[0]) or \
+                not np.all(np.isfinite(history["step_total_loss"])):
+            raise AssertionError(f"{path}: train losses {loss}")
+        _check_launches(kernel, counts, recomputes, n_train, n_val, 1)
+        _, epoch_s = _timed(lambda: trainer.train_epoch_resident("train"))
+        log(f"{path} ({module}.main, {secs:.1f} s with setup): final train loss {loss[0]:.6e}, "
+            f"launches {counts}, replays {trainer.replays}; a further epoch {n_train / epoch_s:.3f} "
+            f"steps/s ({n_train} steps)")
+        out[path] = counts
+    return out
+
+
+def phase_tools(base_dir: str, drawdown_case) -> dict:
+    """``mfu_probe`` (``base`` and ``bf16`` at batch 32, 2D: one JSON line
+    each, 0 < mfu < 1), ``flops_breakdown`` (DG 3D production at batch 32:
+    its total) and ``sg_head_probe.probe`` for one epoch on the drawdown
+    phase's trained case (B3 at every training step, its backward kernel
+    too; every key finite). Returns the probe's launches."""
+    import math
+
+    from srm_tpu_torch.tools import flops_breakdown, mfu_probe, sg_head_probe
+    lines = mfu_probe.main(["--case", "base", "--case", "bf16", "--batch", "32"])
+    for line in lines:
+        if not (line["ms_per_step"] > 0 and 0.0 < line["mfu"] < 1.0):
+            raise AssertionError(f"mfu_probe: {line}")
+    total, secs = _timed(lambda: flops_breakdown.main(["--base-dir", base_dir]))
+    if not total > 0:
+        raise AssertionError(f"flops_breakdown total {total}")
+    log(f"flops_breakdown (DG 3D production, batch 32): {total / 1e9:.2f} GFLOP a step "
+        f"({secs:.1f} s)")
+    kernel = "gc_stencil_residual"
+    report, counts, recomputes = _counted_training(
+        kernel, lambda: sg_head_probe.probe(drawdown_case, epochs=1, batch=32))
+    samples = sum(x.shape[0] * x.shape[1] for x, _ in drawdown_case["train_groups"])
+    n_train = max(1, samples // 32)                  # the probe's steps: one epoch at 32
+    _check_launches(kernel, counts, recomputes, n_train, 0, 1)
+    values = [v for item in report.values() if isinstance(item, dict) for v in item.values()]
+    values += [report[k] for k in ("Sgi", "sg_label_grad_l1_per_param", "sg_label_sse",
+                                   "trivial_sse")]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"sg_head_probe: {report}")
+    log(f"sg_head_probe (1 epoch on the drawdown case): {json.dumps(report)}; launches {counts}")
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "srm_tpu_torch")):
         raise SystemExit("chip_smoke: run from the root of a checkout of the repository")
@@ -2095,7 +2303,8 @@ def main() -> int:
                 tmp, "dg3d_stencil_residual", f32["dg3d_stencil_residual"], nz=10,
                 kle_method="uncorrelated")}
         mark("production")
-        drawdown = {"gc_stencil_residual": phase_drawdown(tmp)}
+        drawdown_counts, drawdown_case = phase_drawdown(tmp)
+        drawdown = {"gc_stencil_residual": drawdown_counts}
         mark("drawdown")
         gc3d = phase_gc3d(tmp)
         mark("gc3d")
@@ -2108,6 +2317,12 @@ def main() -> int:
         polynomial = phase_polynomial_pvt(tmp, f32)
         phase_options()
         mark("polynomial PVT and network options")
+        phase_sim_graphs()
+        phase_label_chunks(tmp)
+        later = phase_examples(tmp)
+        later["sg_head_probe"] = phase_tools(tmp, drawdown_case)
+        del drawdown_case
+        mark("simulator graphs, tools and examples")
     # each kernel's launches on its own f32 main path (a backward kernel's on
     # its forward's), and on each path of this run that runs it (the per-cell
     # porosity path runs the unfused residual: B1 0; gas condensate in 3D
@@ -2118,6 +2333,9 @@ def main() -> int:
              "pad48_width64": {"dg_stencil_residual": knobs},
              "porosity_field": {"dg_stencil_residual": porosity["field"]},
              "dg2d_polynomial_pvt": {"dg_stencil_residual": polynomial},
+             "example_dg": {"dg_stencil_residual": later["example_dg"]},
+             "example_gc": {"gc_stencil_residual": later["example_gc"]},
+             "sg_head_probe": {"gc_stencil_residual": later["sg_head_probe"]},
              **{path: {WELL_PATHS[path]["kernel"]: c} for path, c in well.items()}}
     log(f"gas condensate 3D launches (no kernel): {gc3d}")
     by_path = {name: {path: c[fwd][spec["counter"]] for path, c in paths.items() if fwd in c}

@@ -15,6 +15,11 @@ config hash. ``well_solver_kwargs`` pass through to the well model
 (``physics/well_solver.py``): ``{"use_non_iterative": False}`` solves the
 BHP by Newton, ``{"use_blocking_factor": True}`` adds the blocking-factor
 integral; the JAX CLI has no flag for either, so these paths run from here.
+``use_cuda_stencil`` is the JAX package's ``use_pallas_stencil``: None
+leaves the loss's choice (on with the models on a GPU), False turns the
+fused op off, True on (where the tensors lie on the CPU it runs its plain
+version); a per-cell porosity or gas condensate in 3D keeps it off, as
+there is no fused op for either.
 
 The case runs on the GPU: ``device=None`` means ``"cuda"``, and without a
 usable CUDA device the call raises. Pass ``device="cpu"`` to run on the CPU.
@@ -42,6 +47,7 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
                nz: Optional[int] = None, kle_method: Optional[str] = None,
                pi: Optional[float] = None, min_bhp: Optional[float] = None,
                well_solver_kwargs: Optional[Dict] = None,
+               use_cuda_stencil: Optional[bool] = None,
                device: Optional[torch.device] = None) -> Dict:
     """Build everything for one training case; returns a dict bundle."""
     fluid_type = fluid_type.upper()
@@ -94,6 +100,9 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
                           optimizer_model_names_map=get_optimizer_model_mapping(fluid_type),
                           general_config=g, reservoir_config=res,
                           wells_config=processor.wells_config, fluid_type=fluid_type)
+    if use_cuda_stencil is not None:
+        loss_fn.use_cuda_stencil = (bool(use_cuda_stencil) and loss_fn.phi_field is None
+                                    and not (fluid_type == "GC" and res["Nz"] > 1))
     return {
         "processor": processor, "data_path": path,
         "train_groups": train_groups, "val_groups": val_groups,

@@ -34,7 +34,9 @@ def simulate_labels(processor, split: str, permx: Optional[np.ndarray] = None,
     The realizations run on ``device``, else the processor's, else
     ``"cuda"`` (which raises without a card). The reference's environment
     overrides apply under their own names: ``SRM_TPU_SIM_SOLVER``,
-    ``SRM_TPU_SIM_CHUNK``, ``SRM_TPU_SIM_TOL`` and ``SRM_TPU_SIM_MAXITER``.
+    ``SRM_TPU_SIM_CHUNK``, ``SRM_TPU_SIM_TOL`` and ``SRM_TPU_SIM_MAXITER``
+    (environment reads, as there: the JAX package's ``simulate_labels``
+    takes no such arguments).
     A ``stats`` dict collects the iterative solver's trips per solve."""
     from srm_tpu_torch.config import DEFAULT_SCAL_CONFIG, get_configuration
     from srm_tpu_torch.data.pvt_table import load_pvt_table

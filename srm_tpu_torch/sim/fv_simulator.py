@@ -315,13 +315,232 @@ def _bicgstab_fixed(mv, b: torch.Tensor, x0: torch.Tensor, diag: torch.Tensor, i
     return x
 
 
+def _dg_operator(x: torch.Tensor, shape, acc, Tx, Ty, Tz) -> torch.Tensor:
+    """The dry-gas system ``acc·x + F x`` on the structured face grids."""
+    c = x.shape[0]
+    return acc * x + _stencil_apply(x.reshape((c,) + tuple(shape)), Tx, Ty, Tz).reshape(c, -1)
+
+
+def _schur_operator(x: torch.Tensor, shape, Tgx, Tgy, Tgz, Tox, Toy, Toz, dAg_dp, dAo_dp,
+                    r) -> torch.Tensor:
+    """The gas-condensate Schur complement ``(Fg + dAg_dp) x − r·(Fo + dAo_dp) x``."""
+    c = x.shape[0]
+    x3 = x.reshape((c,) + tuple(shape))
+    fg = _stencil_apply(x3, Tgx, Tgy, Tgz).reshape(c, -1)
+    fo = _stencil_apply(x3, Tox, Toy, Toz).reshape(c, -1)
+    return fg + dAg_dp * x - r * (fo + dAo_dp * x)
+
+
+class _BlockedSolve:
+    """One iterative solver (``"cg"`` or ``"bicgstab"``) on static buffers.
+
+    The operator's operands, the preconditioner and the solver's state live
+    in tensors of this object; each solve fills them with ``copy_`` and then
+    runs blocks of ``_CHECK_EVERY`` trips that update the state in place,
+    each trip the eager loop's (:func:`_pcg_fixed`, :func:`_bicgstab_fixed`)
+    operation for operation, so the result and the trip count are its bits.
+    Between blocks the host reads one flag (every realization done), where
+    the eager loop tests ``done``. With ``graph`` (a CUDA device) each block
+    length is captured once as a CUDA graph, after a warm-up block on a side
+    stream, in a memory pool of this solver's own, and replayed; a capture
+    that fails raises."""
+
+    _STATE = {"cg": ("x", "r", "z", "p"), "bicgstab": ("x", "r", "rhat", "p", "v")}
+    _SCALARS = {"cg": ("rz",), "bicgstab": ("rho", "alpha", "omega")}
+
+    def __init__(self, kind: str, operator, shape, operands, b: torch.Tensor, graph: bool):
+        self.kind, self.graph = kind, graph
+        self.ops = [None if t is None else torch.zeros_like(t) for t in operands]
+        self.mv = lambda x: operator(x, shape, *self.ops)   # noqa: E731
+        self.v = {k: torch.zeros_like(b) for k in self._STATE[kind] + ("diag",)}
+        self.s = {k: b.new_zeros(b.shape[:1]) for k in self._SCALARS[kind] + ("thresh2",)}
+        self.flag = torch.zeros((), dtype=torch.bool, device=b.device)
+        self.graphs: Dict[int, Any] = {}
+        self.pool = torch.cuda.graph_pool_handle() if graph else None
+
+    def _cg_trip(self) -> None:
+        v, s = self.v, self.s
+        x, r, z, p, diag, rz = v["x"], v["r"], v["z"], v["p"], v["diag"], s["rz"]
+        done = _dot(r, r) <= s["thresh2"]
+        Ap = self.mv(p)
+        denom = _dot(p, Ap)
+        alpha = torch.where(done | (denom.abs() < 1e-30), 0.0, rz / denom)[:, None]
+        x.copy_(x + alpha * p)
+        r.copy_(r - alpha * Ap)
+        z.copy_(r / diag)
+        rz_new = _dot(r, z)
+        beta = torch.where(rz.abs() < 1e-30, 0.0, rz_new / rz)[:, None]
+        p.copy_(z + beta * p)
+        rz.copy_(rz_new)
+
+    def _bicgstab_trip(self) -> None:
+        v, s = self.v, self.s
+        x, r, rhat, p, vv, diag = v["x"], v["r"], v["rhat"], v["p"], v["v"], v["diag"]
+        rho, alpha, omega = s["rho"], s["alpha"], s["omega"]
+        eps = 1e-30
+        done = _dot(r, r) <= s["thresh2"]
+        rho_new = _dot(rhat, r)
+        beta = torch.where((rho * omega).abs() < eps, 0.0,
+                           (rho_new / torch.where(rho.abs() < eps, eps, rho))
+                           * (alpha / torch.where(omega.abs() < eps, eps, omega)))
+        p.copy_(r + beta[:, None] * (p - omega[:, None] * vv))
+        phat = p / diag
+        vv.copy_(self.mv(phat))
+        denom = _dot(rhat, vv)
+        alpha_new = torch.where(done | (denom.abs() < eps), 0.0, rho_new / denom)
+        s_ = r - alpha_new[:, None] * vv
+        shat = s_ / diag
+        t = self.mv(shat)
+        tt = _dot(t, t)
+        omega_new = torch.where(done | (tt < eps), 0.0, _dot(t, s_) / tt)
+        x.copy_(x + alpha_new[:, None] * phat + omega_new[:, None] * shat)
+        r.copy_(s_ - omega_new[:, None] * t)
+        rho.copy_(rho_new)
+        alpha.copy_(alpha_new)
+        omega.copy_(omega_new)
+
+    def _block(self, n: int) -> None:
+        trip = self._cg_trip if self.kind == "cg" else self._bicgstab_trip
+        for _ in range(n):
+            trip()
+        r = self.v["r"]
+        self.flag.copy_((_dot(r, r) <= self.s["thresh2"]).all())
+
+    def _capture(self, n: int) -> None:
+        dev = self.flag.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._block(n)                      # warm-up; _start overwrites the state
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            self._block(n)
+        self.graphs[n] = graph
+
+    def _start(self, b: torch.Tensor, x0: torch.Tensor, tol: float) -> None:
+        """The eager loop's set-up, into the state buffers."""
+        v, s = self.v, self.s
+        s["thresh2"].copy_((tol * tol) * _dot(b, b))
+        v["x"].copy_(x0)
+        v["r"].copy_(b - self.mv(x0))
+        if self.kind == "cg":
+            v["z"].copy_(v["r"] / v["diag"])
+            v["p"].copy_(v["z"])
+            s["rz"].copy_(_dot(v["r"], v["z"]))
+        else:
+            v["rhat"].copy_(v["r"])
+            v["p"].zero_()
+            v["v"].zero_()
+            for k in ("rho", "alpha", "omega"):
+                s[k].fill_(1.0)
+
+    def solve(self, operands, b, x0, diag, iters: int, tol: float) -> Tuple[torch.Tensor, int, int]:
+        """(x, trips, blocks run) for the system with these operands."""
+        for buf, t in zip(self.ops, operands):
+            if buf is not None:
+                buf.copy_(t)
+        self.v["diag"].copy_(diag)
+        step = max(1, min(_CHECK_EVERY, iters))
+        starts = range(0, iters, step)
+        if self.graph:
+            for n in {min(step, iters - i) for i in starts} - set(self.graphs):
+                self._capture(n)
+        self._start(b, x0, tol)
+        trips, blocks = iters, 0
+        for i in starts:
+            if i and bool(self.flag):
+                trips = i
+                break
+            n = min(step, iters - i)
+            if self.graph:
+                self.graphs[n].replay()
+            else:
+                self._block(n)
+            blocks += 1
+        return self.v["x"].clone(), trips, blocks
+
+
+class SolverGraphs:
+    """The iterative solves' static buffers and CUDA graphs, one
+    :class:`_BlockedSolve` per (solver, grid, operand shapes, dtype,
+    device): made at the first solve of that kind and reused across sweeps,
+    time steps and chunks. ``graph=False`` runs the same blocks eagerly (the
+    CPU tests hold them to the eager loops). ``captures`` and ``replays``
+    count graphs recorded and replayed."""
+
+    def __init__(self, graph: bool = True):
+        self.graph = graph
+        self.captures = 0
+        self.replays = 0
+        self._solvers: Dict[tuple, _BlockedSolve] = {}
+
+    def solve(self, kind: str, operator, shape, operands, b, x0, diag, iters: int,
+              tol: float) -> Tuple[torch.Tensor, int]:
+        key = (kind, tuple(shape), tuple(None if t is None else tuple(t.shape) for t in operands),
+               tuple(b.shape), b.dtype, b.device)
+        solver = self._solvers.get(key)
+        if solver is None:
+            solver = self._solvers[key] = _BlockedSolve(kind, operator, shape, operands, b,
+                                                        self.graph)
+        before = len(solver.graphs)
+        x, trips, blocks = solver.solve(operands, b, x0, diag, iters, tol)
+        self.captures += len(solver.graphs) - before
+        if self.graph:
+            self.replays += blocks
+        return x, trips
+
+
+def _iterative(kind: str, operator, shape, operands, b, x0, diag, iters: int, tol: float,
+               stats: Optional[Dict], solvers: Optional[SolverGraphs]) -> torch.Tensor:
+    """One iterative solve: on ``solvers``' blocks where given, else the
+    eager loop (the reference)."""
+    if solvers is None:
+        loop = _pcg_fixed if kind == "cg" else _bicgstab_fixed
+        return loop(lambda x: operator(x, shape, *operands), b, x0=x0, diag=diag,
+                    iters=iters, tol=tol, stats=stats)
+    x, trips = solvers.solve(kind, operator, shape, operands, b, x0, diag, iters, tol)
+    if stats is not None:
+        stats.setdefault("trips", []).append(trips)
+    return x
+
+
+def _solvers_for(device: torch.device, cuda_graph: Optional[bool],
+                 solvers: Optional[SolverGraphs]) -> Optional[SolverGraphs]:
+    """The blocks to solve on: ``solvers`` where given; else graphs on a
+    CUDA device unless ``cuda_graph=False``, and the eager loops on the CPU
+    (``cuda_graph=True`` there raises)."""
+    on_cuda = device.type == "cuda"
+    if cuda_graph and not on_cuda:
+        raise ValueError(f"cuda_graph=True needs a CUDA device, the simulation runs on {device}")
+    if solvers is not None:
+        return solvers
+    return SolverGraphs() if (on_cuda if cuda_graph is None else cuda_graph) else None
+
+
 def _solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.linalg.solve`` of each realization's dense system. On the CPU
     one system at a time: a batched LU there can hang in MKL's row swaps
-    when PyTorch runs more than one thread."""
+    when PyTorch runs more than one thread. On a CUDA device, up to the
+    dense path's ``_DENSE_MAX_CELLS``, through MAGMA where PyTorch has it:
+    its batched LU and triangular solves treat each matrix alone, so a
+    realization's solution does not depend on how many share its chunk,
+    where cuSOLVER's batched path (PyTorch's default) changes its algorithm
+    with the batch size, so that the labels of a realization changed with
+    its chunk (``tools/solve_backends.py`` compares the backends). Above
+    that size (the 3D grids' dense reference solve, N = 15,210) MAGMA's
+    solve fails on an H100, and cuSOLVER's runs."""
     if A.device.type == "cpu":
         return torch.stack([torch.linalg.solve(a, v) for a, v in zip(A, b)])
-    return torch.linalg.solve(A, b)
+    if not torch.cuda.has_magma or A.shape[-1] > _DENSE_MAX_CELLS:
+        return torch.linalg.solve(A, b)
+    backends = torch.backends.cuda
+    before = backends.preferred_linalg_library()
+    backends.preferred_linalg_library("magma")
+    try:
+        return torch.linalg.solve(A, b)
+    finally:
+        backends.preferred_linalg_library(before)
 
 
 def _resolve_solver(solver: str, n_cells: int) -> bool:
@@ -418,7 +637,9 @@ def _batched(kx) -> Tuple[torch.Tensor, bool]:
 def simulate_dry_gas(prob: FVProblem, kscale: np.ndarray, kx, times,
                      pvt_fn: Callable[[torch.Tensor], torch.Tensor], n_picard: int = 6,
                      solver: str = "auto", cg_tol: float = 1e-7,
-                     cg_maxiter: int = 1000, stats: Optional[Dict] = None) -> torch.Tensor:
+                     cg_maxiter: int = 1000, stats: Optional[Dict] = None,
+                     cuda_graph: Optional[bool] = None,
+                     solvers: Optional[SolverGraphs] = None) -> torch.Tensor:
     """Pressure snapshots ``(c, T, N)`` for the realizations ``kx (c, N)``
     (or ``(T, N)`` for one ``kx (N,)``).
 
@@ -428,10 +649,15 @@ def simulate_dry_gas(prob: FVProblem, kscale: np.ndarray, kx, times,
     condition (p = Pi); ``pvt_fn(p) → [2, P, *p.shape]`` as the PVT layer. ``solver`` — ``'dense'`` | ``'cg'`` |
     ``'auto'``: the system is symmetric positive definite, so the iterative
     path is Jacobi-preconditioned CG on the structured face operator. A
-    ``stats`` dict collects the iterative solver's trips per solve."""
+    ``stats`` dict collects the iterative solver's trips per solve. On a
+    CUDA device the iterative solves run as CUDA graphs of
+    ``_CHECK_EVERY`` trips (:class:`SolverGraphs`; ``solvers`` reuses one
+    across calls), bitwise the eager loop that ``cuda_graph=False`` runs
+    and that the CPU runs."""
     kx, single = _batched(kx)
     s = _Setup(prob, kscale, kx, times)
     c, N = s.c, s.N
+    solvers = _solvers_for(kx.device, cuda_graph, solvers)
 
     def pvt_props(p):
         out = pvt_fn(p)
@@ -473,10 +699,8 @@ def simulate_dry_gas(prob: FVProblem, kscale: np.ndarray, kx, times,
             if dense:
                 p = _solve(s.assemble(Tf, diag), b)
             else:
-                mv = lambda x: acc * x + _stencil_apply(                # noqa: E731
-                    s.grid(x), Tx, Ty, Tz).reshape(c, N)
-                p = _pcg_fixed(mv, b, x0=p, diag=diag, iters=cg_maxiter, tol=cg_tol,
-                               stats=stats)
+                p = _iterative("cg", _dg_operator, s.shape, (acc, Tx, Ty, Tz), b, p,
+                               diag, cg_maxiter, cg_tol, stats, solvers)
         ps[:, n + 1] = p_n = p
     return ps[0] if single else ps
 
@@ -493,7 +717,9 @@ def simulate_gas_condensate(prob: FVProblem, kscale: np.ndarray, kx, times,
                             relperm, Swmin: float, n_newton: int = 8,
                             solver: str = "auto", cg_tol: float = 1e-7,
                             cg_maxiter: int = 1000,
-                            stats: Optional[Dict] = None) -> torch.Tensor:
+                            stats: Optional[Dict] = None,
+                            cuda_graph: Optional[bool] = None,
+                            solvers: Optional[SolverGraphs] = None) -> torch.Tensor:
     """Two-phase (gas-condensate) snapshots ``(c, T, N, 2)`` — (p, Sg) — for
     the realizations ``kx (c, N)`` (or ``(T, N, 2)`` for one ``kx (N,)``).
 
@@ -505,10 +731,12 @@ def simulate_gas_condensate(prob: FVProblem, kscale: np.ndarray, kx, times,
     Backward Euler, Newton on the accumulation with Picard-lagged fluxes;
     δSg eliminated per cell (diagonal Schur complement), so each iteration
     is one linear solve in δp: dense, or Jacobi-preconditioned BiCGStab on
-    the structured face operators (the Schur matrix is nonsymmetric)."""
+    the structured face operators (the Schur matrix is nonsymmetric), graphed
+    on a CUDA device as in :func:`simulate_dry_gas`."""
     kx, single = _batched(kx)
     s = _Setup(prob, kscale, kx, times)
     c, N = s.c, s.N
+    solvers = _solvers_for(kx.device, cuda_graph, solvers)
     phi0, Sgi = s.phi, prob.Sgi
 
     def nonzero(a):
@@ -607,10 +835,9 @@ def simulate_gas_condensate(prob: FVProblem, kscale: np.ndarray, kx, times,
                 S.diagonal(dim1=1, dim2=2).copy_(s_diag)
                 dp = _solve(S, rhs)
             else:
-                s_apply = lambda x: (fg_apply(x) + dAg_dp * x    # noqa: E731
-                                     - r * jop_apply(x))
-                dp = _bicgstab_fixed(s_apply, rhs, x0=torch.zeros_like(rhs), diag=s_diag,
-                                     iters=cg_maxiter, tol=cg_tol, stats=stats)
+                dp = _iterative("bicgstab", _schur_operator, s.shape,
+                                (*Tgs, *Tos, dAg_dp, dAo_dp, r), rhs, torch.zeros_like(rhs),
+                                s_diag, cg_maxiter, cg_tol, stats, solvers)
             dSg = (-Ro - jop_apply(dp)) / nonzero(dAo_dS)
             p = torch.clamp(p + dp, 14.7, 1e4)
             Sg = torch.clamp(Sg + dSg, 0.0, Sgi)
@@ -689,18 +916,22 @@ def simulate_realizations(prob: FVProblem, kscale: np.ndarray, kx_fields: np.nda
                           times, pvt_fn, n_picard: int = 6, chunk: int = 16,
                           solver: str = "auto", cg_tol: float = 1e-7,
                           cg_maxiter: int = 1000, device=None,
-                          stats: Optional[Dict] = None) -> np.ndarray:
+                          stats: Optional[Dict] = None,
+                          cuda_graph: Optional[bool] = None) -> np.ndarray:
     """(K, Nz, Ny, Nx) × (T,) → (K, T, Nz, Ny, Nx) pressures, on ``device``
     (default ``"cuda"``; it raises without a card), ``chunk`` realizations
     at a time: each dense Picard sweep holds a (chunk, N, N) system and its
-    LU factors."""
+    LU factors. The iterative solves' graphs are captured once for all
+    chunks."""
     dev = _device(device)
+    solvers = _solvers_for(dev, cuda_graph, None)
     K = kx_fields.shape[0]
     flat = torch.as_tensor(np.asarray(kx_fields, np.float32).reshape(K, -1), device=dev)
     outs = []
     for block, pad in _chunks(flat, chunk):
         ps = simulate_dry_gas(prob, kscale, block, times, pvt_fn, n_picard, solver=solver,
-                              cg_tol=cg_tol, cg_maxiter=cg_maxiter, stats=stats)
+                              cg_tol=cg_tol, cg_maxiter=cg_maxiter, stats=stats,
+                              cuda_graph=cuda_graph, solvers=solvers)
         outs.append(ps[:ps.shape[0] - pad].cpu().numpy())
     ps = np.concatenate(outs, axis=0)
     return ps.reshape((K, ps.shape[1]) + tuple(prob.shape))
@@ -708,21 +939,27 @@ def simulate_realizations(prob: FVProblem, kscale: np.ndarray, kx_fields: np.nda
 
 def simulate_realizations_gc(prob: FVProblem, kscale: np.ndarray, kx_fields: np.ndarray,
                              times, pvt_fn, relperm, Swmin: float, n_newton: int = 8,
-                             chunk: int = 8, solver: str = "auto", cg_tol: float = 1e-7,
+                             chunk: int = 16, solver: str = "auto", cg_tol: float = 1e-7,
                              cg_maxiter: int = 1000, device=None,
-                             stats: Optional[Dict] = None) -> Tuple[np.ndarray, np.ndarray]:
+                             stats: Optional[Dict] = None,
+                             cuda_graph: Optional[bool] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Gas condensate over realizations → (P, Sg), each ``(K, T, Nz, Ny,
-    Nx)``; chunked like :func:`simulate_realizations` (each Newton iteration
-    holds two dense flux matrices and the Schur system, hence half the
-    chunk)."""
+    Nx)``; chunked like :func:`simulate_realizations`. The JAX package
+    takes half its dry-gas chunk here (each Newton iteration holds two dense
+    flux matrices and the Schur system, sized for a TPU's memory); on an
+    H100 the default case's test split (140 realizations × 74 times) took
+    264.2 s at chunk 16 against 476.6 s at 8, bitwise equal
+    (``tools/label_chunks.py``), so the port's default is 16."""
     dev = _device(device)
+    solvers = _solvers_for(dev, cuda_graph, None)
     K = kx_fields.shape[0]
     flat = torch.as_tensor(np.asarray(kx_fields, np.float32).reshape(K, -1), device=dev)
     outs = []
     for block, pad in _chunks(flat, chunk):
         ps = simulate_gas_condensate(prob, kscale, block, times, pvt_fn, relperm, Swmin,
                                      n_newton, solver=solver, cg_tol=cg_tol,
-                                     cg_maxiter=cg_maxiter, stats=stats)
+                                     cg_maxiter=cg_maxiter, stats=stats,
+                                     cuda_graph=cuda_graph, solvers=solvers)
         outs.append(ps[:ps.shape[0] - pad].cpu().numpy())
     ps = np.concatenate(outs, axis=0)
     grid = ps.reshape((K, ps.shape[1]) + tuple(prob.shape) + (2,))

@@ -100,6 +100,13 @@ def optimizer_configs(lr_scale=None, decay_steps=None):
     return cfgs
 
 
+def eval_line(epoch: int, wall: float, rmse: float, rmse_sg=None) -> str:
+    """The stderr line of one evaluation, which ``tools/salvage_rmse_log.py``
+    parses back from the log of an interrupted run."""
+    return (f"epoch {epoch}: wall {wall:.1f}s rmse {rmse:.2f} psia"
+            + (f" / Sg {rmse_sg:.4f}" if rmse_sg is not None else ""))
+
+
 def train(args) -> dict:
     import torch
 
@@ -161,8 +168,7 @@ def train(args) -> dict:
             if s is not None:
                 rec["rmse_sg"] = round(s, 5)
             traj.append(rec)
-            print(f"epoch {epoch + 1}: wall {wall:.1f}s rmse {r:.2f} psia"
-                  + (f" / Sg {s:.4f}" if s is not None else ""), file=sys.stderr, flush=True)
+            print(eval_line(epoch + 1, wall, r, s), file=sys.stderr, flush=True)
 
     result = {
         "framework": "srm_tpu_torch",

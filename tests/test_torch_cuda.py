@@ -831,3 +831,63 @@ def test_iteration_logs_are_written_after_each_replay(tmp_path):
     texts = [(log_dir / f).read_text() for f in os.listdir(log_dir)]
     assert len(texts) == len(set(texts)) == steps
     assert {len(t.splitlines()) for t in texts} == {5 + 2}
+
+
+def _sim9(fluid):
+    """The default reservoir at 9×9×9, two log-normal fields from a seed,
+    the simulator's spline PVT and the simulation of ``fluid`` on the card."""
+    import copy
+
+    from srm_tpu_torch.config import (DEFAULT_GENERAL_CONFIG, DEFAULT_RESERVOIR_CONFIG,
+                                      DEFAULT_SCAL_CONFIG, DEFAULT_WELLS_CONFIG,
+                                      get_configuration)
+    from srm_tpu_torch.data.pvt_table import load_pvt_table
+    from srm_tpu_torch.physics.pvt import make_spline_pvt, properties_for
+    from srm_tpu_torch.physics.relperm import RelativePermeability
+    from srm_tpu_torch.sim import build_problem, simulate_dry_gas, simulate_gas_condensate
+    res = copy.deepcopy(DEFAULT_RESERVOIR_CONFIG)
+    res["Nx"] = res["Ny"] = res["Nz"] = 9
+    wells = copy.deepcopy(DEFAULT_WELLS_CONFIG)
+    for conn in wells["connections"]:
+        conn["i"], conn["j"] = min(conn["i"] * 9 // 39, 8), min(conn["j"] * 9 // 39, 8)
+    scal = DEFAULT_SCAL_CONFIG
+    prob, kscale = build_problem(res, wells, scal, DEFAULT_GENERAL_CONFIG)
+    kx = torch.from_numpy(np.exp(np.random.RandomState(0).normal(1.0, 0.5, (2, 729)))
+                          .astype(np.float32)).cuda()
+    pvt = make_spline_pvt(get_configuration("pvt_layer", fluid_type=fluid), load_pvt_table(),
+                          properties=properties_for(fluid), order=1).cuda()
+    if fluid == "DG":
+        return lambda **kw: simulate_dry_gas(prob, kscale, kx, np.array([0.0, 10.0, 20.0],
+                                             np.float32), pvt, solver="cg", **kw)
+    rp = RelativePermeability.from_config(scal["end_points"], scal["corey_exponents"])
+    return lambda **kw: simulate_gas_condensate(prob, kscale, kx, np.array([0.0, 10.0, 20.0],
+                                                np.float32), pvt, rp,
+                                                scal["end_points"]["Swmin"],
+                                                solver="bicgstab", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fluid", ["DG", "GC"])
+def test_graphed_iterative_solves_are_bitwise_the_eager_loop(cuda, fluid):
+    """The 3D CG (dry gas) and BiCGStab (gas condensate) as CUDA graphs of
+    32-trip blocks and the 8-trip tail: the eager loop's bits and trips,
+    the graphs captured once and replayed across sweeps and steps."""
+    from srm_tpu_torch.sim.fv_simulator import SolverGraphs
+    run = _sim9(fluid)
+    eager, graphed = {}, {}
+    want = run(stats=eager, cuda_graph=False, cg_maxiter=1000)
+    solvers = SolverGraphs()
+    got = run(stats=graphed, solvers=solvers, cg_maxiter=1000)
+    assert torch.equal(got, want) and graphed["trips"] == eager["trips"]
+    assert solvers.captures == 2 and solvers.replays > 0
+
+
+@pytest.mark.cuda
+def test_dense_solve_does_not_depend_on_the_chunk(cuda):
+    """The simulator's dense solve of 16 systems gives the first 8 the bits
+    of solving those 8 alone (MAGMA's batched LU), at the 39×39 size."""
+    from srm_tpu_torch.sim.fv_simulator import _solve
+    g = torch.Generator().manual_seed(0)
+    A = (torch.randn(16, 1521, 1521, generator=g) * 0.01 + 4 * torch.eye(1521)).cuda()
+    b = torch.randn(16, 1521, generator=g).cuda()
+    assert torch.equal(_solve(A, b)[:8], _solve(A[:8], b[:8]))

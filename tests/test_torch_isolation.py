@@ -285,6 +285,73 @@ def test_simulator_labels_and_rmse_never_import_jax(tmp_path):
     assert "isolated" in proc.stdout
 
 
+# the example drivers and the tools, each run on the CPU at a small size
+# ({d}: a directory of its own)
+_ENTRY_POINTS = {
+    "example_dry_gas": """
+        from srm_tpu_torch.examples.training_case_dry_gas import main
+        main(["--nx", "9", "--realizations", "6", "--epochs", "1", "--device", "cpu",
+              "--base-dir", {d!r}])""",
+    "example_gas_condensate": """
+        from srm_tpu_torch.examples.training_case_gas_condensate import main
+        main(["--nx", "9", "--realizations", "6", "--epochs", "1", "--device", "cpu",
+              "--base-dir", {d!r}])""",
+    "mfu_probe": """
+        from srm_tpu_torch.tools.mfu_probe import main
+        assert len(main(["--device", "cpu", "--nx", "13", "--batch", "2", "--case", "base",
+                         "--case", "bf16"])) == 2""",
+    "flops_breakdown": """
+        from srm_tpu_torch.tools.flops_breakdown import main
+        assert main(["--device", "cpu", "--nx", "9", "--nz", "9", "--batch", "2",
+                     "--realizations", "6", "--base-dir", {d!r}]) > 0""",
+    "sg_head_probe": """
+        from srm_tpu_torch.tools import sg_head_probe
+        case = sg_head_probe.build_case(base_dir={d!r}, device="cpu", nx=9, realizations=6)
+        sg_head_probe.probe(case, epochs=1, device="cpu")""",
+    "rmse_report_and_salvage": """
+        import json, os
+        from srm_tpu_torch.tools import rmse_report, salvage_rmse_log
+        from srm_tpu_torch.tools.rmse_experiment import eval_line
+        log, out = os.path.join({d!r}, "run.log"), os.path.join({d!r}, "salvaged.json")
+        open(log, "w").write(eval_line(5, 12.5, 80.0) + "\\n" + eval_line(10, 30.0, 40.0) + "\\n")
+        rec = salvage_rmse_log.main([log, "--out", out])
+        tf = os.path.join({d!r}, "tf.json")
+        json.dump({{"trajectory": [{{"wall_s": 100.0, "step": 10, "rmse_psia": 50.0}}]}},
+                  open(tf, "w"))
+        rec["rmse_predict_pi"] = 263.4
+        json.dump(rec, open(out, "w"))
+        assert rmse_report.main([out, tf])["speedups_at_tf_levels"] == [3.3]""",
+    "profiling_and_simulator_blocks": """
+        import numpy as np, torch
+        from srm_tpu_torch.utils.profiling import EpochTimer, trace
+        from srm_tpu_torch.sim.fv_simulator import SolverGraphs
+        from srm_tpu_torch.sim import simulate_dry_gas
+        with trace({d!r}, device="cpu"):
+            torch.ones(8).sum()
+        timer = EpochTimer()
+        timer.start()
+        timer.stop(1)
+        assert timer.summary()["count"] == 1""",
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_examples_and_tools_never_import_jax(tmp_path, entry):
+    """The example drivers and the tools (and the profiling helpers and the
+    simulator's solver blocks) stand alone as well."""
+    body = textwrap.dedent(_ENTRY_POINTS[entry]).format(d=str(tmp_path))
+    script = ("import sys\nimport torch\ntorch.set_num_threads(2)\n" + body + textwrap.dedent("""
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+        assert not loaded, loaded
+        ref = sorted(m for m in sys.modules if m.split(".")[0] == "srm_tpu")
+        assert not ref, ref
+        print("isolated")
+    """))
+    proc = _run([sys.executable, "-c", script], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "isolated" in proc.stdout
+
+
 def test_serving_path_never_imports_jax(tmp_path):
     """A CPU rollout (pressure, rates), an export and a served bundle, and
     the CLI's predict, stand alone as well."""
