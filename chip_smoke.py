@@ -161,14 +161,34 @@ the process exits non-zero:
     batch 32, its total) and ``sg_head_probe.probe`` for one epoch on the
     drawdown phase's trained case (B3 and its backward at every step, every
     key of its report finite).
+18. data parallel (last; ``parallel/mesh.py``) — DG 2D at 39×39, 20
+    realizations, batch 32, from one set of initial weights. (a) World 1
+    over NCCL, graphed: two epochs as the trainer without a process group,
+    cuDNN deterministic; every step after the warm-up one replay, each step
+    B1 and its backward kernel, the gradient all-reduce called once inside
+    the capture (and once in each warm-up step); the per-step metrics and
+    final weights bitwise those without a group; then a fresh graphed pair
+    (as the main path runs, cuDNN's default) timed by turns for steps/s,
+    and a profiler window over 3 replayed steps of the mesh's (B1 and its
+    backward once a step; the NCCL device work logged: NCCL 2.28 gives an
+    in-place SUM on one rank none). (b) Two ranks on the one card over
+    gloo (NCCL refuses two ranks on one device), eager, 16 rows each,
+    started as processes: against one
+    eager rank on the same global batches the first step's total within
+    DP_FIRST_RTOL and each step's within DP_LOSS_RTOL, the weights within
+    the Adam-step bound, the two ranks' weights bitwise equal, B1 and its
+    backward at every step on both, ``cuda_graph=True`` on that group
+    raising; the epoch's seconds and B1's time at B = 16.
 
 The line before the last is a JSON object describing each kernel (its
 numbers at batch 32, under ``at_b128`` those at batch 128, under
 ``at_128x117x117`` or ``at_256x10x39x39`` those at the last
 configurations' shape, its launches on its f32 main path and, under
 ``launches_by_path``, on every path of this run that runs it, the well
-solver's paths, the example drivers' ``example_dg`` and ``example_gc`` and
-``sg_head_probe`` among them); the last line is ``{"ok": true, "device": {...}}``.
+solver's paths, the example drivers' ``example_dg`` and ``example_gc``,
+``sg_head_probe`` and the data-parallel phase's ``dp_nccl_world1``,
+``dp_gloo_rank0`` and ``dp_gloo_rank1`` among them); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -887,11 +907,15 @@ def _device_per_step(trainer, steps: int = 3, names=None) -> dict:
     if trainer.replays["train"] != replays + steps:
         raise AssertionError("the profiled steps were not graph replays")
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    seen = {k: sum(bool(re.search(rf"(^|::){n}\(", e.name)) for e in device)
-            for k, n in (names or {}).items()}
+    matched = {k: [e for e in device if re.search(rf"(^|::){n}\(", e.name)]
+               for k, n in (names or {}).items()}
     return {"device_ms_per_step": sum(e.time_range.elapsed_us() for e in device) / steps / 1e3,
-            "device_ops_per_step": len(device) / steps, "seen": seen,
-            "stencil_kernels": sorted({e.name for e in device if "stencil" in e.name})}
+            "device_ops_per_step": len(device) / steps,
+            "seen": {k: len(v) for k, v in matched.items()},
+            "us_per_step": {k: sum(e.time_range.elapsed_us() for e in v) / steps
+                            for k, v in matched.items()},
+            "stencil_kernels": sorted({e.name for e in device if "stencil" in e.name}),
+            "nccl_events": sorted({e.name for e in device if "nccl" in e.name.lower()})}
 
 
 def phase_graph(trainer, kernel, optimizer_configs=None, spread: bool = True,
@@ -2256,6 +2280,294 @@ def phase_tools(base_dir: str, drawdown_case) -> dict:
     return counts
 
 
+# phase_data_parallel (b): two gloo ranks of 16 rows against one rank of 32,
+# eager, from the same weights over one epoch of 9 steps. The first step's
+# total is the same function of the same weights, summed in another order
+# (each rank's convolutions at batch 16, then the two blocks' sums): within
+# DP_FIRST_RTOL. After it the weights move apart by float32 rounding that
+# Adam magnifies where a gradient is near zero, and Model 2's float32
+# gradient is rounding noise (ROADMAP C2), which moves Δt and so every term
+# (measured on the card: step totals up to 4.2e-4, 1.07e-3, 2.08e-3 and
+# 3.17e-3 apart within the epoch in four runs):
+# every step's total within DP_LOSS_RTOL; the weights after the epoch within
+# the Adam-step bound of tests/test_spatial_sharding.py:150-157 (a weight
+# whose gradient is ~0 moves by up to the learning rate either way).
+DP_FIRST_RTOL, DP_LOSS_RTOL = 1e-5, 1e-2
+DP_ADAM_RTOL, DP_ADAM_ATOL = 5e-3, 2.5e-2
+DP_ROWS = 16
+
+
+def _dp_epochs(loss_fn, groups, mesh, epochs: int = 2):
+    """``epochs`` graphed epochs at batch 32 (seed 0) of ``loss_fn`` on the
+    training ``groups`` over ``mesh`` (None: the default group, or none);
+    returns (trainer, each epoch's per-step metrics, steps/s of the last)."""
+    import torch
+    from srm_tpu_torch.training.trainer import Trainer
+    trainer = Trainer(loss_fn, mesh=mesh)
+    trainer.stage_dataset("train", groups, 32)
+    metrics, seconds = [], 0.0
+    for _ in range(epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(trainer.train_epoch_resident("train"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return trainer, metrics, trainer._resident["train"][2] / seconds
+
+
+def _dp_gloo_rank(spec_path: str) -> None:
+    """One rank of phase_data_parallel (b), started by it with ``RANK``: a
+    gloo group of two on the one card (``file://`` store), the DG 2D case
+    on ``cuda:0`` from the saved initial weights; ``cuda_graph=True`` must
+    raise on that group; then one eager epoch at batch 32 (this rank's 16
+    rows a step) with the launch counters set to 0 just before and read just
+    after; writes its metrics, weights, counts and seconds."""
+    import torch
+    import torch.distributed as dist
+    from srm_tpu_torch.examples.common import setup_case
+    from srm_tpu_torch.parallel.mesh import make_mesh
+    from srm_tpu_torch.training.trainer import Trainer
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}", rank=rank,
+                            world_size=2)
+    try:
+        case = setup_case("DG", base_dir=spec["base_dir"], n_realizations=20, device="cuda:0")
+        for name, state in torch.load(spec["weights"], weights_only=True).items():
+            case["models"][name].load_state_dict(state)
+        mesh = make_mesh()
+        try:
+            Trainer(case["loss_fn"], mesh=mesh, cuda_graph=True)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("cuda_graph=True on a gloo group did not raise")
+        trainer = Trainer(case["loss_fn"], mesh=mesh, cuda_graph=False)
+        trainer.stage_dataset("train", case["train_groups"], 32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, counts, recomputes = _counted_training(
+            "dg_stencil_residual", lambda: trainer.train_epoch_resident("train"))
+        seconds = time.perf_counter() - t0
+        torch.save({"metrics": metrics, "counts": counts, "recomputes": recomputes,
+                    "seconds": seconds, "weights": trainer.snapshot(), "refused": refused,
+                    "rows": trainer._states[("train", "train", 32)].rows,
+                    "n_train": trainer._resident["train"][2]},
+                   os.path.join(spec["out"], f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_data_parallel(base_dir: str) -> dict:
+    """The data axis (``parallel/mesh.py``) on the main path, DG 2D at
+    39×39, 20 realizations, batch 32, from one set of initial weights:
+    (a) world 1 over NCCL, graphed (``_dp_nccl_world1``), and (b) two
+    gloo ranks on the one card, eager (``_dp_gloo_two_ranks``). Returns
+    each path's launches (by path name) and its numbers."""
+    from srm_tpu_torch.examples.common import setup_case
+    case = setup_case("DG", base_dir=base_dir, n_realizations=20, device="cuda")
+    a = _dp_nccl_world1(case)
+    _free_cached()
+    b = _dp_gloo_two_ranks(case, base_dir)
+    return {"dp_nccl_world1": a.pop("counts"), "dp_gloo_rank0": b.pop("counts_0"),
+            "dp_gloo_rank1": b.pop("counts_1"), "numbers": {**a, **b}}
+
+
+def _dp_nccl_world1(case) -> dict:
+    """(a) World 1 over NCCL, graphed: two epochs from the case's initial
+    weights as the trainer without a process group, both graphed, cuDNN
+    deterministic; every step after the warm-up one replay, each loss
+    evaluation B1 and each step its backward kernel (counters set to 0 just
+    before, read just after); the gradient all-reduce called once inside
+    the train graph's capture and never outside it after the warm-up; the
+    per-step metrics and the final weights bitwise those of the trainer
+    without a group (a one-rank SUM is exact). Then, cuDNN as the main path
+    runs it, a fresh pair of graphed trainers timed by turns (without a
+    group, over the mesh, over the mesh, without) for steps/s, and a
+    profiler window over 3 replayed steps of the mesh's: B1's forward and
+    backward once per step, and the NCCL device work per step logged (at
+    world 1 NCCL 2.28 enqueues none for an in-place SUM)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import srm_tpu_torch.training.trainer as trainer_module
+    from srm_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    kernel = "dg_stencil_residual"
+    names = {"forward": KERNELS[kernel]["device_name"],
+             "backward": BACKWARD[f"{kernel}_backward"]["device_name"],
+             "all_reduce": r"nccl\w*AllReduce\w*"}
+    groups = case["train_groups"]
+    calls = {"captured": 0, "eager": 0}
+    all_reduce = trainer_module.dist.all_reduce
+
+    def counted_all_reduce(*args, **kwargs):
+        calls["captured" if torch.cuda.is_current_stream_capturing() else "eager"] += 1
+        return all_reduce(*args, **kwargs)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, plain_metrics, _ = _dp_epochs(_copy_loss(case["loss_fn"]), groups, None)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    trainer_module.dist.all_reduce = counted_all_reduce
+    try:
+        mesh = make_mesh()
+        if (mesh.size, mesh.backend) != (1, "nccl"):
+            raise AssertionError(f"the mesh is {mesh}")
+        torch.backends.cudnn.deterministic = True
+        try:
+            (meshed, mesh_metrics, _), counts, recomputes = _counted_training(
+                kernel, lambda: _dp_epochs(_copy_loss(case["loss_fn"]), groups, mesh))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        n_train = meshed._resident["train"][2]
+        _check_launches(kernel, counts, recomputes, n_train, 0, 2)
+        if meshed.replays["train"] != 2 * n_train - meshed.warmup_steps or \
+                calls != {"captured": 1, "eager": meshed.warmup_steps}:
+            raise AssertionError(f"replays {meshed.replays} of {2 * n_train} steps, all-reduce "
+                                 f"calls {calls} (captured once, once per warm-up step)")
+        for got, want in zip(mesh_metrics, plain_metrics):
+            for name in want:
+                if not np.array_equal(got[name], want[name]):
+                    raise AssertionError(f"{name}: {got[name]} over the mesh, {want[name]} "
+                                         f"without a group")
+        for key in meshed.optimizer_keys:
+            if not all(torch.equal(a, b) for a, b in zip(meshed.optimizers[key].params,
+                                                         plain.optimizers[key].params)):
+                raise AssertionError(f"the {key} weights over the mesh are not bitwise the "
+                                     f"trainer's without a group")
+        log(f"data parallel (a), NCCL {torch.cuda.nccl.version()} world 1, graphed: launches "
+            f"{counts}, replays {meshed.replays}, all-reduce calls {calls}; the per-step "
+            f"metrics and final weights bitwise those without a group")
+        del meshed, plain
+        _free_cached()
+        timed = {"plain": _dp_trainer(case, Mesh()), "mesh": _dp_trainer(case, mesh)}
+        sps = {"plain": [], "mesh": []}
+        for which in ("plain", "mesh", "mesh", "plain"):
+            trainer = timed[which]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_epoch_resident("train")
+            torch.cuda.synchronize()
+            sps[which].append(trainer._resident["train"][2] / (time.perf_counter() - t0))
+        device = _device_per_step(timed["mesh"], 3, names)
+        timed["mesh"].release_graphs()        # before the group ends
+    finally:
+        trainer_module.dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+    log(f"data parallel (a), timed: steps/s (graphed epochs, by turns) {sps['plain'][0]:.3f}, "
+        f"{sps['mesh'][0]:.3f}, {sps['mesh'][1]:.3f}, {sps['plain'][1]:.3f} (without a group, "
+        f"over the mesh, over the mesh, without); 3 replayed steps of the mesh's show "
+        f"{device['seen']} of {names}, NCCL device events {device['nccl_events']} "
+        f"({device['us_per_step']['all_reduce']:.2f} us a step), "
+        f"{device['device_ms_per_step']:.3f} device ms and {device['device_ops_per_step']:.1f} "
+        f"operations per step")
+    # the all-reduce's kernels are logged, not held: at one rank NCCL 2.28
+    # enqueues none for an in-place SUM, which another version may change
+    if (device["seen"]["forward"], device["seen"]["backward"]) != (3, 3):
+        raise AssertionError(f"3 replayed steps show {device['seen']} of {names}")
+    return {"counts": counts, "mesh_steps_per_s": sps["mesh"],
+            "plain_steps_per_s": sps["plain"],
+            "all_reduce_us_per_step": device["us_per_step"]["all_reduce"],
+            "device_ms_per_step": device["device_ms_per_step"],
+            "device_ops_per_step": device["device_ops_per_step"]}
+
+
+def _dp_trainer(case, mesh):
+    """A graphed trainer of the case's initial weights over ``mesh``, its
+    warm-up steps and captures done (one epoch)."""
+    from srm_tpu_torch.training.trainer import Trainer
+    trainer = Trainer(_copy_loss(case["loss_fn"]), mesh=mesh)
+    trainer.stage_dataset("train", case["train_groups"], 32)
+    trainer.train_epoch_resident("train")
+    return trainer
+
+
+def _dp_gloo_two_ranks(case, base_dir: str) -> dict:
+    """(b) Two ranks on the one card over gloo (NCCL refuses two ranks on
+    one device), eager, 16 rows each (``_dp_gloo_rank``): against one eager
+    rank on the same global batches, the first step's total within
+    DP_FIRST_RTOL and every step's within DP_LOSS_RTOL, the weights after
+    the epoch within the Adam-step bound (DP_ADAM_RTOL, DP_ADAM_ATOL); the
+    two ranks' weights bitwise equal,
+    B1 and its backward launched on both at every step,
+    ``cuda_graph=True`` on that group raising; the epoch's wall clock; then
+    B1's time at B = 16, a rank's batch."""
+    import numpy as np
+    import torch
+    from srm_tpu_torch.training.trainer import Trainer
+
+    kernel = "dg_stencil_residual"
+    trained = [case["loss_fn"].logical_name(k) for k in case["loss_fn"].trainable_models_keys]
+    with tempfile.TemporaryDirectory(prefix="dp_gloo_", dir=os.path.join(ROOT, "build")) as out:
+        weights = os.path.join(out, "initial.pt")
+        torch.save({k: case["models"][k].state_dict() for k in trained}, weights)
+        spec = os.path.join(out, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"store": os.path.join(out, "store"), "base_dir": base_dir,
+                       "weights": weights, "out": out}, f)
+        code = f"import chip_smoke; chip_smoke._dp_gloo_rank({spec!r})"
+        env = {**os.environ, "WORLD_SIZE": "2"}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                  env={**env, "RANK": str(r)}) for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"gloo ranks exited {[p.returncode for p in procs]}")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    ref = Trainer(_copy_loss(case["loss_fn"]), cuda_graph=False)
+    ref.stage_dataset("train", case["train_groups"], 32)
+    ref_totals = ref.train_epoch_resident("train")["total"]
+    gaps = np.zeros_like(ref_totals)
+    for r, got in enumerate(ranks):
+        if got["rows"] != DP_ROWS or "NCCL" not in got["refused"]:
+            raise AssertionError(f"rank {r}: {got['rows']} rows, refusal {got['refused']!r}")
+        _check_launches(kernel, got["counts"], got["recomputes"], got["n_train"], 0, 1)
+        gaps = np.maximum(gaps, np.abs(got["metrics"]["total"] - ref_totals) / np.abs(ref_totals))
+    updates = {}
+    for k in ref.optimizer_keys:
+        name = ref.loss_fn.logical_name(k)
+        live = dict(ref.models[name].named_parameters())
+        start = dict(case["models"][name].named_parameters())
+        for n, got in ranks[0]["weights"][k].items():
+            if not torch.equal(got, ranks[1]["weights"][k][n]):
+                raise AssertionError(f"the ranks' {k} weights differ at {n}")
+            if not torch.allclose(got, live[n].detach().cpu(), rtol=DP_ADAM_RTOL,
+                                  atol=DP_ADAM_ATOL):
+                raise AssertionError(f"{k}.{n}: beyond the Adam-step bound of one rank's")
+        updates[k] = _rel([ranks[0]["weights"][k][n].cuda() - start[n] for n in live],
+                          [live[n].detach() - start[n] for n in live])
+    timing = _time_forward(kernel, (DP_ROWS, 39, 39))
+    seconds = max(got["seconds"] for got in ranks)
+    log(f"data parallel (b), 2 gloo ranks on one card, eager, {DP_ROWS} rows each: step totals "
+        f"{', '.join(f'{g:.3e}' for g in gaps)} from one rank's (relative; bounds "
+        f"{DP_FIRST_RTOL} first, {DP_LOSS_RTOL}), updates {updates} apart (relative), the "
+        f"weights within the Adam-step bound, the ranks' weights bitwise equal, launches "
+        f"{[got['counts'] for got in ranks]}; the epoch {seconds:.3f} s on the slower rank "
+        f"({wall:.1f} s with the ranks' start-up); cuda_graph=True refused: "
+        f"{ranks[0]['refused']!r}; B1 at B = {DP_ROWS}: {timing['device_us']:.2f} device us a "
+        f"call")
+    if gaps[0] > DP_FIRST_RTOL or gaps.max() > DP_LOSS_RTOL:
+        raise AssertionError(f"two ranks against one: step totals {gaps} apart")
+    return {"counts_0": ranks[0]["counts"], "counts_1": ranks[1]["counts"],
+            "gloo_epoch_s": seconds, "gloo_loss_gaps": gaps.tolist(), "gloo_updates": updates,
+            "b1_device_us_b16": timing["device_us"], "b1_ms_b16": timing["ms"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "srm_tpu_torch")):
         raise SystemExit("chip_smoke: run from the root of a checkout of the repository")
@@ -2323,6 +2635,8 @@ def main() -> int:
         later["sg_head_probe"] = phase_tools(tmp, drawdown_case)
         del drawdown_case
         mark("simulator graphs, tools and examples")
+        data_parallel = phase_data_parallel(tmp)
+        mark("data parallel")
     # each kernel's launches on its own f32 main path (a backward kernel's on
     # its forward's), and on each path of this run that runs it (the per-cell
     # porosity path runs the unfused residual: B1 0; gas condensate in 3D
@@ -2336,6 +2650,8 @@ def main() -> int:
              "example_dg": {"dg_stencil_residual": later["example_dg"]},
              "example_gc": {"gc_stencil_residual": later["example_gc"]},
              "sg_head_probe": {"gc_stencil_residual": later["sg_head_probe"]},
+             **{path: {"dg_stencil_residual": data_parallel[path]}
+                for path in ("dp_nccl_world1", "dp_gloo_rank0", "dp_gloo_rank1")},
              **{path: {WELL_PATHS[path]["kernel"]: c} for path, c in well.items()}}
     log(f"gas condensate 3D launches (no kernel): {gc3d}")
     by_path = {name: {path: c[fwd][spec["counter"]] for path, c in paths.items() if fwd in c}

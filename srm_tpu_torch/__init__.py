@@ -21,6 +21,8 @@ easy to find:
   kernels/   CUDA kernels + their plain PyTorch versions   (srm_tpu/kernels/)
   losses/    PhysicsLoss                                   (srm_tpu/losses/)
   training/  optimizers + trainer                          (srm_tpu/training/)
+  parallel/  data-parallel meshes over a torch.distributed
+             process group                                 (srm_tpu/parallel/)
   examples/  case construction                             (srm_tpu/examples/)
   sim/       the implicit FV simulator and its labels      (srm_tpu/sim/)
   eval/      predictor, serving bundle, plots, RMSE,
@@ -38,8 +40,9 @@ porosity, with the well solver's Newton BHP and blocking factor; data
 generation (the CLI's ``generate-data``, the on-device KLE sampler, labels
 parsed from simulator files); the FV simulator that labels the splits, the
 RMSE against those labels, and the serving path (the predictor, the
-``torch.export`` bundle, the CLI's ``predict`` and ``export``);
-``ROADMAP.md`` lists what remains. The entry
+``torch.export`` bundle, the CLI's ``predict`` and ``export``); training
+data-parallel over the processes torchrun starts (the data axis of the JAX
+package's mesh); ``ROADMAP.md`` lists what remains. The entry
 points run on the GPU unless the caller asks for the CPU.
 """
 

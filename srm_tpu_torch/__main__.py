@@ -23,7 +23,15 @@ files are byte-identical to the JAX package's; it uses no device.
 ``train`` builds the case (dataset, models, loss),
 trains on the first GPU (``--device cuda``, the default; without a usable
 CUDA device it fails) or, when asked with ``--device cpu``, on the CPU, and
-prints per-epoch losses. On the card each training and eval step is one
+prints per-epoch losses. Launched by ``torchrun --nproc-per-node=N -m
+srm_tpu_torch train ...`` it trains data-parallel over the N processes, as
+the JAX package's ``train`` does over every device of its host: a process
+group started from torchrun's environment (NCCL for ``--device cuda``, one
+GPU a rank, ``cuda:LOCAL_RANK``; gloo for ``--device cpu``), each step on
+the rank's block of the batch with the gradients summed over the ranks
+(``parallel/mesh.py``); rank 0 builds the dataset cache while the others
+wait, prints and writes the checkpoints. Without torchrun's variables it
+is one process, as before. On the card each training and eval step is one
 CUDA graph replay (after a few eager warm-up steps). ``--checkpoint-dir``
 saves the training state there after every epoch and after the best-epoch
 restore; with ``--resume`` training continues from the latest checkpoint
@@ -100,6 +108,13 @@ def cmd_generate_data(args) -> int:
 
 
 def cmd_train(args) -> int:
+    from srm_tpu_torch.parallel.mesh import process_group_from_env
+
+    with process_group_from_env(args.device) as mesh:
+        return _train(args, mesh)
+
+
+def _train(args, mesh) -> int:
     import torch
 
     from srm_tpu_torch.examples.common import setup_case
@@ -107,25 +122,32 @@ def cmd_train(args) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    lead = mesh.rank == 0
     fluid, g, opt_cfgs, setup_kwargs = _case_presets(args, train=True)
     case = setup_case(fluid, base_dir=args.base_dir, nx=args.nx,
                       n_realizations=args.realizations, general_config=g, device=args.device,
                       **setup_kwargs)
-    print(f"device: {case['device']}"
-          + (f" ({torch.cuda.get_device_name(case['device'])})"
-             if case["device"].type == "cuda" else ""))
+    if lead:
+        print(f"device: {case['device']}"
+              + (f" ({torch.cuda.get_device_name(case['device'])})"
+                 if case["device"].type == "cuda" else "")
+              + (f", data-parallel over {mesh.size} ranks ({mesh.backend})"
+                 if mesh.group is not None else ""))
     _, history, _ = train_combined_models_unified(
         case["train_groups"], case["val_groups"], case["loss_fn"],
         training_batch_size=args.batch_size, epochs=args.epochs,
         general_config=case["general_config"], checkpoint_dir=args.checkpoint_dir,
-        resume=args.resume, optimizer_configs=opt_cfgs)
+        resume=args.resume, optimizer_configs=opt_cfgs, mesh=mesh)
     if not history["total_train_loss"]:
         if args.resume:
-            print("nothing left to train: the checkpoint is at the last epoch")
+            if lead:
+                print("nothing left to train: the checkpoint is at the last epoch")
             return 0
-        print("no training batches: the train split is empty")
+        if lead:
+            print("no training batches: the train split is empty")
         return 1
-    print("final total train loss:", history["total_train_loss"][-1])
+    if lead:
+        print("final total train loss:", history["total_train_loss"][-1])
     return 0
 
 

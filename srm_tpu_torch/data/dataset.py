@@ -31,6 +31,7 @@ import copy
 import json
 import logging
 import os
+import uuid
 import zipfile
 from typing import Dict, List, Optional, Tuple
 
@@ -52,6 +53,13 @@ from srm_tpu_torch.utils.stats import DataSummary, compute_statistics, normalize
 log = logging.getLogger(__name__)
 
 FEATURE_KEYS = ["z", "y", "x", "time", "permx"]  # woven channel order
+
+
+def _private_name(path: str, suffix: str = "") -> str:
+    """A temporary name beside ``path`` that no other process writes:
+    processes that build one cache at once each publish a whole file with
+    ``os.replace``, the last one winning."""
+    return f"{path}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp{suffix}"
 
 
 class SRMDataProcessor:
@@ -251,8 +259,10 @@ class SRMDataProcessor:
     def save_statistics(self, statistics: Dict) -> str:
         _, h = self.config_hash()
         path = os.path.join(self.kle_folder(), f"training_statistics_summary_{h}.json")
-        with open(path, "w") as f:
+        tmp = _private_name(path)
+        with open(tmp, "w") as f:
             json.dump(statistics, f, indent=2)
+        os.replace(tmp, path)
         return path
 
     def load_training_statistics(self) -> Dict:
@@ -282,7 +292,7 @@ class SRMDataProcessor:
                 os.remove(path)
         tr, va, te, pr = self.process_data()
         payload = {"train": tr, "val": va, "test": te, "pred": pr}
-        tmp = path + ".tmp.npz"      # np.savez appends .npz to other suffixes
+        tmp = _private_name(path, ".npz")    # np.savez appends .npz to other suffixes
         np.savez(tmp, payload=np.array(payload, dtype=object))
         os.replace(tmp, path)        # atomic publish
         return path, tr, va, te, pr

@@ -23,6 +23,7 @@ import logging
 import multiprocessing
 import os
 import re
+import uuid
 from concurrent.futures import ProcessPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -296,15 +297,20 @@ def save_results(results: Dict[str, np.ndarray], output_folder: str,
     """Save combined npz + per-key stats summary.json."""
     os.makedirs(output_folder, exist_ok=True)
     path = os.path.join(output_folder, combined_filename)
-    # atomic publish (a killed writer must not leave a truncated npz)
-    tmp = path + ".tmp.npz"
+    # atomic publish (a killed writer must not leave a truncated npz), from
+    # a name of this process's own (processes parsing one directory at once
+    # each publish a whole file)
+    tmp = f"{path}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp.npz"
     np.savez_compressed(tmp, **results)
     os.replace(tmp, path)
     summary = {k: {"shape": list(v.shape), "min": float(np.nanmin(v)), "max": float(np.nanmax(v)),
                    "mean": float(np.nanmean(v)), "std": float(np.nanstd(v))}
                for k, v in results.items()}
-    with open(os.path.join(output_folder, "summary.json"), "w") as f:
+    summary_path = os.path.join(output_folder, "summary.json")
+    tmp = f"{summary_path}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp"
+    with open(tmp, "w") as f:
         json.dump(summary, f, indent=2)
+    os.replace(tmp, summary_path)
     return path
 
 

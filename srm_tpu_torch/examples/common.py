@@ -25,6 +25,12 @@ The case runs on the GPU: ``device=None`` means ``"cuda"``, and without a
 usable CUDA device the call raises. Pass ``device="cpu"`` to run on the CPU.
 With ``general_config["label_source"] == "simulator"`` the test split's
 labels come from the FV simulator, on the same device.
+
+Under an initialised process group (data-parallel training,
+``parallel/mesh.py``) ``"cuda"`` means ``cuda:LOCAL_RANK``, and rank 0
+builds the dataset cache, simulator labels included, while the other ranks
+wait at a barrier and then load it, so that N ranks do not each simulate
+the labels.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG, get_optimizer_model_map
 from srm_tpu_torch.data.dataset import SRMDataProcessor
 from srm_tpu_torch.losses.physics_loss import PhysicsLoss
 from srm_tpu_torch.nn.modules import build_model_map
+from srm_tpu_torch.parallel.mesh import rank_device, rank_zero_first
 from srm_tpu_torch.utils.stats import DataSummary
 
 
@@ -53,7 +60,7 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
     fluid_type = fluid_type.upper()
     if fluid_type not in ("DG", "GC"):
         raise ValueError(f"Unknown fluid type: {fluid_type}. Use 'DG' or 'GC'.")
-    device = torch.device(device if device is not None else "cuda")
+    device = rank_device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no usable CUDA device: the port runs on the GPU by default; "
                            'pass device="cpu" (CLI: --device cpu) to run on the CPU')
@@ -88,9 +95,10 @@ def setup_case(fluid_type: str, base_dir: Optional[str] = None,
         for conn in processor.wells_config["connections"]:
             conn["minimum_bhp"] = float(min_bhp)
 
-    path, train_groups, val_groups, test_groups, pred_groups = \
-        processor.get_or_generate_training_data()
-    statistics = processor.load_training_statistics()
+    with rank_zero_first():
+        path, train_groups, val_groups, test_groups, pred_groups = \
+            processor.get_or_generate_training_data()
+        statistics = processor.load_training_statistics()
     data_summary = DataSummary([statistics])
     models = build_model_map(train_groups[0][0].shape, device, fluid_type=fluid_type,
                              general_config=g, reservoir_config=res,

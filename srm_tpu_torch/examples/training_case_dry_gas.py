@@ -3,11 +3,14 @@
 Port of ``srm_tpu/examples/training_case_dry_gas.py``: dataset →
 statistics → model map → PhysicsLoss → unified multi-model training, on one
 GPU (with ``--device cpu`` on the CPU; without a usable CUDA device and
-without it, it raises).
+without it, it raises) or data-parallel over the processes that torchrun
+starts, one GPU each (``parallel/mesh.py``), as the JAX package's case
+runs "on a single chip or data-parallel over a device mesh".
 
 Run directly::
 
     python -m srm_tpu_torch.examples.training_case_dry_gas --epochs 5
+    torchrun --nproc-per-node=N -m srm_tpu_torch.examples.training_case_dry_gas
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import logging
 from typing import Dict, Optional
 
 from srm_tpu_torch.examples.common import setup_case
+from srm_tpu_torch.parallel.mesh import process_group_from_env
 from srm_tpu_torch.training.trainer import train_combined_models_unified
 
 log = logging.getLogger(__name__)
@@ -46,14 +50,15 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    case = setup_dry_gas_case(base_dir=args.base_dir, nx=args.nx,
-                              n_realizations=args.realizations, device=args.device)
-
-    trainer, history, best = train_combined_models_unified(
-        case["train_groups"], case["val_groups"], case["loss_fn"],
-        training_batch_size=args.batch_size, epochs=args.epochs,
-        general_config=case["general_config"])
-    print("Final total train loss:", history["total_train_loss"][-1])
+    with process_group_from_env(args.device) as mesh:
+        case = setup_dry_gas_case(base_dir=args.base_dir, nx=args.nx,
+                                  n_realizations=args.realizations, device=args.device)
+        trainer, history, best = train_combined_models_unified(
+            case["train_groups"], case["val_groups"], case["loss_fn"],
+            training_batch_size=args.batch_size, epochs=args.epochs,
+            general_config=case["general_config"], mesh=mesh)
+    if mesh.rank == 0:
+        print("Final total train loss:", history["total_train_loss"][-1])
     return trainer, history, best
 
 

@@ -3,11 +3,14 @@
 Port of ``srm_tpu/examples/training_case_gas_condensate.py``: pressure and
 saturation encoder–decoders, the 7-property PVT, condensate rate splitting
 and the two-phase PDE residuals, trained on one GPU (with ``--device cpu``
-on the CPU; without a usable CUDA device and without it, it raises).
+on the CPU; without a usable CUDA device and without it, it raises) or
+data-parallel over the processes that torchrun starts, one GPU each
+(``parallel/mesh.py``).
 
 Run::
 
     python -m srm_tpu_torch.examples.training_case_gas_condensate --epochs 5
+    torchrun --nproc-per-node=N -m srm_tpu_torch.examples.training_case_gas_condensate
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import logging
 from typing import Dict, Optional
 
 from srm_tpu_torch.examples.common import setup_case
+from srm_tpu_torch.parallel.mesh import process_group_from_env
 from srm_tpu_torch.training.trainer import train_combined_models_unified
 
 log = logging.getLogger(__name__)
@@ -50,13 +54,15 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    case = setup_gas_condensate_case(base_dir=args.base_dir, nx=args.nx,
-                                     n_realizations=args.realizations, device=args.device)
-    trainer, history, best = train_combined_models_unified(
-        case["train_groups"], case["val_groups"], case["loss_fn"],
-        training_batch_size=args.batch_size, epochs=args.epochs,
-        general_config=case["general_config"])
-    print("Final total train loss:", history["total_train_loss"][-1])
+    with process_group_from_env(args.device) as mesh:
+        case = setup_gas_condensate_case(base_dir=args.base_dir, nx=args.nx,
+                                         n_realizations=args.realizations, device=args.device)
+        trainer, history, best = train_combined_models_unified(
+            case["train_groups"], case["val_groups"], case["loss_fn"],
+            training_batch_size=args.batch_size, epochs=args.epochs,
+            general_config=case["general_config"], mesh=mesh)
+    if mesh.rank == 0:
+        print("Final total train loss:", history["total_train_loss"][-1])
     return trainer, history, best
 
 

@@ -8,8 +8,14 @@ per-cell porosity: dry gas in 2D (Nz = 1) and 3D (Nz > 1), ``_residuals_dg``
 (``:493-574``) and ``_residuals_dg_3d`` (``:576-653``, its fused branch),
 and gas condensate in 2D, ``_residuals_gc`` (``:694-793``, its fused
 branch ``:743-771``), and in 3D, ``_residuals_gc_3d`` (``:795-960``);
-``loss_and_metrics`` (``:971-1055``), ``pinn_batch_sse_grad``
-(``:1057-1074``) and ``per_term_grad_norms`` (``:1076-1107``).
+``loss_and_metrics`` (``:971-1055``; its sums and counts are
+:meth:`PhysicsLoss.weighted_sse`'s), ``pinn_batch_sse_grad``
+(``:1057-1074``) and ``per_term_grad_norms`` (``:1076-1107``). Under a
+data-parallel mesh (:meth:`PhysicsLoss.set_mesh`, set by the trainer) each
+rank evaluates its block of the batch, and the statistics that the JAX
+package takes over its mesh's whole batch (the label stds of
+``td_loss_normalization``, the Sg focus's mean) are taken over every
+rank's block.
 :meth:`PhysicsLoss.residuals` dispatches on the fluid and on ``Nz > 1``,
 as the reference does (``:473-480``).
 
@@ -67,6 +73,7 @@ from srm_tpu_torch.ops.stencil import (average_faces, average_faces_3d, five_poi
                                        neighbors_3d, pad_symmetric, pad_symmetric_3d,
                                        seven_point_divergence, upstream_faces,
                                        upstream_faces_3d)
+from srm_tpu_torch.parallel.mesh import mean_over
 from srm_tpu_torch.physics.relperm import RelativePermeability, clip
 from srm_tpu_torch.physics.wells import scatter_to_grid
 from srm_tpu_torch.utils.stats import denormalize, normalize_diff
@@ -436,6 +443,19 @@ class PhysicsLoss:
             trainable.add("fluid_property")
         self.trainable_models_keys = [k for k in self.optimizer_model_names_map
                                       if k in trainable]
+        #: the data-parallel mesh whose ranks hold the rest of the batch
+        #: (:meth:`set_mesh`); None: this process's batch is the batch
+        self.mesh = None
+
+    def set_mesh(self, mesh) -> None:
+        """Take the whole-batch statistics of the loss (the label stds and
+        the Sg focus's mean) and the well model's iteration logs over
+        ``mesh``'s ranks, each of which evaluates its block of the batch;
+        a mesh without a process group, or None, is this process alone."""
+        self.mesh = mesh if mesh is not None and mesh.group is not None else None
+        well = self.models.get("well_rate_bhp_model")
+        if well is not None:
+            well.mesh = self.mesh
 
     @staticmethod
     def logical_name(optimizer_key: str) -> str:
@@ -642,36 +662,58 @@ class PhysicsLoss:
         """Each label's error (model output at n0 − label: the pressure, and
         for gas condensate Sg), scaled by ``td_loss_normalization`` and, for
         Sg, by the dropout focus (:1010-1031). The label stds are ddof 0, as
-        ``jnp.std``, floored at 1e-8."""
+        ``jnp.std``, floored at 1e-8; they and the focus's mean are over the
+        whole batch (:meth:`_label_statistics`)."""
         keys = ["PRESSURE"] if self.fluid_type == "DG" else ["PRESSURE", "SGAS"]
         labels = [y[k] for k in keys if k in y] if isinstance(y, dict) else [y]
         model_out = [outs["p_n0"]] + ([outs["Sg_n0"]] if self.fluid_type == "GC" else [])
         labels = [lab.reshape(out.shape) for lab, out in zip(labels, model_out)]
         td = [out - lab for lab, out in zip(labels, model_out)]
-        if self.td_normalization in ("label_std", "balance"):
-            stds = [torch.clamp_min(lab.std(correction=0), 1e-8) for lab in labels]
-            if self.td_normalization == "label_std":
-                td = [e / s for e, s in zip(td, stds)]
-            elif len(td) > 1:
-                td = [td[0]] + [e * (stds[0] / s) for e, s in zip(td[1:], stds[1:])]
-        if self.sg_td_focus > 0.0 and len(td) > 1:
+        scaled = self.td_normalization in ("label_std", "balance")
+        focus = self.sg_td_focus > 0.0 and len(td) > 1
+        # the Sg focus weighs cells whose label departs from Sgi
+        dev = (labels[1] - self.Sgi).abs() if focus else None
+        stds, dev_mean = self._label_statistics(labels if scaled else [], dev)
+        if self.td_normalization == "label_std":
+            td = [e / s for e, s in zip(td, stds)]
+        elif scaled and len(td) > 1:
+            td = [td[0]] + [e * (stds[0] / s) for e, s in zip(td[1:], stds[1:])]
+        if focus:
             # mean-1 weight toward cells whose Sg label departs from Sgi;
             # its square root, because the SSE squares it
-            dev = (labels[1] - self.Sgi).abs()
-            rel = dev / torch.clamp_min(dev.mean(), 1e-12)
+            rel = dev / torch.clamp_min(dev_mean, 1e-12)
             w = (1.0 + self.sg_td_focus * rel) / (1.0 + self.sg_td_focus)
             td[1] = td[1] * torch.sqrt(w)
         return td
 
-    def loss_and_metrics(self, x: torch.Tensor, y) -> Tuple[torch.Tensor, Dict]:
-        """Total weighted SSE and the per-phase, per-term weighted MSEs
-        (:971-1055). Each phase's td term compares a model output at n0 with
-        its label (the pressure for gas, Sg for oil). ``physics_mode_fraction``
-        f: f >= 1 is physics mode (td weight from the config, 0 by
-        default); f == 0 is data mode (one forward, zero residuals, a td
-        weight of 0 taken as 1); 0 < f < 1 is the reference's mixed mode
-        (the physics weights scaled by f, the td weights, 0 taken as 1, by
-        1 − f)."""
+    def _label_statistics(self, labels: List[torch.Tensor], dev: Optional[torch.Tensor]):
+        """The std (ddof 0, floored at 1e-8) of each label and the mean of
+        ``dev`` (None: none) over the whole batch. The JAX package takes them
+        over the global batch of its mesh (``jnp.std``, ``jnp.mean`` in one
+        program), so under :attr:`mesh` they are taken over every rank's
+        block, in two passes: the means (with ``dev``'s), then the mean
+        squared deviations from them (a one-pass sum of squares in float32
+        loses about four digits at 5,000 psia). Labels carry no gradient:
+        the collectives need none."""
+        if self.mesh is None:
+            return ([torch.clamp_min(lab.std(correction=0), 1e-8) for lab in labels],
+                    None if dev is None else dev.mean())
+        means = mean_over(labels + ([] if dev is None else [dev]), self.mesh)
+        var = mean_over([torch.square(lab - m) for lab, m in zip(labels, means)], self.mesh)
+        return ([torch.clamp_min(torch.sqrt(v), 1e-8) for v in var],
+                None if dev is None else means[-1])
+
+    def weighted_sse(self, x: torch.Tensor, y):
+        """(total, wsse, counts, outputs): the total weighted SSE, each
+        phase's and term's weighted SSE and its error's element count (of
+        this batch; a zero term's error may be a 0-dim zero) and the model
+        outputs (:971-1055). Each phase's td term compares a model output at
+        n0 with its label (the pressure for gas, Sg for oil).
+        ``physics_mode_fraction`` f: f >= 1 is physics mode (td weight from
+        the config, 0 by default); f == 0 is data mode (one forward, zero
+        residuals, a td weight of 0 taken as 1); 0 < f < 1 is the
+        reference's mixed mode (the physics weights scaled by f, the td
+        weights, 0 taken as 1, by 1 − f)."""
         f_raw = self.physics_mode_fraction
         physics = f_raw >= 1.0
         f = min(max(f_raw, 0.0), 1.0)
@@ -685,7 +727,8 @@ class PhysicsLoss:
             res = {ph: {t: zero for t in LOSS_TERMS if t != "td"} for ph in self.phases}
         td = self._td_errors(outs, y)
         total = x.new_zeros(())
-        aux: Dict[str, Dict[str, torch.Tensor]] = {ph: {} for ph in self.phases}
+        wsse: Dict[str, Dict[str, torch.Tensor]] = {ph: {} for ph in self.phases}
+        counts: Dict[str, Dict[str, int]] = {ph: {} for ph in self.phases}
         for i, ph in enumerate(self.phases):
             for t in LOSS_TERMS:
                 w = self.weights[ph][t]
@@ -699,17 +742,26 @@ class PhysicsLoss:
                     err = res[ph][t]
                     if mixed:
                         w = w * f
-                wsse = w * torch.sum(torch.square(err))
-                total = total + wsse
-                aux[ph][t] = wsse / max(float(err.numel()), 1.0)
+                wsse[ph][t] = w * torch.sum(torch.square(err))
+                counts[ph][t] = err.numel()
+                total = total + wsse[ph][t]
+        return total, wsse, counts, outs
+
+    def loss_and_metrics(self, x: torch.Tensor, y) -> Tuple[torch.Tensor, Dict]:
+        """Total weighted SSE and the per-phase, per-term weighted MSEs
+        (:971-1055; see :meth:`weighted_sse`), with the outputs under
+        ``aux["outputs"]``."""
+        total, wsse, counts, outs = self.weighted_sse(x, y)
+        aux: Dict[str, Any] = {ph: {t: wsse[ph][t] / max(float(counts[ph][t]), 1.0)
+                                    for t in LOSS_TERMS} for ph in self.phases}
         aux["outputs"] = outs
         return total, aux
 
-    def pinn_batch_sse_grad(self, x: torch.Tensor, y):
-        """(aux, grads_by_key, total): the gradient of the total weighted
-        loss with respect to each trainable model's parameters, keyed by
-        optimizer key, as lists in ``module.parameters()`` order."""
-        total, aux = self.loss_and_metrics(x, y)
+    def gradients(self, total: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+        """The gradient of ``total`` with respect to each trainable model's
+        parameters, keyed by optimizer key, as lists in
+        ``module.parameters()`` order (zeros where ``total`` does not
+        depend on a parameter)."""
         keys = self.trainable_models_keys
         params = [list(self.models[self.logical_name(k)].parameters()) for k in keys]
         flat = [p for ps in params for p in ps]
@@ -721,7 +773,13 @@ class PhysicsLoss:
         for k, ps in zip(keys, params):
             out[k] = grads[i:i + len(ps)]
             i += len(ps)
-        return aux, out, total
+        return out
+
+    def pinn_batch_sse_grad(self, x: torch.Tensor, y):
+        """(aux, grads_by_key, total): :meth:`loss_and_metrics` and
+        :meth:`gradients` of its total."""
+        total, aux = self.loss_and_metrics(x, y)
+        return aux, self.gradients(total), total
 
     def per_term_grad_norms(self, x: torch.Tensor, y) -> Dict[str, Dict[str, float]]:
         """The L2 norm of each loss term's gradient with respect to each

@@ -34,7 +34,11 @@ graph cannot call the host, so the solve writes the history into device
 buffers and a counter, and :meth:`WellRatesPressure.flush_iteration_logs`
 writes the files from them after the step: at once after an eager call,
 and after each replay from the trainer. That costs one synchronisation per
-step, only when ``log_iterations`` is on.
+step, only when ``log_iterations`` is on. Under a data-parallel mesh the
+files hold the whole batch, as the JAX package's ``jax.debug.callback``
+receives its mesh's global arrays once: each rank's block is gathered and
+rank 0 writes. The JAX package also passes its active-trip count (``jnp.any``
+over the batch) to the logger, which never writes it; the port computes none.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from srm_tpu_torch.config import (
     DEFAULT_WELLS_CONFIG,
     get_conversion_constants,
 )
+from srm_tpu_torch.parallel.mesh import gather_rows
 from srm_tpu_torch.physics.relperm import RelativePermeability, clip
 from srm_tpu_torch.physics.wells import WellDataProcessor, conn_shutins_mask, scatter_to_grid
 from srm_tpu_torch.utils.profiling import log_tensor_to_file
@@ -215,6 +220,9 @@ class WellRatesPressure:
         # the count already written to files
         self._log_buffers: Dict[tuple, tuple] = {}
         self._log_written: Dict[tuple, int] = {}
+        #: the data-parallel mesh whose ranks solve the rest of the batch
+        #: (``PhysicsLoss.set_mesh``): the logs hold the whole batch
+        self.mesh = None
 
         g = general_config or DEFAULT_GENERAL_CONFIG
         res = reservoir_config or DEFAULT_RESERVOIR_CONFIG
@@ -488,7 +496,8 @@ class WellRatesPressure:
         since the last flush; returns the number of files. One host read of
         the counters, so one synchronisation. A history written more than
         once in between keeps its last call's values, and the loss of the
-        others is logged."""
+        others is logged. Under a mesh every rank calls it (the trainer and
+        an eager call do), and rank 0 writes the whole batch's histories."""
         if not self._log_buffers:
             return 0
         keys = list(self._log_buffers)
@@ -502,9 +511,15 @@ class WellRatesPressure:
                 log.warning("log_iterations: %d %s histories were overwritten before being "
                             "written; the last one is written", new - 1, key[1])
             hist, final, _ = self._log_buffers[key]
-            log_tensor_to_file(hist.cpu().numpy(), None, final.cpu().numpy(),
-                               tensor_name=key[0], file_prefix=key[1], well_specific=True,
-                               directory=self.log_dir)
+            arrays = [hist.cpu().numpy(), final.cpu().numpy()]
+            if self.mesh is not None:
+                # the JAX package's callback receives the whole batch of its
+                # mesh, once: each rank's block, gathered, written by rank 0
+                arrays = gather_rows(arrays, self.mesh, axes=(1, 0))
+            if arrays is not None:
+                log_tensor_to_file(arrays[0], None, arrays[1], tensor_name=key[0],
+                                   file_prefix=key[1], well_specific=True,
+                                   directory=self.log_dir)
+                files += 1
             self._log_written[key] = count
-            files += 1
         return files

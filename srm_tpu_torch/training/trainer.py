@@ -40,6 +40,16 @@ On the CPU, where there are no graphs, the same step function runs eagerly.
 The kernels' launch counters (``kernels/stencil.py``) count Python calls; the
 trainer takes back what a capture moved them by and adds that at every
 replay, so they go on counting launches on the card.
+
+**Data parallel.** As the JAX trainer runs on ``make_mesh()`` (every device
+of the host, the batch axis sharded), this one runs on
+``parallel/mesh.py::make_mesh()``: the default process group when one is
+initialised (``torchrun``), else this process alone, exactly as before.
+Under a group each rank takes its block of every batch and the step sums
+the gradients and the metrics' sums over the ranks in one all-reduce,
+inside the step's graph on NCCL (:class:`Trainer`); ``train_epoch`` and
+``eval_epoch`` are the JAX trainer's host-batched epochs, sharding batch
+axis 1.
 """
 
 from __future__ import annotations
@@ -50,10 +60,12 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG, get_optimizer_config
 from srm_tpu_torch.data.batching import collapse_groups
 from srm_tpu_torch.kernels import stencil as st
+from srm_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate, shard_batch
 from srm_tpu_torch.training.optimizers import build_optimizer_from_config
 
 log = logging.getLogger(__name__)
@@ -74,13 +86,15 @@ def validate_loss_keys(labels, loss_keys, general_config) -> None:
 
 class _StepState:
     """The static buffers of one step kind over one source dataset: the
-    batch's index, the per-step metrics and the device-side step index; and,
-    on the card, its graph."""
+    index of this rank's rows of the batch, the per-step metrics and the
+    device-side step index; and, on the card, its graph. ``batch`` is the
+    batch's rows over every rank of the mesh, ``rows`` this rank's."""
 
-    def __init__(self, x_all, y_all, batch_size: int, num_batches: int, n_metrics: int):
+    def __init__(self, x_all, y_all, batch: int, rows: int, num_batches: int, n_metrics: int):
         device = x_all.device
         self.x_all, self.y_all = x_all, y_all
-        self.idx = torch.arange(batch_size, device=device)
+        self.batch, self.rows = batch, rows
+        self.idx = torch.arange(rows, device=device)
         self.metrics = torch.zeros((num_batches, n_metrics), dtype=torch.float32, device=device)
         self.row = torch.zeros(1, dtype=torch.long, device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -93,22 +107,43 @@ class Trainer:
 
     ``cuda_graph``: None means a graph exactly when the models are on a CUDA
     device; True on the CPU raises. False on the card runs the eager step,
-    the replay's reference for the checks."""
+    the replay's reference for the checks.
+
+    ``mesh`` (``parallel/mesh.py``; None: :func:`make_mesh`, the default
+    process group if one is initialised, else this process alone): under a
+    process group every rank holds the whole dataset and the same
+    generator, and each step takes this rank's block of the global batch.
+    The loss is a sum of weighted SSE over the batch, so the gradients are
+    summed over the ranks, never averaged: one ``all_reduce`` (SUM) a step
+    over a flat buffer of every trainable gradient followed by the step's
+    weighted SSE sums, its total and its share of the Δt mean, and the
+    optimizers read views of it. Each term's metric is its summed SSE over
+    the whole batch's element count (static: every rank knows every rank's
+    rows), so the division is the one a single process makes. The eval step
+    reduces its metrics the same way. On the card the collective is
+    captured in the step's graph; that needs NCCL (a gloo group with a
+    graph raises), and the eager warm-up steps run it first. Weights and
+    optimizer state are broadcast from rank 0 once, here."""
 
     #: eager steps of each kind before its capture (PyTorch's recipe: a few
     #: on a side stream, so that autograd, cuBLAS and cuDNN set up outside it)
     warmup_steps = 3
 
     def __init__(self, loss_fn, optimizer_configs: Optional[Dict[str, Dict]] = None,
-                 seed: int = 0, cuda_graph: Optional[bool] = None):
+                 seed: int = 0, cuda_graph: Optional[bool] = None, mesh: Optional[Mesh] = None):
         self.loss_fn = loss_fn
         self.models = loss_fn.models
         self.device = loss_fn.device
+        self.mesh = mesh if mesh is not None else make_mesh()
         on_cuda = self.device.type == "cuda"
         if cuda_graph and not on_cuda:
             raise ValueError(f"cuda_graph=True needs the models on a CUDA device, they are on "
                              f"{self.device}")
         self.cuda_graph = on_cuda if cuda_graph is None else bool(cuda_graph)
+        distributed = self.mesh.group is not None
+        if self.cuda_graph and distributed and self.mesh.backend != "nccl":
+            raise ValueError(f"a CUDA graph captures the gradient all-reduce on NCCL only, the "
+                             f"mesh's group is {self.mesh.backend}: pass cuda_graph=False")
         self.generator = torch.Generator().manual_seed(int(seed))
         self.optimizer_keys = list(loss_fn.trainable_models_keys)
         self.optimizers = {}
@@ -120,6 +155,29 @@ class Trainer:
         self._terms = [(ph, k.rsplit("_", 1)[0]) for ph, keys in loss_fn.loss_keys.items()
                        for k in keys]
         self.metric_names = [f"{ph}/{t}" for ph, t in self._terms] + ["total", "tstep_mean"]
+        loss_fn.set_mesh(self.mesh)
+        # under a process group: the flat buffers of the one all-reduce of
+        # each step kind (train: every gradient, then the metrics' sums)
+        self._train_buf = self._eval_buf = None
+        self._grad_views: Dict[str, List[torch.Tensor]] = {}
+        if distributed:
+            replicate([self.trained_models(), [o.state() for o in self.optimizers.values()]],
+                      self.mesh)
+            n_stats = len(self._terms) + 2
+            params = [p for k in self.optimizer_keys for p in self.optimizers[k].params]
+            dtype = params[0].dtype         # float32 (a float64 copy in the tests)
+            if any(p.dtype != dtype for p in params):
+                raise ValueError("the trained parameters must share one dtype")
+            size = sum(p.numel() for p in params)
+            self._train_buf = torch.zeros(size + n_stats, dtype=dtype, device=self.device)
+            self._eval_buf = torch.zeros(n_stats, dtype=dtype, device=self.device)
+            offset = 0
+            for k in self.optimizer_keys:
+                self._grad_views[k] = []
+                for p in self.optimizers[k].params:
+                    self._grad_views[k].append(
+                        self._train_buf[offset:offset + p.numel()].view_as(p))
+                    offset += p.numel()
         self._resident: Dict[str, Any] = {}
         self._states: Dict[tuple, _StepState] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.cuda_graph else None
@@ -137,22 +195,60 @@ class Trainer:
         step's convolutions took slower cuDNN plans on the H100; PERF.md.)"""
         return s.x_all[s.idx], {k: v[s.idx] for k, v in s.y_all.items()}
 
-    def _record(self, s: _StepState, aux, total) -> None:
-        vals = [aux[ph][t] for ph, t in self._terms] + [total, aux["outputs"]["tstep"].mean()]
-        row = torch.stack([v.detach().reshape(()) for v in vals])
+    def _record(self, s: _StepState, vals: List[torch.Tensor]) -> None:
+        row = torch.stack([v.detach().reshape(()) for v in vals]).to(s.metrics.dtype)
         s.metrics.index_copy_(0, s.row, row[None])
         s.row.add_(1)
 
+    def _metrics(self, aux, total) -> List[torch.Tensor]:
+        """The metrics row of one process's loss (no mesh)."""
+        return [aux[ph][t] for ph, t in self._terms] + [total, aux["outputs"]["tstep"].mean()]
+
+    def _reduced_metrics(self, buf: torch.Tensor, s: _StepState, total, wsse, counts,
+                         outs) -> List[torch.Tensor]:
+        """Write this rank's sums behind whatever ``buf`` already holds, sum
+        ``buf`` over the ranks (the step's one collective) and return the
+        metrics row of the whole batch: each term's summed SSE over the
+        whole batch's element count (its error's per-sample count times the
+        batch; a 0-dim zero term's metric is 0 whatever its count), the
+        summed total, and the Δt mean as the sum of each rank's mean times
+        its share of the rows (times 1.0 on one rank: bitwise one
+        process's)."""
+        sums = [wsse[ph][t] for ph, t in self._terms] + [
+            total, outs["tstep"].mean() * (s.rows / s.batch)]
+        stats = buf[buf.numel() - len(sums):]
+        stats.copy_(torch.stack([v.detach().reshape(()) for v in sums]))
+        dist.all_reduce(buf, group=self.mesh.group)
+        vals = [stats[i] / max(float(counts[ph][t] * s.batch // s.rows), 1.0)
+                for i, (ph, t) in enumerate(self._terms)]
+        return vals + [stats[-2], stats[-1]]
+
     def _train_body(self, s: _StepState) -> None:
-        aux, grads, total = self.loss_fn.pinn_batch_sse_grad(*self._gather(s))
+        x, y = self._gather(s)
+        if self._train_buf is None:
+            aux, grads, total = self.loss_fn.pinn_batch_sse_grad(x, y)
+            vals = self._metrics(aux, total)
+        else:
+            total, wsse, counts, outs = self.loss_fn.weighted_sse(x, y)
+            local = self.loss_fn.gradients(total)
+            with torch.no_grad():
+                torch._foreach_copy_([g for k in self.optimizer_keys for g in self._grad_views[k]],
+                                     [g for k in self.optimizer_keys for g in local[k]])
+                vals = self._reduced_metrics(self._train_buf, s, total, wsse, counts, outs)
+            grads = self._grad_views
         for key in self.optimizer_keys:
             self.optimizers[key].step(grads[key])
-        self._record(s, aux, total)
+        self._record(s, vals)
 
     @torch.no_grad()
     def _eval_body(self, s: _StepState) -> None:
-        total, aux = self.loss_fn.loss_and_metrics(*self._gather(s))
-        self._record(s, aux, total)
+        x, y = self._gather(s)
+        if self._eval_buf is None:
+            total, aux = self.loss_fn.loss_and_metrics(x, y)
+            vals = self._metrics(aux, total)
+        else:
+            vals = self._reduced_metrics(self._eval_buf, s, *self.loss_fn.weighted_sse(x, y))
+        self._record(s, vals)
 
     def _run(self, kind: str, s: _StepState) -> None:
         """One step of ``kind`` on the batch that ``s.idx`` names."""
@@ -176,7 +272,11 @@ class Trainer:
             before = {c: getattr(st, c) for c in st.COUNTERS}
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool):
+            # under a process group, the NCCL watchdog thread may query the
+            # warm-up steps' events while this thread captures: a capture
+            # that forbids only its own thread's unsafe calls lets it
+            mode = "global" if self._train_buf is None else "thread_local"
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=mode):
                 body(s)
             self.capture_seconds[kind] += time.perf_counter() - t0
             # the capture launched nothing: take its counts back, add them per replay
@@ -196,39 +296,90 @@ class Trainer:
             well.flush_iteration_logs()
 
     def _state(self, kind: str, source: str, x_all, y_all, bs: int, nb: int) -> _StepState:
+        """The state of ``kind`` over the dataset ``source``, whose batches
+        of ``bs`` rows ``x_all`` holds whole."""
         key = (kind, source, bs)
         if key not in self._states:
-            self._states[key] = _StepState(x_all, y_all, bs, nb, len(self.metric_names))
+            lo, hi = self._block(bs)
+            self._states[key] = _StepState(x_all, y_all, bs, hi - lo, nb, len(self.metric_names))
         return self._states[key]
+
+    def _block(self, bs: int):
+        """This rank's rows [lo, hi) of a batch of ``bs``, logged once per
+        batch size where the split is uneven."""
+        if bs % self.mesh.size:
+            log.warning("a batch of %d rows over %d ranks gives blocks of %s rows: the ranks "
+                        "with fewer rows idle part of each step; make the batch a multiple of "
+                        "the data-axis size", bs, self.mesh.size, self.mesh.block_sizes(bs))
+        return self.mesh.block(bs)
 
     def _host_metrics(self, s: _StepState, n: int) -> Dict[str, np.ndarray]:
         """The first n rows of the per-step metrics → host arrays, one copy."""
         m = s.metrics[:n].cpu().numpy()
         return {name: m[:, j] for j, name in enumerate(self.metric_names)}
 
-    # -- one batch given by the caller -------------------------------------
+    # -- batches given by the caller ----------------------------------------
     def _direct(self, kind: str, x: torch.Tensor, y) -> Dict[str, torch.Tensor]:
         bs = x.shape[0]
         key = (kind, "_direct", bs)
         s = self._states.get(key)
+        lo, hi = self.mesh.block(bs) if s is not None else self._block(bs)
         if s is None:
-            src_x = torch.empty_like(x, device=self.device)
-            src_y = {k: torch.empty_like(v, device=self.device) for k, v in y.items()}
-            s = self._state(kind, "_direct", src_x, src_y, bs, 1)
-        s.x_all.copy_(x)
+            src_x = torch.empty_like(x[lo:hi], device=self.device)
+            src_y = {k: torch.empty_like(v[lo:hi], device=self.device) for k, v in y.items()}
+            s = self._states[key] = _StepState(src_x, src_y, bs, hi - lo, 1,
+                                               len(self.metric_names))
+        s.x_all.copy_(x[lo:hi])
         for k, v in y.items():
-            s.y_all[k].copy_(v)
+            s.y_all[k].copy_(v[lo:hi])
         s.row.zero_()
         self._run(kind, s)
         return dict(zip(self.metric_names, s.metrics[0].clone().unbind()))
 
     def train_step(self, x: torch.Tensor, y) -> Dict[str, torch.Tensor]:
-        """One training step on the batch (x, y): copied into the static
-        buffers, then the step (on the card, a graph replay)."""
+        """One training step on the batch (x, y) (under a mesh the global
+        batch, of which this rank takes its block, as ``shard_batch`` lays it
+        out): copied into the static buffers, then the step (on the card, a
+        graph replay)."""
         return self._direct("train", x, y)
 
     def eval_step(self, x: torch.Tensor, y) -> Dict[str, torch.Tensor]:
         return self._direct("eval", x, y)
+
+    def _epoch(self, kind: str, x_batches, y_batches) -> Dict[str, np.ndarray]:
+        """Every batch of ``(num_batches, B, ...)`` host arrays: this rank's
+        block of batch axis 1 (``shard_batch``) copied to the device once,
+        then one step per batch; the per-step metrics on the host."""
+        xs = shard_batch(torch.as_tensor(np.asarray(x_batches)), self.mesh, batch_axis=1)
+        ys = {k: shard_batch(torch.as_tensor(np.asarray(v)), self.mesh, batch_axis=1)
+              for k, v in y_batches.items()}
+        nb, bs, rows = xs.shape[0], np.shape(x_batches)[1], xs.shape[1]
+        x = xs.reshape((nb * rows,) + tuple(xs.shape[2:])).to(self.device)
+        y = {k: v.reshape((nb * rows,) + tuple(v.shape[2:])).to(self.device)
+             for k, v in ys.items()}
+        key = (kind, "_epoch", bs, nb)
+        s = self._states.get(key)
+        if s is None:
+            s = self._states[key] = _StepState(x, y, bs, rows, nb, len(self.metric_names))
+        else:
+            s.x_all.copy_(x)
+            for k, v in y.items():
+                s.y_all[k].copy_(v)
+        positions = torch.arange(nb * rows, device=self.device)
+        s.row.zero_()
+        for i in range(nb):
+            s.idx.copy_(positions[i * rows:(i + 1) * rows])
+            self._run(kind, s)
+        return self._host_metrics(s, nb)
+
+    def train_epoch(self, x_batches, y_batches) -> Dict[str, np.ndarray]:
+        """One training step on each of the ``(num_batches, B, ...)``
+        batches, in order (the JAX trainer's host-batched epoch,
+        ``trainer.py:255-268``); returns the per-step metrics."""
+        return self._epoch("train", x_batches, y_batches)
+
+    def eval_epoch(self, x_batches, y_batches) -> Dict[str, np.ndarray]:
+        return self._epoch("eval", x_batches, y_batches)
 
     # -- device-resident datasets -------------------------------------------
     def stage_dataset(self, name: str, groups, batch_size: int):
@@ -263,23 +414,37 @@ class Trainer:
         ``name``, in a fresh permutation; the per-step metrics on the host."""
         x, y, nb, bs = self._resident[name]
         s = self._state("train", name, x, y, bs, nb)
+        lo, hi = self.mesh.block(bs)
         perm = torch.randperm(x.shape[0], generator=self.generator)[: nb * bs].to(self.device)
         n = nb if steps is None else min(int(steps), nb)
         s.row.zero_()
         for i in range(n):
-            s.idx.copy_(perm[i * bs:(i + 1) * bs])
+            s.idx.copy_(perm[i * bs + lo:i * bs + hi])
             self._run("train", s)
         return self._host_metrics(s, n)
 
     def eval_epoch_resident(self, name: str) -> Dict[str, np.ndarray]:
         x, y, nb, bs = self._resident[name]
         s = self._state("eval", name, x, y, bs, nb)
+        lo, hi = self.mesh.block(bs)
         rows = torch.arange(nb * bs, device=self.device)
         s.row.zero_()
         for i in range(nb):
-            s.idx.copy_(rows[i * bs:(i + 1) * bs])
+            s.idx.copy_(rows[i * bs + lo:i * bs + hi])
             self._run("eval", s)
         return self._host_metrics(s, nb)
+
+    def release_graphs(self) -> None:
+        """Drop every captured graph: the next step of each kind warms up
+        and captures anew. Under a process group this comes before the
+        group's end, since NCCL does not end a communicator while a graph
+        that holds its kernels lives (the end hangs)."""
+        for s in self._states.values():
+            if s.graph is not None:
+                s.graph.reset()
+            s.graph, s.warm = None, 0
+        if self.cuda_graph:
+            torch.cuda.synchronize(self.device)
 
     # -- weights, in place --------------------------------------------------
     def trained_models(self) -> Dict[str, torch.nn.Module]:
@@ -330,7 +495,8 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
                                   log_epoch_percentage: float = 0.2, seed: int = 0,
                                   checkpoint_dir: Optional[str] = None,
                                   checkpoint_every: int = 1, resume: bool = False,
-                                  optimizer_configs: Optional[Dict[str, Dict]] = None):
+                                  optimizer_configs: Optional[Dict[str, Dict]] = None,
+                                  mesh: Optional[Mesh] = None):
     """Train for ``epochs``; returns (trainer, history, best_model_variables).
 
     History layout follows the reference: per-phase per-key train/val
@@ -350,14 +516,24 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
     from the latest checkpoint there. Unlike the reference, whose resumed
     run draws its permutations anew from the seed (``trainer.py:306``,
     ``:343``), the trainer's generator is saved and restored, so a resumed
-    run trains on the batches an uninterrupted one would."""
+    run trains on the batches an uninterrupted one would.
+
+    ``mesh`` (None: :func:`make_mesh`) trains data-parallel over its
+    process group (:class:`Trainer`): rank 0 alone prints, calls
+    ``log_variables_callback``, logs the gradient norms and writes the
+    checkpoints; every rank returns the same losses and restores the same
+    best epoch, since the metrics it selects on are the whole batch's. The
+    returned trainer's graphs are then released (``Trainer.release_graphs``),
+    so that the group can end."""
     g = general_config or DEFAULT_GENERAL_CONFIG
     training_batch_size = training_batch_size or g["training_batch_size"]
     testing_batch_size = testing_batch_size or g["testing_batch_size"]
     if train_groups:
         validate_loss_keys(train_groups[0][1], loss_fn.loss_keys, g)
 
-    trainer = Trainer(loss_fn, optimizer_configs=optimizer_configs, seed=seed)
+    mesh = mesh if mesh is not None else make_mesh()
+    lead = mesh.rank == 0
+    trainer = Trainer(loss_fn, optimizer_configs=optimizer_configs, seed=seed, mesh=mesh)
     n_train, _ = trainer.stage_dataset("train", train_groups, training_batch_size)
     n_val, _ = trainer.stage_dataset("val", val_groups, testing_batch_size)
     loss_keys = loss_fn.loss_keys
@@ -383,7 +559,7 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
     start_epoch = 0
     if checkpoint_dir is not None:
         from srm_tpu_torch.utils.checkpoint import CheckpointManager
-        ckpt = CheckpointManager(checkpoint_dir)
+        ckpt = CheckpointManager(checkpoint_dir, mesh=mesh)
         if resume:
             restored = ckpt.restore(params=trainer.trained_models(),
                                     opt_state=trainer.optimizers, generator=trainer.generator)
@@ -413,7 +589,7 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
         if total_train == 0.0 and physics:
             log.warning("All physics losses are zero at epoch %d — the residual "
                         "is likely disconnected from the models.", epoch + 1)
-        if verbose:
+        if verbose and lead:
             print(f"Epoch {epoch + 1}/{epochs} - loss {total_train:.4f} - {epoch_ms:.0f} ms "
                   f"({n_train / max(epoch_ms / 1000.0, 1e-9):.2f} steps/s)")
 
@@ -422,15 +598,17 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
             snap = trainer.snapshot()
             if g.get("log_term_grad_norms"):
                 # per-term gradient norms on one fixed batch, eager, outside
-                # the graph (a diagnostic; ref :376-386)
+                # the graph (a diagnostic; ref :376-386); under a mesh every
+                # rank computes them on the whole batch (its label statistics
+                # are collectives)
                 x_all, y_all = trainer._resident["train"][:2]
                 norms = loss_fn.per_term_grad_norms(
                     x_all[:training_batch_size],
                     {k: v[:training_batch_size] for k, v in y_all.items()})
-                for term, row in norms.items():
+                for term, row in norms.items() if lead else ():
                     log.info("grad-norms epoch %d %s: %s", epoch + 1, term,
                              {m: f"{v:.3e}" for m, v in row.items()})
-            if log_variables_callback is not None:
+            if log_variables_callback is not None and lead:
                 log_variables_callback(epoch, snap, total_train)
             for ph in loss_keys:
                 for key in loss_keys[ph]:
@@ -467,9 +645,12 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
             ckpt.save(epochs, trainer.trained_models(), trainer.optimizers, history=history,
                       rng_state=trainer.generator.get_state())
 
-    if verbose:
+    if verbose and lead:
         print(f"Total training time: {time.time() - t_total:.2f}s")
     if ckpt is not None:
         ckpt.wait_until_finished()
         ckpt.close()
+    if mesh.group is not None:
+        # the group may end once training has: no graph may hold its kernels
+        trainer.release_graphs()
     return trainer, history, best_model_variables

@@ -12,7 +12,10 @@ package are not read.
 A save writes to a temporary name in the same directory and then renames it
 (``os.replace``): a crash leaves the previous checkpoints whole. A restore
 writes into the live tensors in place (``copy_``): a CUDA graph that
-captured the training step holds their addresses.
+captured the training step holds their addresses. Under a data-parallel
+mesh (``parallel/mesh.py``) rank 0 writes each save and every rank waits at
+a barrier after it; every rank restores the same step, the generator's
+state included, so that the ranks go on drawing the same batches.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import re
 from typing import Any, Dict, Optional
 
 import torch
+
+from srm_tpu_torch.parallel.mesh import Mesh, barrier
 
 log = logging.getLogger(__name__)
 
@@ -37,9 +42,10 @@ class CheckpointManager:
     """The SRM training state in ``directory``, at most ``max_to_keep``
     steps of it."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh: Optional[Mesh] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh if mesh is not None else Mesh()
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -52,7 +58,10 @@ class CheckpointManager:
              history: Optional[Dict] = None, rng_state: Optional[torch.Tensor] = None) -> bool:
         """``params``: the trained models by name; ``opt_state``: the
         optimizers (``AdamDecay``) by key; ``rng_state``: a generator's
-        ``get_state()``."""
+        ``get_state()``. Returns whether this rank wrote the file (rank 0)."""
+        if self.mesh.rank != 0:
+            barrier(self.mesh)
+            return False
         state = {
             "step": int(step),
             "params": {k: {n: _host(t) for n, t in m.state_dict().items()}
@@ -69,6 +78,7 @@ class CheckpointManager:
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
         log.info("Saved checkpoint at step %d to %s", step, self.directory)
+        barrier(self.mesh)
         return True
 
     def restore(self, step: Optional[int] = None,

@@ -525,6 +525,39 @@ def _trainer(case, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fluid", ["DG", "GC"])
+def test_one_rank_nccl_group_is_bitwise_the_trainer_without(small_cases, fluid, monkeypatch):
+    """Over a one-rank NCCL group the train graph holds the gradient
+    all-reduce (a one-rank SUM is exact): two graphed epochs give bitwise
+    the step losses and weights of the graphed trainer without a group
+    (cuDNN deterministic); after ``release_graphs`` the next epoch warms up
+    and captures again, and the group then ends."""
+    import torch.distributed as dist
+
+    from srm_tpu_torch.parallel.mesh import make_mesh
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    plain = _trainer(small_cases[fluid])
+    want = [plain.train_epoch_resident("train")["total"] for _ in range(2)]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        grouped = _trainer(small_cases[fluid], mesh=make_mesh())
+        got = [grouped.train_epoch_resident("train")["total"] for _ in range(2)]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        for key in plain.optimizer_keys:
+            assert all(torch.equal(a, b) for a, b in zip(grouped.optimizers[key].params,
+                                                         plain.optimizers[key].params)), key
+        nb, warm = grouped._resident["train"][2], grouped.warmup_steps
+        assert grouped.replays["train"] == 2 * nb - warm
+        grouped.release_graphs()
+        assert np.all(np.isfinite(grouped.train_epoch_resident("train")["total"]))
+        assert grouped.replays["train"] == 2 * nb - warm + max(0, nb - warm)
+        grouped.release_graphs()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fluid", ["DG", "GC"])
 def test_graph_replay_matches_the_eager_step(small_cases, fluid, monkeypatch):
     """From the same weights on the same batches, the graphed trainer (its
     eager warm-up steps, then replays) and the eager one give the same step

@@ -1,5 +1,6 @@
 """The port stands alone: it never imports JAX nor anything of the JAX
-package (its training steps, the production and drawdown presets and the
+package (its training steps, on one process and over a process group, the
+production and drawdown presets and the
 well solver's Newton BHP and blocking factor among them, its data
 generation and parsed labels, its simulator labels and its RMSE, its
 predictor and serving bundle), its entry points run on the GPU unless the
@@ -8,6 +9,7 @@ and its chip check imports nothing of the JAX package and refuses to run,
 and prints no result, without a GPU or outside a checkout."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -15,6 +17,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -218,6 +221,34 @@ def test_data_generation_and_parsed_labels_never_import_jax(tmp_path):
     proc = _run([sys.executable, "-c", script], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "isolated" in proc.stdout
+
+
+def test_data_parallel_step_never_imports_jax(tmp_path):
+    """A train step over two ranks (a gloo group meeting through a
+    ``file://`` store; ``tests/torch_parallel_ranks.py``), its dataset built
+    by rank 0 while rank 1 waits, stands alone as well, on each rank."""
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"out": str(tmp_path), "runs": [
+        {"scenario": "step", "fluid": "DG", "base_dir": str(tmp_path / "data"), "nx": 9,
+         "realizations": 6, "batch_size": 8}, {"scenario": "loaded"}]}))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1", "WORLD_SIZE": "2",
+           "STORE": str(tmp_path / "store")}
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_parallel_ranks.py"),
+                               str(spec)], env={**env, "RANK": str(r)}, cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        errors = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), [e[-3000:] for e in errors]
+    import torch
+    for r in range(2):
+        step, loaded = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert loaded == [] and np.isfinite(step["metrics"]["total"]), (loaded, step["metrics"])
 
 
 def test_checkpoint_path_never_imports_jax(tmp_path):

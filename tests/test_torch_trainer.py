@@ -157,7 +157,7 @@ class _JaxTrainer:
 class _PortTrainer:
     """The port driver's Trainer, replaying the same history."""
 
-    def __init__(self, loss_fn, optimizer_configs=None, seed=0, losses=None):
+    def __init__(self, loss_fn, optimizer_configs=None, seed=0, mesh=None, losses=None):
         self.losses, self.epoch, self.restored = losses, -1, None
 
     def stage_dataset(self, name, groups, batch_size):
