@@ -31,7 +31,6 @@ import copy
 import json
 import logging
 import os
-import uuid
 import zipfile
 from typing import Dict, List, Optional, Tuple
 
@@ -45,7 +44,7 @@ from srm_tpu_torch.config import (
     generate_full_config_hash,
 )
 from srm_tpu_torch.data.kle import generate_kle_numpy, split_realizations
-from srm_tpu_torch.data.pipeline import process_array, run_pipeline_for_directory
+from srm_tpu_torch.data.pipeline import private_name, process_array, run_pipeline_for_directory
 from srm_tpu_torch.data.weave import (align_and_trim_pair_lists, create_positional_grids,
                                       split_tensor_sequence, weave_tensors)
 from srm_tpu_torch.utils.stats import DataSummary, compute_statistics, normalize_channels
@@ -53,13 +52,6 @@ from srm_tpu_torch.utils.stats import DataSummary, compute_statistics, normalize
 log = logging.getLogger(__name__)
 
 FEATURE_KEYS = ["z", "y", "x", "time", "permx"]  # woven channel order
-
-
-def _private_name(path: str, suffix: str = "") -> str:
-    """A temporary name beside ``path`` that no other process writes:
-    processes that build one cache at once each publish a whole file with
-    ``os.replace``, the last one winning."""
-    return f"{path}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp{suffix}"
 
 
 class SRMDataProcessor:
@@ -259,7 +251,7 @@ class SRMDataProcessor:
     def save_statistics(self, statistics: Dict) -> str:
         _, h = self.config_hash()
         path = os.path.join(self.kle_folder(), f"training_statistics_summary_{h}.json")
-        tmp = _private_name(path)
+        tmp = private_name(path)
         with open(tmp, "w") as f:
             json.dump(statistics, f, indent=2)
         os.replace(tmp, path)
@@ -292,7 +284,7 @@ class SRMDataProcessor:
                 os.remove(path)
         tr, va, te, pr = self.process_data()
         payload = {"train": tr, "val": va, "test": te, "pred": pr}
-        tmp = _private_name(path, ".npz")    # np.savez appends .npz to other suffixes
+        tmp = private_name(path, ".npz")    # np.savez appends .npz to other suffixes
         np.savez(tmp, payload=np.array(payload, dtype=object))
         os.replace(tmp, path)        # atomic publish
         return path, tr, va, te, pr

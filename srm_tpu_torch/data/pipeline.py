@@ -292,6 +292,13 @@ def stack_realizations(per_file: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, 
     return {k: np.stack(v, axis=0) for k, v in keys.items() if v}
 
 
+def private_name(path: str, suffix: str = "") -> str:
+    """A temporary name beside ``path`` that no other process writes:
+    processes that build one file at once each publish a whole file with
+    ``os.replace``, the last one winning."""
+    return f"{path}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp{suffix}"
+
+
 def save_results(results: Dict[str, np.ndarray], output_folder: str,
                  combined_filename: str = "combined_results.npz") -> str:
     """Save combined npz + per-key stats summary.json."""
@@ -300,14 +307,14 @@ def save_results(results: Dict[str, np.ndarray], output_folder: str,
     # atomic publish (a killed writer must not leave a truncated npz), from
     # a name of this process's own (processes parsing one directory at once
     # each publish a whole file)
-    tmp = f"{path}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp.npz"
+    tmp = private_name(path, ".npz")
     np.savez_compressed(tmp, **results)
     os.replace(tmp, path)
     summary = {k: {"shape": list(v.shape), "min": float(np.nanmin(v)), "max": float(np.nanmax(v)),
                    "mean": float(np.nanmean(v)), "std": float(np.nanstd(v))}
                for k, v in results.items()}
     summary_path = os.path.join(output_folder, "summary.json")
-    tmp = f"{summary_path}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp"
+    tmp = private_name(summary_path)
     with open(tmp, "w") as f:
         json.dump(summary, f, indent=2)
     os.replace(tmp, summary_path)

@@ -18,19 +18,24 @@ its NCCL all-reduce kernels per step with the median and least of their
 device us (each includes the wait for the slowest rank). Then rank 0 trains the
 same case alone (no process group; the other ranks wait) from the same
 weights on the same batches, its epochs timed the same way, and its first
-step's total is held to the ranks' within FIRST_RTOL: the same function of
-the same weights, summed in another order (each rank's block, then the
-all-reduce). Later steps move apart as float32 rounding, which Adam
+step's total is held to the ranks' within FIRST_RTOL, and the gradients
+that the ranks' first step handed the optimizers (summed over the ranks)
+to its own within GRAD_RTOL per model (but NOISY_GRADIENTS'): the same
+function of the same weights, summed in another order (each rank's
+block, then the all-reduce). Adam would hide a mean over the ranks in the weights; the
+gradients show it. Later steps move apart as float32 rounding, which Adam
 magnifies and Model 2's noisy gradient feeds (ROADMAP C2), moves the
-weights, so they are printed, not held.
+weights, so they are printed, not held. Past either bound, after the
+ranks have ended, rank 0 exits non-zero.
 
 Prints, on rank 0, one JSON line last: ``world``, ``batch``, ``rows`` (a
 rank's), the steps/s of each timed epoch over the ranks and alone,
 ``nccl_kernels_per_step``, ``all_reduce_us_median``, ``all_reduce_us_min``,
 ``compute_ms_per_step``, ``device_ops_per_step`` (null on the CPU: not
-measured), ``first_step_rtol``, the first epoch's per-step totals over the
-ranks and alone, ``device`` and ``card`` (the name and power limit
-``nvidia-smi`` gives).
+measured), ``first_step_rtol``, ``grad_gaps`` (per model the summed and,
+for comparison, the averaged gradients' relative distance), ``grad_rtol``,
+the first epoch's per-step totals over the ranks and alone, ``device``
+and ``card`` (the name and power limit ``nvidia-smi`` gives).
 """
 
 from __future__ import annotations
@@ -45,35 +50,84 @@ import time
 
 #: the first step's total over the ranks against one rank's, relative
 FIRST_RTOL = 1e-5
+#: the first step's gradients summed over the ranks against one rank's on
+#: the whole batch, per model, as the L2 distance over the norm (float32
+#: sums in another order; an average over n ranks is 1 - 1/n off: 0.5 at
+#: 2 ranks, 0.75 at 4). Readings of the pressure net: DG 9×9 on the CPU,
+#: 0.0054-0.0092 at 2 and 4 ranks.
+GRAD_RTOL = 0.05
+#: the models whose float32 gradient is rounding noise (the Δt net,
+#: ROADMAP C2: 3.6 apart at 2 ranks of DG 9×9 on the CPU, 0.21 at 4 ranks of
+#: DG 39×39 b32 on H100s, against 2.1 and 0.80 if averaged): their distance
+#: is printed, not held. Every gradient shares the one all-reduce, so a
+#: mean over the ranks shows in the pressure net's (5.5e-6 there, 0.75 if
+#: averaged).
+NOISY_GRADIENTS = ("time_step",)
 
 
 def _epochs(trainer, n: int, sync) -> tuple:
-    """``n`` epochs of the staged split: each one's per-step totals and
+    """``n`` epochs of the staged split: each one's per-step metrics and
     steps/s (host clock, synchronised)."""
-    totals, rates = [], []
+    metrics, rates = [], []
     for _ in range(n):
         sync()
         t0 = time.perf_counter()
-        totals.append(trainer.train_epoch_resident("train")["total"].tolist())
+        metrics.append(trainer.train_epoch_resident("train"))
         sync()
         rates.append(trainer._resident["train"][2] / (time.perf_counter() - t0))
-    return totals, rates
+    return metrics, rates
 
 
-def _device(trainer, steps: int = 9) -> dict:
+def record_first_gradients(trainer) -> dict:
+    """Make ``trainer`` copy the gradients that its next training step
+    hands the optimizers (under a group, summed over the ranks) to the
+    host; returns the dict that the step fills, by optimizer key. The step
+    must run eagerly (the first steps of a graphed trainer do)."""
+    first: dict = {}
+    body = trainer._train_body
+
+    def recording(s):
+        body(s)
+        if not first:
+            first.update({k: [g.detach().cpu().clone() for g in v]
+                          for k, v in trainer._grad_views.items()})
+
+    trainer._train_body = recording
+    return first
+
+
+def gradient_gaps(got: dict, want: dict, world: int) -> dict:
+    """Per model: the L2 distance of the ranks' summed gradients ``got``
+    from one rank's ``want`` over its norm, and the same for their average
+    over ``world`` ranks (what DDP's mean would leave)."""
+    import torch
+
+    def rel(a, b):
+        num = torch.sqrt(sum(((x.double() - y.double()) ** 2).sum() for x, y in zip(a, b)))
+        return float(num / torch.sqrt(sum((y.double() ** 2).sum() for y in b)))
+
+    return {k: {"summed": rel(got[k], want[k]),
+                "averaged": rel([g / world for g in got[k]], want[k])} for k in want}
+
+
+def _device(trainer, steps: int = 9, names=None) -> dict:
     """A profiler window over ``steps`` replayed steps (at most an epoch's):
     device operations and the device ms of everything but the all-reduce
-    per step, and the NCCL all-reduce kernels per step with the median and
-    least of their device us. An all-reduce kernel's time includes its
-    wait for the slowest rank, which the profiler's start on each rank
-    skews, so the median stands for it, not the sum."""
+    per step, the NCCL all-reduce kernels per step with the median and
+    least of their device us, and how many device kernels of each of
+    ``names`` (name → device name) it shows. An all-reduce kernel's time
+    includes its wait for the slowest rank, which the profiler's start on
+    each rank skews, so the median stands for it, not the sum."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     steps = min(steps, trainer._resident["train"][2])
+    replays = trainer.replays["train"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.train_epoch_resident("train", steps=steps)
         torch.cuda.synchronize()
+    if trainer.replays["train"] != replays + steps:
+        raise AssertionError("the profiled steps were not graph replays")
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     nccl = [e for e in device if re.search(r"nccl\w*AllReduce", e.name)]
     us = [e.time_range.elapsed_us() for e in nccl]
@@ -83,7 +137,9 @@ def _device(trainer, steps: int = 9) -> dict:
             "nccl_kernels_per_step": len(nccl) / steps,
             "all_reduce_us_median": float(np.median(us)) if us else None,
             "all_reduce_us_min": min(us) if us else None,
-            "nccl_kernels": sorted({e.name for e in nccl})}
+            "nccl_kernels": sorted({e.name for e in nccl}),
+            "seen": {k: sum(bool(re.search(rf"(^|::){n}\(", e.name)) for e in device)
+                     for k, n in (names or {}).items()}}
 
 
 def main(argv=None) -> dict:
@@ -122,37 +178,49 @@ def main(argv=None) -> dict:
             return t
 
         ranks = trainer_over(mesh)
-        totals, rates = _epochs(ranks, args.epochs, sync)
+        failures, result = [], None
+        try:
+            grads = record_first_gradients(ranks)
+            metrics, rates = _epochs(ranks, args.epochs, sync)
+            barrier(mesh)
+            device = _device(ranks) if cuda else {}
+            rows = ranks._states[("train", "train", ranks._resident["train"][3])].rows
+            if mesh.rank == 0:
+                alone = trainer_over(Mesh(device=mesh.device))
+                alone_grads = record_first_gradients(alone)
+                alone_metrics, alone_rates = _epochs(alone, args.epochs, sync)
+                totals, alone_totals = (m[0]["total"].tolist() for m in (metrics, alone_metrics))
+                first = abs(totals[0] - alone_totals[0]) / abs(alone_totals[0])
+                gaps = gradient_gaps(grads, alone_grads, mesh.size)
+                card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                        "--format=csv,noheader"], capture_output=True,
+                                       text=True).stdout.strip().splitlines()[0]
+                        if cuda else None)
+                result = {"world": mesh.size, "batch": args.batch, "rows": rows,
+                          "steps_per_s": rates, "alone_steps_per_s": alone_rates,
+                          **{k: device.get(k) for k in ("nccl_kernels_per_step",
+                                                        "all_reduce_us_median",
+                                                        "all_reduce_us_min",
+                                                        "compute_ms_per_step",
+                                                        "device_ops_per_step")},
+                          "first_step_rtol": first, "grad_gaps": gaps, "grad_rtol": GRAD_RTOL,
+                          "totals": totals, "alone_totals": alone_totals,
+                          "device": torch.cuda.get_device_name(mesh.device) if cuda else "cpu",
+                          "card": card}
+                if device.get("nccl_kernels"):
+                    print("NCCL kernels:", device["nccl_kernels"])
+                print(json.dumps(result))
+                if first > FIRST_RTOL:
+                    failures.append(f"the first step's total is {first:.3e} from one rank's "
+                                    f"(bound {FIRST_RTOL})")
+                failures += [f"the first step's {k} gradients are {g['summed']:.3e} from one "
+                             f"rank's (bound {GRAD_RTOL})" for k, g in gaps.items()
+                             if k not in NOISY_GRADIENTS and g["summed"] > GRAD_RTOL]
+        finally:
+            ranks.release_graphs()          # before the group ends
         barrier(mesh)
-        device = _device(ranks) if cuda else {}
-        rows = ranks._states[("train", "train", ranks._resident["train"][3])].rows
-        result = None
-        if mesh.rank == 0:
-            alone = trainer_over(Mesh(device=mesh.device))
-            alone_totals, alone_rates = _epochs(alone, args.epochs, sync)
-            first = abs(totals[0][0] - alone_totals[0][0]) / abs(alone_totals[0][0])
-            card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                    "--format=csv,noheader"], capture_output=True,
-                                   text=True).stdout.strip().splitlines()[0] if cuda else None)
-            result = {"world": mesh.size, "batch": args.batch, "rows": rows,
-                      "steps_per_s": rates, "alone_steps_per_s": alone_rates,
-                      **{k: device.get(k) for k in ("nccl_kernels_per_step",
-                                                    "all_reduce_us_median",
-                                                    "all_reduce_us_min",
-                                                    "compute_ms_per_step",
-                                                    "device_ops_per_step")},
-                      "first_step_rtol": first, "totals": totals[0],
-                      "alone_totals": alone_totals[0],
-                      "device": torch.cuda.get_device_name(mesh.device) if cuda else "cpu",
-                      "card": card}
-            if device.get("nccl_kernels"):
-                print("NCCL kernels:", device["nccl_kernels"])
-            print(json.dumps(result))
-            if first > FIRST_RTOL:
-                raise SystemExit(f"the first step over {mesh.size} ranks is {first:.3e} from "
-                                 f"one rank's (bound {FIRST_RTOL})")
-        ranks.release_graphs()          # before the group ends
-        barrier(mesh)
+    if failures:
+        raise SystemExit(f"over {mesh.size} ranks: " + "; ".join(failures))
     return result
 
 

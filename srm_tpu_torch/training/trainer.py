@@ -113,12 +113,13 @@ class Trainer:
     process group if one is initialised, else this process alone): under a
     process group every rank holds the whole dataset and the same
     generator, and each step takes this rank's block of the global batch.
-    The loss is a sum of weighted SSE over the batch, so the gradients are
-    summed over the ranks, never averaged: one ``all_reduce`` (SUM) a step
-    over a flat buffer of every trainable gradient followed by the step's
-    weighted SSE sums, its total and its share of the Δt mean, and the
-    optimizers read views of it. Each term's metric is its summed SSE over
-    the whole batch's element count (static: every rank knows every rank's
+    The step writes every trainable gradient into one flat buffer followed
+    by the step's weighted SSE sums, its total and its share of the Δt mean,
+    and the optimizers read views of it. The loss is a sum of weighted SSE
+    over the batch, so under a group the gradients are summed over the
+    ranks, never averaged: one ``all_reduce`` (SUM) a step over that buffer
+    (without a group, none). Each term's metric is its summed SSE over the
+    whole batch's element count (static: every rank knows every rank's
     rows), so the division is the one a single process makes. The eval step
     reduces its metrics the same way. On the card the collective is
     captured in the step's graph; that needs NCCL (a gloo group with a
@@ -156,28 +157,27 @@ class Trainer:
                        for k in keys]
         self.metric_names = [f"{ph}/{t}" for ph, t in self._terms] + ["total", "tstep_mean"]
         loss_fn.set_mesh(self.mesh)
-        # under a process group: the flat buffers of the one all-reduce of
-        # each step kind (train: every gradient, then the metrics' sums)
-        self._train_buf = self._eval_buf = None
-        self._grad_views: Dict[str, List[torch.Tensor]] = {}
+        # the flat buffers of each step kind's one all-reduce (train: every
+        # gradient, then the metrics' sums; eval: the sums), summed over the
+        # ranks under a process group and used as they are without one
         if distributed:
             replicate([self.trained_models(), [o.state() for o in self.optimizers.values()]],
                       self.mesh)
-            n_stats = len(self._terms) + 2
-            params = [p for k in self.optimizer_keys for p in self.optimizers[k].params]
-            dtype = params[0].dtype         # float32 (a float64 copy in the tests)
-            if any(p.dtype != dtype for p in params):
-                raise ValueError("the trained parameters must share one dtype")
-            size = sum(p.numel() for p in params)
-            self._train_buf = torch.zeros(size + n_stats, dtype=dtype, device=self.device)
-            self._eval_buf = torch.zeros(n_stats, dtype=dtype, device=self.device)
-            offset = 0
-            for k in self.optimizer_keys:
-                self._grad_views[k] = []
-                for p in self.optimizers[k].params:
-                    self._grad_views[k].append(
-                        self._train_buf[offset:offset + p.numel()].view_as(p))
-                    offset += p.numel()
+        n_stats = len(self._terms) + 2
+        params = [p for k in self.optimizer_keys for p in self.optimizers[k].params]
+        dtype = params[0].dtype             # float32 (a float64 copy in the tests)
+        if any(p.dtype != dtype for p in params):
+            raise ValueError("the trained parameters must share one dtype")
+        size = sum(p.numel() for p in params)
+        self._train_buf = torch.zeros(size + n_stats, dtype=dtype, device=self.device)
+        self._eval_buf = torch.zeros(n_stats, dtype=dtype, device=self.device)
+        self._grad_views: Dict[str, List[torch.Tensor]] = {}
+        offset = 0
+        for k in self.optimizer_keys:
+            self._grad_views[k] = []
+            for p in self.optimizers[k].params:
+                self._grad_views[k].append(self._train_buf[offset:offset + p.numel()].view_as(p))
+                offset += p.numel()
         self._resident: Dict[str, Any] = {}
         self._states: Dict[tuple, _StepState] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.cuda_graph else None
@@ -200,55 +200,42 @@ class Trainer:
         s.metrics.index_copy_(0, s.row, row[None])
         s.row.add_(1)
 
-    def _metrics(self, aux, total) -> List[torch.Tensor]:
-        """The metrics row of one process's loss (no mesh)."""
-        return [aux[ph][t] for ph, t in self._terms] + [total, aux["outputs"]["tstep"].mean()]
-
     def _reduced_metrics(self, buf: torch.Tensor, s: _StepState, total, wsse, counts,
                          outs) -> List[torch.Tensor]:
         """Write this rank's sums behind whatever ``buf`` already holds, sum
-        ``buf`` over the ranks (the step's one collective) and return the
-        metrics row of the whole batch: each term's summed SSE over the
-        whole batch's element count (its error's per-sample count times the
-        batch; a 0-dim zero term's metric is 0 whatever its count), the
-        summed total, and the Δt mean as the sum of each rank's mean times
-        its share of the rows (times 1.0 on one rank: bitwise one
-        process's)."""
+        ``buf`` over the ranks (the step's one collective; none without a
+        process group) and return the metrics row of the whole batch: each
+        term's summed SSE over the whole batch's element count (its error's
+        per-sample count times the batch; a 0-dim zero term's metric is 0
+        whatever its count), the summed total, and the Δt mean as the sum of
+        each rank's mean times its share of the rows (times 1.0 on one rank:
+        bitwise the mean)."""
         sums = [wsse[ph][t] for ph, t in self._terms] + [
             total, outs["tstep"].mean() * (s.rows / s.batch)]
         stats = buf[buf.numel() - len(sums):]
         stats.copy_(torch.stack([v.detach().reshape(()) for v in sums]))
-        dist.all_reduce(buf, group=self.mesh.group)
+        if self.mesh.group is not None:
+            dist.all_reduce(buf, group=self.mesh.group)
         vals = [stats[i] / max(float(counts[ph][t] * s.batch // s.rows), 1.0)
                 for i, (ph, t) in enumerate(self._terms)]
         return vals + [stats[-2], stats[-1]]
 
     def _train_body(self, s: _StepState) -> None:
         x, y = self._gather(s)
-        if self._train_buf is None:
-            aux, grads, total = self.loss_fn.pinn_batch_sse_grad(x, y)
-            vals = self._metrics(aux, total)
-        else:
-            total, wsse, counts, outs = self.loss_fn.weighted_sse(x, y)
-            local = self.loss_fn.gradients(total)
-            with torch.no_grad():
-                torch._foreach_copy_([g for k in self.optimizer_keys for g in self._grad_views[k]],
-                                     [g for k in self.optimizer_keys for g in local[k]])
-                vals = self._reduced_metrics(self._train_buf, s, total, wsse, counts, outs)
-            grads = self._grad_views
+        total, wsse, counts, outs = self.loss_fn.weighted_sse(x, y)
+        local = self.loss_fn.gradients(total)
+        with torch.no_grad():
+            torch._foreach_copy_([g for k in self.optimizer_keys for g in self._grad_views[k]],
+                                 [g for k in self.optimizer_keys for g in local[k]])
+            vals = self._reduced_metrics(self._train_buf, s, total, wsse, counts, outs)
         for key in self.optimizer_keys:
-            self.optimizers[key].step(grads[key])
+            self.optimizers[key].step(self._grad_views[key])
         self._record(s, vals)
 
     @torch.no_grad()
     def _eval_body(self, s: _StepState) -> None:
         x, y = self._gather(s)
-        if self._eval_buf is None:
-            total, aux = self.loss_fn.loss_and_metrics(x, y)
-            vals = self._metrics(aux, total)
-        else:
-            vals = self._reduced_metrics(self._eval_buf, s, *self.loss_fn.weighted_sse(x, y))
-        self._record(s, vals)
+        self._record(s, self._reduced_metrics(self._eval_buf, s, *self.loss_fn.weighted_sse(x, y)))
 
     def _run(self, kind: str, s: _StepState) -> None:
         """One step of ``kind`` on the batch that ``s.idx`` names."""
@@ -275,7 +262,7 @@ class Trainer:
             # under a process group, the NCCL watchdog thread may query the
             # warm-up steps' events while this thread captures: a capture
             # that forbids only its own thread's unsafe calls lets it
-            mode = "global" if self._train_buf is None else "thread_local"
+            mode = "thread_local" if self.mesh.group is not None else "global"
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=mode):
                 body(s)
             self.capture_seconds[kind] += time.perf_counter() - t0
@@ -314,8 +301,9 @@ class Trainer:
         return self.mesh.block(bs)
 
     def _host_metrics(self, s: _StepState, n: int) -> Dict[str, np.ndarray]:
-        """The first n rows of the per-step metrics → host arrays, one copy."""
-        m = s.metrics[:n].cpu().numpy()
+        """The first n rows of the per-step metrics → host arrays, one copy
+        (on the CPU too: the next epoch writes the same buffer)."""
+        m = s.metrics[:n].to("cpu", copy=True).numpy()
         return {name: m[:, j] for j, name in enumerate(self.metric_names)}
 
     # -- batches given by the caller ----------------------------------------
@@ -523,8 +511,8 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
     ``log_variables_callback``, logs the gradient norms and writes the
     checkpoints; every rank returns the same losses and restores the same
     best epoch, since the metrics it selects on are the whole batch's. The
-    returned trainer's graphs are then released (``Trainer.release_graphs``),
-    so that the group can end."""
+    trainer's graphs are then released (``Trainer.release_graphs``), also
+    when an error leaves the loop, so that the group can end."""
     g = general_config or DEFAULT_GENERAL_CONFIG
     training_batch_size = training_batch_size or g["training_batch_size"]
     testing_batch_size = testing_batch_size or g["testing_batch_size"]
@@ -534,123 +522,126 @@ def train_combined_models_unified(train_groups, val_groups, loss_fn,
     mesh = mesh if mesh is not None else make_mesh()
     lead = mesh.rank == 0
     trainer = Trainer(loss_fn, optimizer_configs=optimizer_configs, seed=seed, mesh=mesh)
-    n_train, _ = trainer.stage_dataset("train", train_groups, training_batch_size)
-    n_val, _ = trainer.stage_dataset("val", val_groups, testing_batch_size)
-    loss_keys = loss_fn.loss_keys
+    try:
+        n_train, _ = trainer.stage_dataset("train", train_groups, training_batch_size)
+        n_val, _ = trainer.stage_dataset("val", val_groups, testing_batch_size)
+        loss_keys = loss_fn.loss_keys
 
-    def averages(metrics):
-        return {ph: {key: float(np.mean(metrics[f"{ph}/{key.rsplit('_', 1)[0]}"]))
-                     for key in keys} for ph, keys in loss_keys.items()}
-
-    history = {
-        "train": {ph: {key: [] for key in keys} for ph, keys in loss_keys.items()},
-        "val": {ph: {key: [] for key in keys} for ph, keys in loss_keys.items()},
-        "epoch_times": [], "total_train_loss": [], "total_val_loss": [],
-        "tstep_mean": [], "step_total_loss": [],
-    }
-    model_variables_history: List[Dict] = []
-    loss_min_max = {ph: {key: {"min": float("inf"), "max": float("-inf")}
+        def averages(metrics):
+            return {ph: {key: float(np.mean(metrics[f"{ph}/{key.rsplit('_', 1)[0]}"]))
                          for key in keys} for ph, keys in loss_keys.items()}
-    log_start_epoch = max(0, int(epochs * (1.0 - log_epoch_percentage)))
-    physics = loss_fn.physics_mode_fraction >= 1.0
-    t_total = time.time()
 
-    ckpt = None
-    start_epoch = 0
-    if checkpoint_dir is not None:
-        from srm_tpu_torch.utils.checkpoint import CheckpointManager
-        ckpt = CheckpointManager(checkpoint_dir, mesh=mesh)
-        if resume:
-            restored = ckpt.restore(params=trainer.trained_models(),
-                                    opt_state=trainer.optimizers, generator=trainer.generator)
-            if restored is not None:
-                start_epoch = int(restored[3]) + 1
-                log.info("Resumed from checkpoint at epoch %d", start_epoch)
+        history = {
+            "train": {ph: {key: [] for key in keys} for ph, keys in loss_keys.items()},
+            "val": {ph: {key: [] for key in keys} for ph, keys in loss_keys.items()},
+            "epoch_times": [], "total_train_loss": [], "total_val_loss": [],
+            "tstep_mean": [], "step_total_loss": [],
+        }
+        model_variables_history: List[Dict] = []
+        loss_min_max = {ph: {key: {"min": float("inf"), "max": float("-inf")}
+                             for key in keys} for ph, keys in loss_keys.items()}
+        log_start_epoch = max(0, int(epochs * (1.0 - log_epoch_percentage)))
+        physics = loss_fn.physics_mode_fraction >= 1.0
+        t_total = time.time()
 
-    for epoch in range(start_epoch, epochs):
-        if n_train == 0:
-            continue
-        t0 = time.time()
-        metrics = trainer.train_epoch_resident("train")      # one host copy per epoch
-        epoch_ms = (time.time() - t0) * 1000.0
-        avg = averages(metrics)
-        total_train = sum(sum(v.values()) for v in avg.values())
-        history["epoch_times"].append(epoch_ms)
-        for ph in loss_keys:
-            for key in loss_keys[ph]:
-                history["train"][ph][key].append(avg[ph][key])
-        history["total_train_loss"].append(total_train)
-        history["tstep_mean"].append(float(np.mean(metrics["tstep_mean"])))
-        history["step_total_loss"].extend(float(v) for v in metrics["total"])
-        if not np.isfinite(total_train):
-            log.error("Non-finite training loss at epoch %d — stopping. "
-                      "Check Δt bounds, PVT clamps and input normalization.", epoch + 1)
-            break
-        if total_train == 0.0 and physics:
-            log.warning("All physics losses are zero at epoch %d — the residual "
-                        "is likely disconnected from the models.", epoch + 1)
+        ckpt = None
+        start_epoch = 0
+        if checkpoint_dir is not None:
+            from srm_tpu_torch.utils.checkpoint import CheckpointManager
+            ckpt = CheckpointManager(checkpoint_dir, mesh=mesh)
+            if resume:
+                restored = ckpt.restore(params=trainer.trained_models(),
+                                        opt_state=trainer.optimizers, generator=trainer.generator)
+                if restored is not None:
+                    start_epoch = int(restored[3]) + 1
+                    log.info("Resumed from checkpoint at epoch %d", start_epoch)
+
+        for epoch in range(start_epoch, epochs):
+            if n_train == 0:
+                continue
+            t0 = time.time()
+            metrics = trainer.train_epoch_resident("train")      # one host copy per epoch
+            epoch_ms = (time.time() - t0) * 1000.0
+            avg = averages(metrics)
+            total_train = sum(sum(v.values()) for v in avg.values())
+            history["epoch_times"].append(epoch_ms)
+            for ph in loss_keys:
+                for key in loss_keys[ph]:
+                    history["train"][ph][key].append(avg[ph][key])
+            history["total_train_loss"].append(total_train)
+            history["tstep_mean"].append(float(np.mean(metrics["tstep_mean"])))
+            history["step_total_loss"].extend(float(v) for v in metrics["total"])
+            if not np.isfinite(total_train):
+                log.error("Non-finite training loss at epoch %d — stopping. "
+                          "Check Δt bounds, PVT clamps and input normalization.", epoch + 1)
+                break
+            if total_train == 0.0 and physics:
+                log.warning("All physics losses are zero at epoch %d — the residual "
+                            "is likely disconnected from the models.", epoch + 1)
+            if verbose and lead:
+                print(f"Epoch {epoch + 1}/{epochs} - loss {total_train:.4f} - {epoch_ms:.0f} ms "
+                      f"({n_train / max(epoch_ms / 1000.0, 1e-9):.2f} steps/s)")
+
+            # watched-epoch snapshots (ref :708-718)
+            if epoch >= log_start_epoch:
+                snap = trainer.snapshot()
+                if g.get("log_term_grad_norms"):
+                    # per-term gradient norms on one fixed batch, eager, outside
+                    # the graph (a diagnostic; ref :376-386); under a mesh every
+                    # rank computes them on the whole batch (its label statistics
+                    # are collectives)
+                    x_all, y_all = trainer._resident["train"][:2]
+                    norms = loss_fn.per_term_grad_norms(
+                        x_all[:training_batch_size],
+                        {k: v[:training_batch_size] for k, v in y_all.items()})
+                    for term, row in norms.items() if lead else ():
+                        log.info("grad-norms epoch %d %s: %s", epoch + 1, term,
+                                 {m: f"{v:.3e}" for m, v in row.items()})
+                if log_variables_callback is not None and lead:
+                    log_variables_callback(epoch, snap, total_train)
+                for ph in loss_keys:
+                    for key in loss_keys[ph]:
+                        mm = loss_min_max[ph][key]
+                        mm["min"] = min(mm["min"], avg[ph][key])
+                        mm["max"] = max(mm["max"], avg[ph][key])
+                model_variables_history.append(
+                    {"epoch": epoch + 1, "variables": snap,
+                     "losses": {ph: dict(avg[ph]) for ph in loss_keys}})
+
+            if n_val > 0:
+                vavg = averages(trainer.eval_epoch_resident("val"))
+                for ph in loss_keys:
+                    for key in loss_keys[ph]:
+                        history["val"][ph][key].append(vavg[ph][key])
+                history["total_val_loss"].append(sum(sum(v.values()) for v in vavg.values()))
+            if ckpt is not None and ((epoch + 1) % checkpoint_every == 0 or epoch == epochs - 1):
+                ckpt.save(epoch, trainer.trained_models(), trainer.optimizers, history=history,
+                          rng_state=trainer.generator.get_state())
+
+            for cbk in callbacks or []:
+                cbk(epoch)
+
+        # best-epoch selection by min–max-normalized summed losses (ref :833-866)
+        best_model_variables = None
+        if model_variables_history:
+            best, normalized = _select_best(model_variables_history, loss_min_max, loss_keys)
+            best_model_variables = model_variables_history[best]["variables"]
+            trainer.load_snapshot(best_model_variables)
+            log.info("Restored variables from epoch %d (normalized loss %.4f)",
+                     model_variables_history[best]["epoch"], normalized[best])
+            if ckpt is not None:
+                # persist the restored weights: the last periodic save predates the restore
+                ckpt.save(epochs, trainer.trained_models(), trainer.optimizers, history=history,
+                          rng_state=trainer.generator.get_state())
+
         if verbose and lead:
-            print(f"Epoch {epoch + 1}/{epochs} - loss {total_train:.4f} - {epoch_ms:.0f} ms "
-                  f"({n_train / max(epoch_ms / 1000.0, 1e-9):.2f} steps/s)")
-
-        # watched-epoch snapshots (ref :708-718)
-        if epoch >= log_start_epoch:
-            snap = trainer.snapshot()
-            if g.get("log_term_grad_norms"):
-                # per-term gradient norms on one fixed batch, eager, outside
-                # the graph (a diagnostic; ref :376-386); under a mesh every
-                # rank computes them on the whole batch (its label statistics
-                # are collectives)
-                x_all, y_all = trainer._resident["train"][:2]
-                norms = loss_fn.per_term_grad_norms(
-                    x_all[:training_batch_size],
-                    {k: v[:training_batch_size] for k, v in y_all.items()})
-                for term, row in norms.items() if lead else ():
-                    log.info("grad-norms epoch %d %s: %s", epoch + 1, term,
-                             {m: f"{v:.3e}" for m, v in row.items()})
-            if log_variables_callback is not None and lead:
-                log_variables_callback(epoch, snap, total_train)
-            for ph in loss_keys:
-                for key in loss_keys[ph]:
-                    mm = loss_min_max[ph][key]
-                    mm["min"] = min(mm["min"], avg[ph][key])
-                    mm["max"] = max(mm["max"], avg[ph][key])
-            model_variables_history.append(
-                {"epoch": epoch + 1, "variables": snap,
-                 "losses": {ph: dict(avg[ph]) for ph in loss_keys}})
-
-        if n_val > 0:
-            vavg = averages(trainer.eval_epoch_resident("val"))
-            for ph in loss_keys:
-                for key in loss_keys[ph]:
-                    history["val"][ph][key].append(vavg[ph][key])
-            history["total_val_loss"].append(sum(sum(v.values()) for v in vavg.values()))
-        if ckpt is not None and ((epoch + 1) % checkpoint_every == 0 or epoch == epochs - 1):
-            ckpt.save(epoch, trainer.trained_models(), trainer.optimizers, history=history,
-                      rng_state=trainer.generator.get_state())
-
-        for cbk in callbacks or []:
-            cbk(epoch)
-
-    # best-epoch selection by min–max-normalized summed losses (ref :833-866)
-    best_model_variables = None
-    if model_variables_history:
-        best, normalized = _select_best(model_variables_history, loss_min_max, loss_keys)
-        best_model_variables = model_variables_history[best]["variables"]
-        trainer.load_snapshot(best_model_variables)
-        log.info("Restored variables from epoch %d (normalized loss %.4f)",
-                 model_variables_history[best]["epoch"], normalized[best])
+            print(f"Total training time: {time.time() - t_total:.2f}s")
         if ckpt is not None:
-            # persist the restored weights: the last periodic save predates the restore
-            ckpt.save(epochs, trainer.trained_models(), trainer.optimizers, history=history,
-                      rng_state=trainer.generator.get_state())
-
-    if verbose and lead:
-        print(f"Total training time: {time.time() - t_total:.2f}s")
-    if ckpt is not None:
-        ckpt.wait_until_finished()
-        ckpt.close()
-    if mesh.group is not None:
-        # the group may end once training has: no graph may hold its kernels
-        trainer.release_graphs()
+            ckpt.wait_until_finished()
+            ckpt.close()
+    finally:
+        if mesh.group is not None:
+            # the group may end once training has, or once an error leaves
+            # it: no graph may hold its kernels then
+            trainer.release_graphs()
     return trainer, history, best_model_variables

@@ -13,7 +13,13 @@ Tolerances:
   process's and the JAX mesh's, float32 sums in another order;
 - ADAM_RTOL, ADAM_ATOL: weights after Adam steps, the bound of
   ``tests/test_spatial_sharding.py:150-157`` (a weight whose gradient is
-  ~0 may move by up to the learning rate either way);
+  ~0 may move by up to the learning rate either way); it holds any update
+  of one step, so
+- UPDATE_RTOL: the pressure net's update of one step (its weights after
+  less before) against the JAX mesh's, as the L2 distance over the norm
+  (measured 9.2e-4; a model that did not move, or moved the other way, is
+  1 or more off; the Δt net's update follows its float32 gradient, which
+  is rounding noise, ROADMAP C2: 0.67 apart, not held);
 - GRAD_RTOL: the gradients summed over 4 ranks against one process's, in
   float64 (in float32 Model 2's gradient is rounding noise, ROADMAP C2),
   as the L2 distance per model over its norm; an average over the ranks
@@ -53,6 +59,7 @@ ROOT = Path(__file__).resolve().parents[1]
 TOTAL_RTOL = 1e-4
 ADAM_RTOL, ADAM_ATOL = 5e-3, 2.5e-2
 GRAD_RTOL = 1e-5
+UPDATE_RTOL = 1e-2
 EPOCH_RTOL = 1e-6
 DG_BATCH = 8
 GC_MIXED = dict(physics_mode_fraction=0.5, td_normalization="balance", sg_td_focus=8.0)
@@ -64,8 +71,10 @@ def _torch_threads():
     torch.set_num_threads(2)
 
 
-def run_ranks(directory: Path, world: int, runs, timeout: float = 300):
-    """Start ``world`` ranks on ``runs`` at once; each rank's results."""
+def start_ranks(directory: Path, world: int, runs, timeout: float = 300):
+    """Start ``world`` ranks on ``runs`` at once and wait for them (a rank
+    still running after ``timeout`` s fails the test); their exit codes and
+    the ends of their error output."""
     directory.mkdir(parents=True, exist_ok=True)
     spec = directory / "spec.json"
     spec.write_text(json.dumps({"out": str(directory), "runs": runs}))
@@ -85,7 +94,13 @@ def run_ranks(directory: Path, world: int, runs, timeout: float = 300):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    assert all(p.returncode == 0 for p in procs), errors
+    return [p.returncode for p in procs], errors
+
+
+def run_ranks(directory: Path, world: int, runs, timeout: float = 300):
+    """Start ``world`` ranks on ``runs`` at once; each rank's results."""
+    codes, errors = start_ranks(directory, world, runs, timeout)
+    assert codes == [0] * world, errors
     return [torch.load(directory / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -166,10 +181,11 @@ def test_make_mesh_without_a_group_and_the_space_axis():
 
 
 def test_a_one_rank_group_is_bitwise_one_process(dg):
-    """A process group of one rank (gloo, in this process) runs the flat
-    buffer, its all-reduce and the metrics' division by the whole batch's
-    counts: three train steps and an eval epoch give bitwise the per-step
-    metrics and weights of the trainer without a group."""
+    """A process group of one rank (gloo, in this process) runs the
+    all-reduce of the flat buffer that the step without a group fills too,
+    and the metrics' division by the whole batch's counts: three train
+    steps and an eval epoch give bitwise the per-step metrics and weights
+    of the trainer without a group."""
     import torch.distributed as dist
 
     def run(mesh):
@@ -189,7 +205,7 @@ def test_a_one_rank_group_is_bitwise_one_process(dg):
         grouped, got = run(mesh)
     finally:
         dist.destroy_process_group()
-    assert grouped._train_buf is not None and plain._train_buf is None
+    assert grouped.mesh.group is not None and plain.mesh.group is None
     for g, w in zip(got, want):
         for name in w:
             np.testing.assert_array_equal(g[name], w[name], err_msg=name)
@@ -301,7 +317,8 @@ def world2(dg, gc, tmp_path_factory):
 def test_dg_step_at_world_4_matches_the_jax_mesh(dg, world4):
     """One train_step on 8 samples over 4 ranks (2 rows each) against the
     JAX Trainer's on ``make_mesh(4)``: the total within TOTAL_RTOL, the
-    updated weights within the Adam-step bound, every rank's weights the
+    updated weights within the Adam-step bound and the pressure net's
+    update within UPDATE_RTOL of the JAX mesh's, every rank's weights the
     same bits."""
     jcase = dg["jcase"]
     trainer = JaxTrainer(jcase["loss_fn"], jcase["params"], mesh=jax_make_mesh(4),
@@ -312,6 +329,10 @@ def test_dg_step_at_world_4_matches_the_jax_mesh(dg, world4):
                                rtol=TOTAL_RTOL)
     want = _jax_weights_as_port(dg["tcase"], trainer.params, ("pressure", "time_step"))
     _assert_adam_close(outs[0]["weights"], want)
+    start = [p.detach() for p in dg["tcase"]["models"]["pressure"].parameters()]
+    gap = _rel([a - b for a, b in zip(outs[0]["weights"]["pressure"], start)],
+               [a - b for a, b in zip(want["pressure"], start)])
+    assert gap <= UPDATE_RTOL, gap
     _assert_ranks_equal(outs)
 
 
@@ -416,6 +437,20 @@ def test_resume_at_world_2_gives_an_uninterrupted_runs_weights(world2):
     assert outs[0]["files"] == ["ckpt_00000001.pt", "ckpt_00000002.pt", "ckpt_00000003.pt"]
 
 
+def test_an_error_under_a_group_ends_the_ranks(dg, tmp_path):
+    """A callback that raises after the first epoch, on both ranks of a
+    gloo group: the driver releases its trainer's graphs on the way out
+    (on the card the NCCL group's end waits for graphs that hold its
+    kernels; the CPU has none, so this shows the path runs), and each rank
+    ends its group and exits non-zero with the error, well within the
+    timeout."""
+    run = dict(dg["spec"], scenario="crash", batch_size=_even_half(dg["n"]))
+    codes, errors = start_ranks(tmp_path, 2, [run], timeout=120)
+    assert all(c not in (0, None) for c in codes), codes
+    assert all("_Crash" in e for e in errors), errors
+    assert not list(tmp_path.glob("rank*.pt"))
+
+
 # -- (6) one uncached case set up by two ranks ---------------------------------
 
 def test_two_ranks_set_up_one_uncached_case(world2):
@@ -492,8 +527,10 @@ def test_cli_trains_under_two_ranks(tmp_path):
 def test_data_parallel_tool_on_the_cpu(tmp_path):
     """``srm_tpu_torch.tools.data_parallel`` under torchrun on the CPU: two
     gloo ranks of 8 rows against one rank of 16, its JSON line last, the
-    first step's total within the tool's FIRST_RTOL, no device number (not
-    measured on the CPU)."""
+    first step's total within the tool's FIRST_RTOL, its gradients (summed
+    over the ranks) within the tool's GRAD_RTOL of one rank's for the
+    pressure net and their average over the ranks not, no device number
+    (not measured on the CPU)."""
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
@@ -505,4 +542,6 @@ def test_data_parallel_tool_on_the_cpu(tmp_path):
     assert (line["world"], line["batch"], line["rows"], line["device"]) == (2, 16, 8, "cpu")
     assert len(line["steps_per_s"]) == len(line["alone_steps_per_s"]) == 2
     assert line["first_step_rtol"] <= 1e-5 and line["all_reduce_us_median"] is None
+    gap = line["grad_gaps"]["pressure"]           # the Δt net's is noise (C2)
+    assert gap["summed"] <= line["grad_rtol"] < 0.4 < gap["averaged"]
 

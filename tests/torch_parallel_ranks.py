@@ -130,6 +130,16 @@ def resume(spec):
             "files": sorted(os.listdir(os.path.join(spec["dir"], "ckpt")))}
 
 
+def crash(spec):
+    """Two epochs whose callback raises after the first, on every rank, and
+    nothing catches it: the rank leaves through the driver's clean-up and
+    the group's end with the error."""
+    case = _case(spec)
+    train_combined_models_unified(case["train_groups"], case["val_groups"], case["loss_fn"],
+                                  training_batch_size=spec["batch_size"], epochs=2, verbose=0,
+                                  callbacks=[_crash_after_first_epoch])
+
+
 def setup(spec):
     """Set up a case in an uncached ``base_dir``: every split's arrays."""
     case = setup_case(spec["fluid"], base_dir=spec["base_dir"], nx=spec["nx"],
