@@ -35,7 +35,12 @@ the process exits non-zero:
    backward kernel, the explicit adjoint and ``_plain_backward`` (autograd
    through the recomputed plain version, what the backward was before),
    warm and cold L2 as above, and the kernel's bound; each backward kernel
-   must show one device launch per call.
+   must show one device launch per call. Each kernel also runs on the row
+   blocks of its main path's shape as a space axis hands them to it
+   (``_check_blocks``: the 20- and 19-row blocks of a space axis of 2,
+   whose first and last ghost rows are the domain's, and the middle block
+   of a space axis of 3, whose ghost rows are its neighbours' rows),
+   forward and backward against its plain version.
 4. main path DG 2D — the dry-gas 2D case at the full 39×39 grid and full
    model widths, trained for two epochs at batch 32 through the port's
    Trainer.
@@ -182,6 +187,18 @@ the process exits non-zero:
     DP_UPDATE_RTOL, the two ranks' weights bitwise equal, B1 and its
     backward at every step on both, ``cuda_graph=True`` on that group
     raising; the epoch's seconds and B1's time at B = 16.
+19. space axis (right after the main paths; ``parallel/halo.py``) — two
+    gloo ranks on the one card as ``make_mesh(2, spatial=2)``: each rank
+    the whole batch of 32 and its 20 or 19 rows of the 39 of H, the halos
+    staged through the host, eager, from one set of initial weights;
+    DG 2D at 39×39, 20 realizations, one epoch, and one GC 2D step. Against
+    one eager rank on the same batches: the first step's total within
+    DP_FIRST_RTOL and its gradients, summed over the ranks, within
+    ``tools/data_parallel.py``'s SPACE_GRAD_RTOL per model but DG's Δt net
+    (C2); every step's total within SP_LOSS_RTOL and each model's update
+    within DP_UPDATE_RTOL; the ranks' weights bitwise equal; B1 (B3) and
+    its backward at every step on both ranks' blocks; ``cuda_graph=True``
+    on that group raising.
 
 The line before the last is a JSON object describing each kernel (its
 numbers at batch 32, under ``at_b128`` those at batch 128, under
@@ -189,8 +206,10 @@ numbers at batch 32, under ``at_b128`` those at batch 128, under
 configurations' shape, its launches on its f32 main path and, under
 ``launches_by_path``, on every path of this run that runs it, the well
 solver's paths, the example drivers' ``example_dg`` and ``example_gc``,
-``sg_head_probe`` and the data-parallel phase's ``dp_nccl_world1``,
-``dp_gloo_rank0`` and ``dp_gloo_rank1`` among them); the last line is
+``sg_head_probe``, the data-parallel phase's ``dp_nccl_world1``,
+``dp_gloo_rank0`` and ``dp_gloo_rank1`` and the space axis's
+``sp_gloo_rank0``, ``sp_gloo_rank1``, ``sp_gloo_gc_rank0`` and
+``sp_gloo_gc_rank1`` among them); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -237,12 +256,14 @@ GRAPH_UNFUSED_WEIGHT_REL = 0.1
 # eager warm-up steps, then replays
 REMAT_EPOCHS = 5
 
-# the simulator labels (phase_labels): the test split of each 2D case at 20
-# realizations, the reference's physical bounds and its mass-balance bound
+# the simulator labels (phase_labels): the test split of each 2D case at 6
+# realizations (4 test realizations; cut from 20, then 10, for the time
+# limit), the
+# reference's physical bounds and its mass-balance bound
 # (tests/test_fv_simulator.py:36-93), its bound between the dense and the
 # iterative solver (:202, 0.1 psia), and its bound on the RMSE of a barely
 # trained pressure model (:131-134)
-LABEL_REALIZATIONS = 20
+LABEL_REALIZATIONS = 6
 MASS_BALANCE_TOL = 0.02
 SOLVER_PSIA_TOL = 0.1
 RMSE_BOUND = 3500.0
@@ -282,6 +303,13 @@ SERVE_BATCHES = (1, 3, 7, 300)
 SERVE_BF16_REL = 1e-4
 SERVE_BF16_RMS_SHARE = 0.5
 
+# the kernels' timing depth, cut to keep the script well inside its time
+# limit: the median of TIMING's repeats of back-to-back calls (profile_step's
+# defaults: 5 repeats of 100 calls, and of 20 for a backward), and the calls
+# of a profiler window (20 before the cut)
+TIMING = dict(repeats=3, calls=40)
+BACKWARD_TIMING = dict(repeats=3, calls=10)
+PROFILED_CALLS = 10
 DG_OUTPUTS = ("dom", "ibc", "tde", "mbc")
 GC_OUTPUTS = ("dom_g", "dom_o", "ibc", "trn_g", "trn_o", "mbc_g", "mbc_o")
 
@@ -508,9 +536,66 @@ def phase_kernels(name: str) -> dict:
         log(f"{name} kernel vs plain {shape}: forward and backward agree "
             f"(max abs err so far {max_err:.3e}), the forward bitwise the same over three runs")
 
+    max_err = max(max_err, _check_blocks(name))
     timed = [_time_forward(name, shape) for shape in _timed_shapes(spec)]
     _check_one_launch(name, spec["device_name"], _timed_shapes(spec), timed)
     return {"max_abs_err": max_err, **timed[0], "at_b128": timed[1], **_extra_shapes(spec, timed)}
+
+
+def _block_args(name: str, args, lo: int, hi: int) -> list:
+    """The row block ``[lo, hi)`` of a kernel's inputs as a rank of a space
+    axis hands it to the kernel: the padded fields' rows ``[lo, hi + 2)``
+    (its halo rows are its neighbours' rows, the ghost rows only at the
+    domain's first and last rows), the centred fields' and qwell's rows
+    ``[lo, hi)``, tsteps whole."""
+    from srm_tpu_torch.kernels import stencil as st
+    names = {"dg_stencil_residual": st.DG_ARGS, "dg3d_stencil_residual": st.DG3D_ARGS,
+             "gc_stencil_residual": st.GC_ARGS + ("qwell", "tsteps")}[name]
+    padded = (set(st.GC_PADDED) if name == "gc_stencil_residual"
+              else {n for n in names if n.endswith("p")})
+    return [a if n == "tsteps" else a[..., lo:hi + 2 if n in padded else hi, :].contiguous()
+            for n, a in zip(names, args)]
+
+
+def _check_blocks(name: str) -> float:
+    """The kernel against its plain version, forward and backward (its
+    Function's gradient against autograd through the plain version), on
+    the row blocks of its main path's shape as a space axis hands them to
+    it: the two blocks of a space axis of 2 (``Mesh.row_blocks``: 20 and
+    19 of 39 rows, the first's first ghost row and the last's last ghost
+    row the domain's, the others their neighbours' rows) and the middle
+    block of a space axis of 3 (both ghost rows its neighbours'). Returns
+    the largest forward difference."""
+    import torch
+    from srm_tpu_torch.kernels import stencil as st
+    from srm_tpu_torch.parallel.mesh import Mesh
+    spec = KERNELS[name]
+    fused, plain = getattr(st, name), getattr(st, f"{name}_reference")
+    shape = spec["shapes"][0]
+    H = shape[-2]
+    whole, cfg = make_stencil_inputs(name, *shape)
+    first, last = Mesh(size=2, space_size=2).row_blocks(H)
+    middle = Mesh(size=3, space_size=3).row_blocks(H)[1]
+    max_err = 0.0
+    for what, (lo, hi) in (("first edge", first), ("last edge", last), ("interior", middle)):
+        args = _block_args(name, whole, lo, hi)
+        with torch.no_grad():
+            got, want = fused(*args, cfg), plain(*args, cfg)
+        for out, a, b in zip(spec["outputs"], got, want):
+            max_err = max(max_err, check_close(f"{name} {what} block rows [{lo}, {hi}) forward "
+                                               f"{out}", a, b))
+        grads = []
+        for fn in (fused, plain):
+            a = list(args)
+            for i in spec["wrt"]:
+                a[i] = args[i].clone().requires_grad_(True)
+            loss = sum((o ** 2).sum() for o in fn(*a, cfg))
+            grads.append(torch.autograd.grad(loss, [a[i] for i in spec["wrt"]]))
+        for i, a, b in zip(spec["wrt"], grads[0], grads[1]):
+            check_close(f"{name} {what} block rows [{lo}, {hi}) backward d/d(arg {i})", a, b)
+        log(f"{name} on the {what} row block [{lo}, {hi}) of {shape}: forward and backward "
+            f"agree with the plain version")
+    return max_err
 
 
 def _check_one_launch(name: str, device_name: str, shapes, timed) -> None:
@@ -543,8 +628,9 @@ def _time_forward(name: str, shape) -> dict:
     """A kernel's and its plain version's times at ``shape`` (CUDA events,
     plain, kernel, kernel, plain; the card's time for one call on a warm and
     a cold L2; the device time and launches per call from the profiler over
-    20 calls of each) and its bound: each input read once, each output
-    written once, at the HBM rate, or its operations at the float32 peak."""
+    PROFILED_CALLS calls of each) and its bound: each input read once, each
+    output written once, at the HBM rate, or its operations at the float32
+    peak."""
     import torch
     from srm_tpu_torch.kernels import stencil as st
     from srm_tpu_torch.tools.profile_step import (FP32_OPS_PER_S, HBM_BYTES_PER_S, profile_calls,
@@ -553,15 +639,16 @@ def _time_forward(name: str, shape) -> dict:
     fused, plain = getattr(st, name), getattr(st, f"{name}_reference")
     args, cfg = make_stencil_inputs(name, *shape)
     with torch.no_grad():
-        plain_ms = time_ms(lambda: plain(*args, cfg))
-        ms = time_ms(lambda: fused(*args, cfg))
-        ms2 = time_ms(lambda: fused(*args, cfg))
-        plain_ms2 = time_ms(lambda: plain(*args, cfg))
+        plain_ms = time_ms(lambda: plain(*args, cfg), **TIMING)
+        ms = time_ms(lambda: fused(*args, cfg), **TIMING)
+        ms2 = time_ms(lambda: fused(*args, cfg), **TIMING)
+        plain_ms2 = time_ms(lambda: plain(*args, cfg), **TIMING)
         outs = fused(*args, cfg)
         events = warm_cold_ms(lambda: fused(*args, cfg))
         table = []
-        launches, device_us, _ = profile_calls(lambda: fused(*args, cfg), 20, table)
-        plain_launches, plain_device_us, _ = profile_calls(lambda: plain(*args, cfg), 20)
+        launches, device_us, _ = profile_calls(lambda: fused(*args, cfg), PROFILED_CALLS, table)
+        plain_launches, plain_device_us, _ = profile_calls(lambda: plain(*args, cfg),
+                                                           PROFILED_CALLS)
     nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(outs))
     ops = spec["ops_per_cell"] * outs[0].numel()
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
@@ -662,10 +749,10 @@ def _time_backward(name: str, shape) -> dict:
     plain = getattr(st, f"{spec['forward']}_reference")
     args, cfg = make_stencil_inputs(spec["forward"], *shape)
     calls = backward_calls(spec["forward"], args, cfg)
-    host = {k: time_ms(calls[k], calls=20) for k in ("adjoint", "kernel", "autograd")}
-    host2 = {k: time_ms(calls[k], calls=20) for k in ("autograd", "kernel", "adjoint")}
+    host = {k: time_ms(calls[k], **BACKWARD_TIMING) for k in ("adjoint", "kernel", "autograd")}
+    host2 = {k: time_ms(calls[k], **BACKWARD_TIMING) for k in ("autograd", "kernel", "adjoint")}
     table = []
-    device = {k: profile_calls(calls[k], 20, table if k == "kernel" else None)
+    device = {k: profile_calls(calls[k], PROFILED_CALLS, table if k == "kernel" else None)
               for k in ("kernel", "adjoint", "autograd")}
     events = warm_cold_ms(calls["kernel"])
     got = calls["kernel"]()
@@ -2299,18 +2386,21 @@ def phase_tools(base_dir: str, drawdown_case) -> dict:
 # 0.0088, 0.054 and 0.013, the Δt net's 0.18, 0.39 and 0.28 in three runs;
 # a model that did not move, or moved the other way, is 1 or more off).
 DP_FIRST_RTOL, DP_LOSS_RTOL = 1e-5, 1e-2
-DP_UPDATE_RTOL = {"pressure": 0.25, "time_step": 0.9}
+DP_UPDATE_RTOL = {"pressure": 0.25, "time_step": 0.9, "saturation": 0.25}
 DP_ROWS = 16
+KERNEL_OF = {"DG": "dg_stencil_residual", "GC": "gc_stencil_residual"}
 
 
 def _dp_gloo_rank(spec_path: str) -> None:
-    """One rank of phase_data_parallel (b), started by it with ``RANK``: a
-    gloo group of two on the one card (``file://`` store), the DG 2D case
-    on ``cuda:0`` from the saved initial weights; ``cuda_graph=True`` must
-    raise on that group; then one eager epoch at batch 32 (this rank's 16
-    rows a step) with the launch counters set to 0 just before and read just
-    after; writes its metrics, its first step's gradients (summed over the
-    ranks), weights, counts and seconds."""
+    """One rank of phase_data_parallel (b) and phase_space, started with
+    ``RANK``: a gloo group of two on the one card (``file://`` store), the
+    spec's case (``fluid``, DG by default, at 20 realizations) on ``cuda:0``
+    from the saved initial weights, on ``make_mesh(spatial=spatial)``;
+    ``cuda_graph=True`` must raise on that group; then one eager epoch at
+    batch 32 (or its first ``steps`` steps) with the launch counters set to
+    0 just before and read just after; writes its metrics, its first step's
+    gradients (summed over the ranks), weights, counts, seconds and its rows
+    of the batch and of H."""
     import torch
     import torch.distributed as dist
     from srm_tpu_torch.examples.common import setup_case
@@ -2325,10 +2415,11 @@ def _dp_gloo_rank(spec_path: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{spec['store']}", rank=rank,
                             world_size=2)
     try:
-        case = setup_case("DG", base_dir=spec["base_dir"], n_realizations=20, device="cuda:0")
+        fluid = spec.get("fluid", "DG")
+        case = setup_case(fluid, base_dir=spec["base_dir"], n_realizations=20, device="cuda:0")
         for name, state in torch.load(spec["weights"], weights_only=True).items():
             case["models"][name].load_state_dict(state)
-        mesh = make_mesh()
+        mesh = make_mesh(spatial=spec.get("spatial", 1))
         try:
             Trainer(case["loss_fn"], mesh=mesh, cuda_graph=True)
         except ValueError as e:
@@ -2341,16 +2432,51 @@ def _dp_gloo_rank(spec_path: str) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics, counts, recomputes = _counted_training(
-            "dg_stencil_residual", lambda: trainer.train_epoch_resident("train"))
+            KERNEL_OF[fluid], lambda: trainer.train_epoch_resident("train", spec.get("steps")))
         seconds = time.perf_counter() - t0
+        rows = case["loss_fn"].rows
         torch.save({"metrics": metrics, "grads": grads, "counts": counts,
                     "recomputes": recomputes,
                     "seconds": seconds, "weights": trainer.snapshot(), "refused": refused,
                     "rows": trainer._states[("train", "train", 32)].rows,
-                    "n_train": trainer._resident["train"][2]},
+                    "h_rows": None if rows is None else rows.count,
+                    "n_train": len(metrics["total"])},
                    os.path.join(spec["out"], f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _gloo_ranks(case, base_dir: str, **spec) -> tuple:
+    """Start two ``_dp_gloo_rank`` processes on ``spec`` (beside the case's
+    initial weights of its trained models) and wait for them: each rank's
+    results and the wall clock seconds of the run."""
+    import torch
+    trained = [case["loss_fn"].logical_name(k) for k in case["loss_fn"].trainable_models_keys]
+    with tempfile.TemporaryDirectory(prefix="gloo_", dir=os.path.join(ROOT, "build")) as out:
+        weights = os.path.join(out, "initial.pt")
+        torch.save({k: case["models"][k].state_dict() for k in trained}, weights)
+        path = os.path.join(out, "spec.json")
+        with open(path, "w") as f:
+            json.dump({"store": os.path.join(out, "store"), "base_dir": base_dir,
+                       "weights": weights, "out": out, **spec}, f)
+        code = f"import chip_smoke; chip_smoke._dp_gloo_rank({path!r})"
+        env = {**os.environ, "WORLD_SIZE": "2"}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                  env={**env, "RANK": str(r)}) for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"gloo ranks exited {[p.returncode for p in procs]}")
+        return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                for r in range(2)], wall
 
 
 def phase_data_parallel(base_dir: str) -> dict:
@@ -2500,32 +2626,7 @@ def _dp_gloo_two_ranks(case, base_dir: str) -> dict:
     from srm_tpu_torch.training.trainer import Trainer
 
     kernel = "dg_stencil_residual"
-    trained = [case["loss_fn"].logical_name(k) for k in case["loss_fn"].trainable_models_keys]
-    with tempfile.TemporaryDirectory(prefix="dp_gloo_", dir=os.path.join(ROOT, "build")) as out:
-        weights = os.path.join(out, "initial.pt")
-        torch.save({k: case["models"][k].state_dict() for k in trained}, weights)
-        spec = os.path.join(out, "spec.json")
-        with open(spec, "w") as f:
-            json.dump({"store": os.path.join(out, "store"), "base_dir": base_dir,
-                       "weights": weights, "out": out}, f)
-        code = f"import chip_smoke; chip_smoke._dp_gloo_rank({spec!r})"
-        env = {**os.environ, "WORLD_SIZE": "2"}
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
-                                  env={**env, "RANK": str(r)}) for r in range(2)]
-        try:
-            for p in procs:
-                p.wait(timeout=600)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        if any(p.returncode for p in procs):
-            raise AssertionError(f"gloo ranks exited {[p.returncode for p in procs]}")
-        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-                 for r in range(2)]
+    ranks, wall = _gloo_ranks(case, base_dir)
     ref = Trainer(_copy_loss(case["loss_fn"]), cuda_graph=False)
     ref.stage_dataset("train", case["train_groups"], 32)
     ref_grads = data_parallel.record_first_gradients(ref)
@@ -2573,6 +2674,104 @@ def _dp_gloo_two_ranks(case, base_dir: str) -> dict:
             "b1_device_us_b16": timing["device_us"], "b1_ms_b16": timing["ms"]}
 
 
+# phase_space (19): two gloo ranks on the one card as a space axis of 2
+# (each rank the whole batch of 32, its 20 or 19 of the 39 rows of H, the
+# halos staged through the host), eager, against one eager rank on the same
+# batches from the same weights: the first step is the same function of the
+# same weights, each convolution and stencil cell computed from the same
+# rows, its sums (the per-sample means and balances, the gradients) in
+# another order: its total within DP_FIRST_RTOL and its gradients, summed
+# over the ranks, within data_parallel.SPACE_GRAD_RTOL per model (DG's Δt
+# net excepted: its float32 gradient is rounding noise, C2, 0.18 apart;
+# logged), where an average over the ranks is 0.5 off and a halo backward
+# that drops its rows' cotangents reads 2.2e-3 (Model 1; measured on the
+# card with the fault planted in a copy). Later steps move apart as in phase 18 (b), faster: float32
+# rounding that Adam magnifies (measured on the card, DG: 1.2e-3, 6.7e-3,
+# 4.7e-4 and 1.8e-3 at the 9th step in four runs): every step's total within
+# SP_LOSS_RTOL; each model's update within DP_UPDATE_RTOL (measured: DG's
+# pressure net 0.021-0.029, Δt net 0.30-0.54; GC's 0.0046-0.0056, 2e-8,
+# 4e-7-0.0027). The ranks' weights bitwise equal; the kernel and its
+# backward at every step on both, on their blocks.
+SP_ROWS = (20, 19)
+SP_LOSS_RTOL = 5e-2
+SP_NOISY_GRADIENTS = {"DG": ("time_step",), "GC": ()}
+
+
+def _sp_gloo_two_ranks(case, base_dir: str, fluid: str, steps=None) -> dict:
+    """Phase 19 on ``case`` (DG 2D or GC 2D at 39×39): two gloo ranks as a
+    space axis of 2 against one eager rank, the epoch's first ``steps``
+    steps (all with None); see SP_ROWS' comment."""
+    import numpy as np
+    import torch
+    from srm_tpu_torch.tools import data_parallel
+    from srm_tpu_torch.training.trainer import Trainer
+
+    kernel = KERNEL_OF[fluid]
+    ranks, wall = _gloo_ranks(case, base_dir, spatial=2, fluid=fluid, steps=steps)
+    ref = Trainer(_copy_loss(case["loss_fn"]), cuda_graph=False)
+    ref.stage_dataset("train", case["train_groups"], 32)
+    ref_grads = data_parallel.record_first_gradients(ref)
+    metrics, ref_seconds = _timed(lambda: ref.train_epoch_resident("train", steps))
+    ref_totals = metrics["total"]
+    grad_gaps = data_parallel.gradient_gaps(ranks[0]["grads"], ref_grads, 2)
+    gaps = np.zeros_like(ref_totals)
+    for r, got in enumerate(ranks):
+        if (got["rows"], got["h_rows"]) != (32, SP_ROWS[r]) or "NCCL" not in got["refused"]:
+            raise AssertionError(f"rank {r}: {got['rows']} rows of the batch, {got['h_rows']} "
+                                 f"of H, refusal {got['refused']!r}")
+        _check_launches(kernel, got["counts"], got["recomputes"], got["n_train"], 0, 1)
+        gaps = np.maximum(gaps, np.abs(got["metrics"]["total"] - ref_totals) / np.abs(ref_totals))
+    updates = {}
+    for k in ref.optimizer_keys:
+        name = ref.loss_fn.logical_name(k)
+        live = dict(ref.models[name].named_parameters())
+        start = dict(case["models"][name].named_parameters())
+        for n, got in ranks[0]["weights"][k].items():
+            if not torch.equal(got, ranks[1]["weights"][k][n]):
+                raise AssertionError(f"the space ranks' {k} weights differ at {n}")
+        updates[k] = _rel([ranks[0]["weights"][k][n].cuda() - start[n] for n in live],
+                          [live[n].detach() - start[n] for n in live])
+    seconds = max(got["seconds"] for got in ranks)
+    noisy = SP_NOISY_GRADIENTS[fluid]
+    log(f"space axis, {fluid} 2D, 2 gloo ranks on one card, eager, rows {SP_ROWS} of 39: "
+        f"{len(ref_totals)} steps, totals {', '.join(f'{g:.3e}' for g in gaps)} from one "
+        f"rank's (relative; bounds {DP_FIRST_RTOL} on the first, {SP_LOSS_RTOL}), the first "
+        f"step's gradients {grad_gaps} apart (relative, summed and averaged over the ranks; "
+        f"bound {data_parallel.SPACE_GRAD_RTOL} summed but {noisy}), updates {updates} apart "
+        f"(relative; bounds {DP_UPDATE_RTOL}), the ranks' weights bitwise equal, launches "
+        f"{[got['counts'] for got in ranks]}; {seconds:.3f} s on the slower rank "
+        f"({wall:.1f} s with the ranks' start-up), one eager rank {ref_seconds:.3f} s")
+    if gaps[0] > DP_FIRST_RTOL or gaps.max() > SP_LOSS_RTOL:
+        raise AssertionError(f"space ranks against one: step totals {gaps} apart")
+    if any(g["summed"] > data_parallel.SPACE_GRAD_RTOL for k, g in grad_gaps.items()
+           if k not in noisy):
+        raise AssertionError(f"space ranks against one: first gradients {grad_gaps} apart")
+    if any(updates[k] > DP_UPDATE_RTOL[k] for k in updates):
+        raise AssertionError(f"space ranks against one: updates {updates} apart")
+    return {"counts_0": ranks[0]["counts"], "counts_1": ranks[1]["counts"],
+            "epoch_s": seconds, "one_rank_epoch_s": ref_seconds, "loss_gaps": gaps.tolist(),
+            "updates": updates, "grad_gaps": grad_gaps}
+
+
+def phase_space(base_dir: str) -> dict:
+    """The space axis (``make_mesh(n, spatial=k)``, ``parallel/halo.py``)
+    on the main path: DG 2D at 39×39, 20 realizations, batch 32, one epoch,
+    and one GC 2D step, each over two gloo ranks on the one card against
+    one rank (``_sp_gloo_two_ranks``). Returns each path's launches by path
+    name and the numbers."""
+    from srm_tpu_torch.examples.common import setup_case
+    out = {}
+    for fluid, steps in (("DG", None), ("GC", 1)):
+        case = setup_case(fluid, base_dir=base_dir, n_realizations=20, device="cuda")
+        out[fluid] = _sp_gloo_two_ranks(case, base_dir, fluid, steps)
+        del case
+        _free_cached()
+    return {"sp_gloo_rank0": out["DG"].pop("counts_0"),
+            "sp_gloo_rank1": out["DG"].pop("counts_1"),
+            "sp_gloo_gc_rank0": out["GC"].pop("counts_0"),
+            "sp_gloo_gc_rank1": out["GC"].pop("counts_1"), "numbers": out}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "srm_tpu_torch")):
         raise SystemExit("chip_smoke: run from the root of a checkout of the repository")
@@ -2608,6 +2807,8 @@ def main() -> int:
         counts["gc_stencil_residual"], gc_case, f32["gc_stencil_residual"] = phase_main_path(
             tmp, "gc_stencil_residual", fluid="GC")
         mark("main path GC 2D")
+        space = phase_space(tmp)
+        mark("space axis")
         phase_serving(tmp, dg_case, gc_case)
         mark("serving")
         porosity = phase_porosity(dg_case)
@@ -2657,6 +2858,10 @@ def main() -> int:
              "sg_head_probe": {"gc_stencil_residual": later["sg_head_probe"]},
              **{path: {"dg_stencil_residual": data_parallel[path]}
                 for path in ("dp_nccl_world1", "dp_gloo_rank0", "dp_gloo_rank1")},
+             **{path: {"dg_stencil_residual": space[path]}
+                for path in ("sp_gloo_rank0", "sp_gloo_rank1")},
+             **{path: {"gc_stencil_residual": space[path]}
+                for path in ("sp_gloo_gc_rank0", "sp_gloo_gc_rank1")},
              **{path: {WELL_PATHS[path]["kernel"]: c} for path, c in well.items()}}
     log(f"gas condensate 3D launches (no kernel): {gc3d}")
     by_path = {name: {path: c[fwd][spec["counter"]] for path, c in paths.items() if fwd in c}

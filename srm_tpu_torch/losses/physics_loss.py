@@ -46,15 +46,32 @@ inline branch ``:655-685``) in 3D, :func:`gc_residual_from_fields`
 Feature layout: ``x`` is the woven normalized tensor, ``(B, 1, H, W, 5)``
 in 2D and ``(B, 1, D, H, W, 5)`` in 3D, with channels
 ``(z, y, x, time, permx)``.
+
+On a mesh's space axis (:meth:`PhysicsLoss.set_mesh` with a
+``make_mesh(n, spatial=k)``) each rank evaluates its rows of H
+(``self.rows``, ``parallel/halo.py``): the networks and the ghost-cell pads
+take their halos from the neighbours, the kernels run unchanged on the
+halo-padded block, the well grids, the porosity field and the well-cell
+indicator are the block's rows, and the strided Δt input keeps the global
+phase of ``::s``. A per-sample mean (Δt) is a local sum over the whole
+grid's count, summed over the space group; a per-sample sum (the tank
+balances' mbc) is summed over it. A term that is then equal on every rank
+of a space group (mbc²) is counted on its space rank 0 only, since the
+trainer sums the loss over every rank; the cell terms stay local. The
+counts that :meth:`PhysicsLoss.weighted_sse` returns are the whole grid's.
+``remat_forwards`` raises ``NotImplementedError`` there (ROADMAP A17c).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from srm_tpu_torch.config import (
@@ -73,6 +90,7 @@ from srm_tpu_torch.ops.stencil import (average_faces, average_faces_3d, five_poi
                                        neighbors_3d, pad_symmetric, pad_symmetric_3d,
                                        seven_point_divergence, upstream_faces,
                                        upstream_faces_3d)
+from srm_tpu_torch.parallel.halo import Rows, sum_over_space
 from srm_tpu_torch.parallel.mesh import mean_over
 from srm_tpu_torch.physics.relperm import RelativePermeability, clip
 from srm_tpu_torch.physics.wells import scatter_to_grid
@@ -86,19 +104,20 @@ LOSS_TERMS = ("dom", "dbc", "nbc", "ibc", "ic", "mbc", "cmbc", "tde", "td")
 
 def dg_residual_from_fields(p0, p1, invBg0, invBg1, bgug1, dinvBg0, q1c, q_well, kx_c, phi_c,
                             t1, t2, krgo, C: float, D: float, dx: float, dy: float, dz: float,
-                            Sgi: float):
+                            Sgi: float, rows=None):
     """Dry-gas 5-point residual from centred (B, H, W) fields, the
     reference's unfused ``dg_residual_from_fields`` (``:73-125``) with its
     operation order: (dom, ibc, mbc, tde). ``bgug1`` is invBg1·invug1 (the
     reference forms that product inside), ``phi_c`` a porosity field, ``t1``
     and ``t2`` are (B, 1, 1) and ``krgo`` the relperm at Sgi. Unlike the
     fused op, the tank balance sums the well rates and the accumulation
-    apart."""
+    apart. ``rows``: the fields' rows of H on a space axis (their pads take
+    the neighbours' rows; mbc is then this block's partial sum)."""
     dv = dx * dy * dz
-    kx_ih, kx_i_h, ky_jh, ky_j_h = harmonic_faces(neighbors(pad_symmetric(kx_c)))
+    kx_ih, kx_i_h, ky_jh, ky_j_h = harmonic_faces(neighbors(pad_symmetric(kx_c, rows)))
     cf = 97.32e-6 / (1.0 + 55.8721 * phi_c**1.428586)
-    pn = neighbors(pad_symmetric(p1))
-    b_ih, b_i_h, b_jh, b_j_h = average_faces(neighbors(pad_symmetric(bgug1)))
+    pn = neighbors(pad_symmetric(p1, rows))
+    b_ih, b_i_h, b_jh, b_j_h = average_faces(neighbors(pad_symmetric(bgug1, rows)))
     cr0 = phi_c * cf * invBg0
     cp1 = Sgi * (phi_c * dinvBg0 + cr0)
     inv_dxx = 1.0 / (dx * dx)
@@ -121,19 +140,20 @@ def dg_residual_from_fields(p0, p1, invBg0, invBg1, bgug1, dinvBg0, q1c, q_well,
 
 def dg3d_residual_from_fields(p0, p1, invBg0, invBg1, bgug1, dinvBg0, q1c, q_well, kx_c, kz_c,
                               phi_c, t1, t2, krgo, C: float, D: float, dx: float, dy: float,
-                              dz: float, Sgi: float):
+                              dz: float, Sgi: float, rows=None):
     """Dry-gas 7-point residual from centred (B, D, H, W) fields, the
     reference's unfused 3D branch (``_residuals_dg_3d``, ``:655-685``) with
     its operation order: (dom, ibc, mbc, tde). As
     :func:`dg_residual_from_fields`, with ``kz_c`` the vertical permeability
-    (vertical_anisotropy·kx) and ``t1``, ``t2`` (B, 1, 1, 1)."""
+    (vertical_anisotropy·kx), ``t1``, ``t2`` (B, 1, 1, 1) and ``rows`` as
+    there."""
     dv = dx * dy * dz
     kx_ih, kx_i_h, ky_jh, ky_j_h, kz_kh, kz_k_h = harmonic_faces_3d(
-        neighbors_3d(pad_symmetric_3d(kx_c)), neighbors_3d(pad_symmetric_3d(kz_c)))
+        neighbors_3d(pad_symmetric_3d(kx_c, rows)), neighbors_3d(pad_symmetric_3d(kz_c, rows)))
     cf = 97.32e-6 / (1.0 + 55.8721 * phi_c**1.428586)
-    pn = neighbors_3d(pad_symmetric_3d(p1))
+    pn = neighbors_3d(pad_symmetric_3d(p1, rows))
     b_ih, b_i_h, b_jh, b_j_h, b_kh, b_k_h = average_faces_3d(
-        neighbors_3d(pad_symmetric_3d(bgug1)))
+        neighbors_3d(pad_symmetric_3d(bgug1, rows)))
     cr0 = phi_c * cf * invBg0
     cp1 = Sgi * (phi_c * dinvBg0 + cr0)
     inv_dxx = 1.0 / (dx * dx)
@@ -160,25 +180,26 @@ def dg3d_residual_from_fields(p0, p1, invBg0, invBg1, bgug1, dinvBg0, q1c, q_wel
 def gc_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1, invug1,
                             invuo1, Rs1, Rv1, dinvBg0, dinvBo0, dRs0, dRv0, krgo1, krog1,
                             qfg1c, qdg1c, qfo1c, qvo1c, q_well, kx_c, phi_c, t1, t2,
-                            C: float, D: float, dx: float, dy: float, dz: float, Swmin: float):
+                            C: float, D: float, dx: float, dy: float, dz: float, Swmin: float,
+                            rows=None):
     """Gas-condensate two-phase residual from centred (B, H, W) fields, the
     reference's unfused ``gc_residual_from_fields`` (``:128-249``) with its
     operation order: (dom_g, dom_o, ibc, mbc_g, mbc_o, trn_g, trn_o).
     ``phi_c`` is a porosity field, ``t1`` and ``t2`` are (B, 1, 1). Unlike the
     fused op, each tank balance sums the well rates and the accumulation
     apart, so the small accumulation is not rounded into the large well
-    rate cell by cell."""
+    rate cell by cell. ``rows`` as in :func:`dg_residual_from_fields`."""
     return _gc_residual(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1, invug1,
                         invuo1, Rs1, Rv1, dinvBg0, dinvBo0, dRs0, dRv0, krgo1, krog1,
                         (qfg1c, qdg1c, qfo1c, qvo1c), q_well, kx_c, None, phi_c, t1, t2,
-                        C, D, dx, dy, dz, Swmin)
+                        C, D, dx, dy, dz, Swmin, rows)
 
 
 def gc3d_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1,
                               invug1, invuo1, Rs1, Rv1, dinvBg0, dinvBo0, dRs0, dRv0, krgo1,
                               krog1, qfg1c, qdg1c, qfo1c, qvo1c, q_well, kx_c, kz_c, phi_c, t1,
                               t2, C: float, D: float, dx: float, dy: float, dz: float,
-                              Swmin: float):
+                              Swmin: float, rows=None):
     """Gas-condensate two-phase 7-point residual from centred (B, D, H, W)
     fields, the reference's ``_residuals_gc_3d`` (``:795-960``) with its
     operation order: as :func:`gc_residual_from_fields`, with the four
@@ -192,19 +213,21 @@ def gc3d_residual_from_fields(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1
 
 def _gc_residual(p0, p1, Sg0, Sg1, invBg0, invBo0, Rs0, Rv0, invBg1, invBo1, invug1, invuo1,
                  Rs1, Rv1, dinvBg0, dinvBo0, dRs0, dRv0, krgo1, krog1, rates, q_well, kx_c,
-                 kz_c, phi_c, t1, t2, C, D, dx, dy, dz, Swmin):
+                 kz_c, phi_c, t1, t2, C, D, dx, dy, dz, Swmin, rows=None):
     """The two-phase residual of :func:`gc_residual_from_fields` (2D,
     ``kz_c`` None) and :func:`gc3d_residual_from_fields` (3D): the cell-local
     statements are the same in the reference's two branches, the faces and
     the divergence are the 5- or 7-point ones."""
     dv = dx * dy * dz
     if kz_c is None:
-        pad, nb, div = pad_symmetric, neighbors, five_point_divergence
+        pad = functools.partial(pad_symmetric, rows=rows)
+        nb, div = neighbors, five_point_divergence
         kfaces = harmonic_faces(nb(pad(kx_c)))
         faces, upstream = average_faces, upstream_faces
         inv_d = (1.0 / (dx * dx),) * 2 + (1.0 / (dy * dy),) * 2
     else:
-        pad, nb, div = pad_symmetric_3d, neighbors_3d, seven_point_divergence
+        pad = functools.partial(pad_symmetric_3d, rows=rows)
+        nb, div = neighbors_3d, seven_point_divergence
         kfaces = harmonic_faces_3d(nb(pad(kx_c)), nb(pad(kz_c)))
         faces, upstream = average_faces_3d, upstream_faces_3d
         inv_d = ((1.0 / (dx * dx),) * 2 + (1.0 / (dy * dy),) * 2
@@ -383,6 +406,7 @@ class PhysicsLoss:
         field = porosity_field(res)
         self.phi0 = float(res["porosity"]) if field is None else float(field.mean())
         self.phi_field = None if field is None else torch.from_numpy(field).to(self.device)
+        self._phi_whole = self.phi_field
         # the 3D gas-condensate residual has no fused op, in either package
         self.use_cuda_stencil = (fused_stencil_selected(self.device, self.phi_field)
                                  and not (self.fluid_type == "GC" and res["Nz"] > 1))
@@ -415,7 +439,7 @@ class PhysicsLoss:
         self.kv_kh = res.get("vertical_anisotropy", 1.0)
         grid = (scatter_to_grid((1, self.Nz, res["Ny"], res["Nx"]), conn, 1.0) if self.Nz > 1
                 else scatter_to_grid((1, res["Ny"], res["Nx"]), conn[:, 1:], 1.0))
-        self.q_well_idx = torch.from_numpy(grid[0]).to(self.device)
+        self.q_well_idx = self._q_well_whole = torch.from_numpy(grid[0]).to(self.device)
 
         ds = data_summary
         nc = g["data_normalization"]
@@ -446,16 +470,33 @@ class PhysicsLoss:
         #: the data-parallel mesh whose ranks hold the rest of the batch
         #: (:meth:`set_mesh`); None: this process's batch is the batch
         self.mesh = None
+        #: this rank's rows of H on a space axis (``parallel/halo.py``'s
+        #: ``Rows``); None: the whole grid
+        self.rows = None
 
     def set_mesh(self, mesh) -> None:
         """Take the whole-batch statistics of the loss (the label stds and
         the Sg focus's mean) and the well model's iteration logs over
         ``mesh``'s ranks, each of which evaluates its block of the batch;
-        a mesh without a process group, or None, is this process alone."""
+        a mesh without a process group, or None, is this process alone. On
+        a space axis this rank then evaluates its rows of H (``rows``): the
+        well-cell indicator, the porosity field and the well grids become
+        the block's."""
         self.mesh = mesh if mesh is not None and mesh.group is not None else None
+        self.rows = (Rows.split(self.mesh, self.reservoir_config["Ny"])
+                     if self.mesh is not None and self.mesh.space_size > 1 else None)
+        if self.rows is not None and self.remat_forwards:
+            raise NotImplementedError(
+                "remat_forwards on a space axis: the recomputed forwards would repeat their "
+                "halo exchanges inside the backward pass (ROADMAP A17c)")
+        lo, hi = (0, None) if self.rows is None else (self.rows.lo, self.rows.hi)
+        self.q_well_idx = self._q_well_whole[..., lo:hi, :].contiguous()
+        if self._phi_whole is not None:
+            self.phi_field = self._phi_whole[..., lo:hi, :]
         well = self.models.get("well_rate_bhp_model")
         if well is not None:
             well.mesh = self.mesh
+            well.set_rows(self.rows)
 
     @staticmethod
     def logical_name(optimizer_key: str) -> str:
@@ -497,11 +538,29 @@ class PhysicsLoss:
                 f"dropout rng nor a mutable batch_stats collection, which fails for these "
                 f"layers (ROADMAP C19); evaluate them with training=False outside the loss")
         s = self.dt_input_stride
+        rows = self.rows
         if name == "time_step" and s > 1:
-            x = x[..., ::s, ::s, :]
+            if rows is None:
+                x = x[..., ::s, ::s, :]
+            else:                                       # the global phase of ::s
+                rows, start = rows.strided(s)
+                x = x[..., start::s, ::s, :]
         if self.remat_forwards:
             return checkpoint(mod, x, use_reentrant=False, preserve_rng_state=False)
-        return mod(x)
+        return mod(x) if rows is None else mod(x, rows=rows)
+
+    def _dt_mean(self, f: torch.Tensor) -> torch.Tensor:
+        """Each sample's Δt: the mean of Model 2's field (B, T, [D,] H, W, 1)
+        over its cells; on a space axis the local sum over the whole
+        (strided) grid's count, summed over the space group."""
+        dims = tuple(range(1, f.dim() - 1))
+        if self.rows is None:
+            return f.mean(dim=dims, keepdim=True)
+        rows = self.rows
+        if self.dt_input_stride > 1:
+            rows = rows.strided(self.dt_input_stride)[0]
+        cells = math.prod(f.shape[1:-1]) // max(rows.count, 1) * rows.n
+        return sum_over_space(f.sum(dim=dims, keepdim=True), self.mesh) / cells
 
     def _stencil_fields(self, f: torch.Tensor) -> torch.Tensor:
         """A model field (B, 1, H, W, 1) or (B, 1, D, H, W, 1) as the
@@ -518,14 +577,14 @@ class PhysicsLoss:
         m = self.models
         vol = self._stencil_fields
         kx_c = vol(self._denorm_permx(x[..., 4:5]))                 # (B, [D,] H, W)
-        pad = pad_symmetric_3d if self.Nz > 1 else pad_symmetric
+        pad = functools.partial(pad_symmetric_3d if self.Nz > 1 else pad_symmetric,
+                                rows=self.rows)
 
-        # per-sample Δt: the spatial mean of Model 2's field
         dt0f = self._net("time_step", x)
-        tstep = dt0f.mean(dim=tuple(range(1, dt0f.dim() - 1)), keepdim=True)
+        tstep = self._dt_mean(dt0f)
         x1 = torch.cat([x[..., :3], x[..., 3:4] + self._norm_dt(tstep), x[..., 4:]], dim=-1)
         dt1f = self._net("time_step", x1)
-        tstep2 = dt1f.mean(dim=tuple(range(1, dt1f.dim() - 1)), keepdim=True)
+        tstep2 = self._dt_mean(dt1f)
         tsteps = torch.cat([tstep.reshape(-1, 1), tstep2.reshape(-1, 1)], dim=1)
 
         # pressure, saturation and PVT at n0 and n1 as one doubled-batch forward
@@ -590,7 +649,8 @@ class PhysicsLoss:
                              "dinvBg0", "dinvBo0", "dRs0", "dRv0", "krgo1p", "krog1p",
                              "qfg", "qdg", "qfo", "qvo")),
             qwell, *perm, self._phi(f["p0"]), tsteps[:, 0].reshape(shape),
-            tsteps[:, 1].reshape(shape), cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz, cfg.Swmin)
+            tsteps[:, 1].reshape(shape), cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz, cfg.Swmin,
+            self.rows)
 
     def _dg_unfused(self, *args):
         """:func:`dg_residual_from_fields` (2D) or
@@ -607,7 +667,7 @@ class PhysicsLoss:
         return fn(p0, p1, invBg0, invBg1, bgug1, dinvBg0, q, qwell, kx, *kz,
                   self._phi(p0), tsteps[:, 0].reshape(shape),
                   tsteps[:, 1].reshape(shape), self.krgo_sgi, cfg.C, cfg.D, cfg.dx, cfg.dy, cfg.dz,
-                  cfg.Sgi)
+                  cfg.Sgi, self.rows)
 
     def residuals(self, x: torch.Tensor) -> Dict[str, Any]:
         """Residual fields per phase (srm_tpu/losses/physics_loss.py:473-480,
@@ -622,6 +682,8 @@ class PhysicsLoss:
                     *args, self.stencil_cfg)
             else:
                 dom_g, dom_o, ibc, mbc_g, mbc_o, trn_g, trn_o = self._gc_unfused(*args)
+            # the blocks' partial tank balances, summed over the space group
+            mbc_g, mbc_o = sum_over_space(mbc_g, self.mesh), sum_over_space(mbc_o, self.mesh)
             if self.Nz > 1:
                 dom_g, dom_o, ibc, trn_g, trn_o = (f.reshape(shape) for f in (
                     dom_g, dom_o, ibc, trn_g, trn_o))
@@ -638,6 +700,7 @@ class PhysicsLoss:
             dom, ibc, tde, mbc = fn(*args, self.stencil_cfg)
         else:
             dom, ibc, mbc, tde = self._dg_unfused(*args)
+        mbc = sum_over_space(mbc, self.mesh)
         if self.Nz > 1:
             dom, ibc, tde = (f.reshape(shape) for f in (dom, ibc, tde))
         zeros = torch.zeros_like(dom)
@@ -652,8 +715,7 @@ class PhysicsLoss:
         (``srm_tpu/losses/physics_loss.py:1000-1008``)."""
         p0f = self._net("pressure", x)
         dt0f = self._net("time_step", x)
-        outputs = {"p_n0": p0f, "p_n1": p0f,
-                   "tstep": dt0f.mean(dim=tuple(range(1, dt0f.dim() - 1)), keepdim=True)}
+        outputs = {"p_n0": p0f, "p_n1": p0f, "tstep": self._dt_mean(dt0f)}
         if self.fluid_type == "GC":
             outputs["Sg_n0"] = clip(self._net("saturation_model", x), 0.0, self.Sgi)
         return outputs
@@ -726,6 +788,10 @@ class PhysicsLoss:
             zero = x.new_zeros(())
             res = {ph: {t: zero for t in LOSS_TERMS if t != "td"} for ph in self.phases}
         td = self._td_errors(outs, y)
+        rows = self.rows
+        # on a space axis, a per-sample term (mbc, equal on every rank of a
+        # space group after its sum) is counted on space rank 0 only
+        once = rows is not None and self.mesh.space_rank != 0
         total = x.new_zeros(())
         wsse: Dict[str, Dict[str, torch.Tensor]] = {ph: {} for ph in self.phases}
         counts: Dict[str, Dict[str, int]] = {ph: {} for ph in self.phases}
@@ -742,8 +808,13 @@ class PhysicsLoss:
                     err = res[ph][t]
                     if mixed:
                         w = w * f
+                cell = err.dim() >= 3
+                if once and not cell:
+                    w = 0.0
                 wsse[ph][t] = w * torch.sum(torch.square(err))
-                counts[ph][t] = err.numel()
+                # the whole grid's count: this block's cells over its rows
+                counts[ph][t] = (err.numel() // max(rows.count, 1) * rows.n
+                                 if rows is not None and cell else err.numel())
                 total = total + wsse[ph][t]
         return total, wsse, counts, outs
 
@@ -788,7 +859,8 @@ class PhysicsLoss:
         reference's ``per_term_grad_norms``, ``:1076-1107``). One backward
         per (phase, term), eager: a diagnostic, never part of the training
         step. A term that does not depend on a model (a zero residual, an
-        unused label) has norm 0."""
+        unused label) has norm 0. On a space axis each term's gradients are
+        summed over the space group (the whole grid's) before the norm."""
         _, aux = self.loss_and_metrics(x, y)
         names = sorted({self.logical_name(k) for k in self.trainable_models_keys})
         params = {n: list(self.models[n].parameters()) for n in names}
@@ -799,6 +871,12 @@ class PhysicsLoss:
                 term = aux[ph][t]
                 grads = (torch.autograd.grad(term, flat, retain_graph=True, allow_unused=True)
                          if term.requires_grad else [None] * len(flat))
+                if self.rows is not None:
+                    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
+                    summed = torch.cat([g.reshape(-1) for g in grads])
+                    dist.all_reduce(summed, group=self.mesh.space_group)
+                    grads = [v.view_as(p) for v, p in zip(
+                        summed.split([p.numel() for p in flat]), flat)]
                 row, i = {}, 0
                 for n in names:
                     sq = sum(float((g.double() ** 2).sum()) for g in grads[i:i + len(params[n])]

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from srm_tpu_torch.parallel.halo import conv_windows, take_rows
+
 _ACTIVATIONS = {
     "swish": F.silu, "silu": F.silu, "relu": F.relu, "tanh": torch.tanh,
     "sigmoid": torch.sigmoid, "softplus": F.softplus, "abs": torch.abs,
@@ -52,14 +54,15 @@ def resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:
 
 
 def apply_layer(layer: torch.nn.Module, x: torch.Tensor,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                dtype: Optional[torch.dtype] = None, padding=None) -> torch.Tensor:
     """A 2D or 3D (transposed) convolution, or a ``Linear`` (flax's
     ``Dense``) on the channel axis 1 of ``x``, under flax's per-layer dtype rule:
     with ``dtype`` its input, kernel and bias are cast to ``dtype`` and so is
     its result; with None it computes in the promoted type of its input and
     its parameters (float32 for float32 parameters, whatever the input).
     The parameters themselves stay as they are, so their gradients keep
-    their dtype."""
+    their dtype. ``padding`` (a convolution's, per axis) replaces the
+    layer's own."""
     dt = dtype if dtype is not None else torch.promote_types(x.dtype, layer.weight.dtype)
     w = layer.weight.to(dt)
     b = layer.bias.to(dt) if layer.bias is not None else None
@@ -72,7 +75,28 @@ def apply_layer(layer: torch.nn.Module, x: torch.Tensor,
     if isinstance(layer, torch.nn.ConvTranspose3d):
         return F.conv_transpose3d(x, w, b, layer.stride, layer.padding, layer.output_padding,
                                   layer.groups, layer.dilation)
+    if padding is not None:
+        conv = F.conv2d if isinstance(layer, torch.nn.Conv2d) else F.conv3d
+        return conv(x, w, b, layer.stride, padding, layer.dilation, layer.groups)
     return layer._conv_forward(x, w, b)
+
+
+def conv_rows(layer: torch.nn.Module, x: torch.Tensor, rows, out, dtype=None,
+              pad_lo: Optional[int] = None) -> torch.Tensor:
+    """``layer`` (a convolution, or a ``Linear``) on a space axis: this
+    rank's block of the output layout ``out`` (``parallel/halo.py``'s
+    :class:`Rows`) from ``x``, laid out as ``rows``. The input rows that the
+    block reads (``conv_windows``: the kernel, the stride and ``pad_lo``
+    zero rows before row 0, by default the layer's own padding) are fetched
+    from their owners, rows past either end of H are zero, and the layer
+    runs without padding along H (its other axes keep theirs)."""
+    if isinstance(layer, torch.nn.Linear):
+        return apply_layer(layer, take_rows(x, rows, out.blocks), dtype)
+    pad_lo = layer.padding[-2] if pad_lo is None else pad_lo
+    windows = conv_windows(out, layer.kernel_size[-2], layer.stride[-2], pad_lo)
+    padding = list(layer.padding)
+    padding[-2] = 0
+    return apply_layer(layer, take_rows(x, rows, windows), dtype, tuple(padding))
 
 
 def pad_height_width(x: torch.Tensor, size: Optional[int]) -> torch.Tensor:
@@ -84,6 +108,16 @@ def pad_height_width(x: torch.Tensor, size: Optional[int]) -> torch.Tensor:
         return x
     pad_h, pad_w = (max(int(size) - n, 0) for n in x.shape[-2:])
     return F.pad(x, (0, pad_w, 0, pad_h)) if pad_h or pad_w else x
+
+
+def pad_width_rows(x: torch.Tensor, n: int, size: Optional[int]):
+    """:func:`pad_height_width` on a space axis, where ``x`` holds some of
+    the ``n`` rows of H: the width padded here, the height by raising the
+    global row count, whose new rows past the last are read as zeros by
+    the first layer's windows. Returns (x, the padded row count)."""
+    if not size:
+        return x, n
+    return F.pad(x, (0, max(int(size) - x.shape[-1], 0))), max(int(size), n)
 
 
 def scaled_tanh_lisht(x: torch.Tensor, min_val: float = 0.1, max_val: float = 10.0,

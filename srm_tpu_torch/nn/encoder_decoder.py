@@ -67,20 +67,41 @@ False, as the reference's). The initializer is ``Kernel_Init``
 Input and output are channels-last ``(B, [T,] *spatial, C)``; with
 ``temporal`` the leading (B, T) fold into one batch axis. The layers run
 channels-first inside.
+
+On a mesh's space axis (``forward(..., rows=)``, ``parallel/halo.py``) the
+input holds this rank's rows of H and so does the output; depth and width
+stay whole. The rule, once for every layer: each level's output is laid
+out as ``Rows.level`` (``np.array_split``'s blocks, or whole on every rank
+where H has fewer rows than the space axis has ranks), and a rank computes
+its own block of it from the input rows that block reads, derived from the
+block by the layer's kernel, stride and padding (``conv_windows``,
+``deconv_windows``) and fetched from whichever ranks hold them, zeros past
+either end of H. So a level's window is never the last level's cut reused:
+the first VALID convolution (39 → 37), the pad-1 stride-2 ones
+(37 → 18 → 8 → 4), the transposed ones (4 → 9 → 19 → 39, each output row
+fed by two input rows) and the skips' centred zero pad (a re-cut of the
+encoder's level) each derive their own. What needs all of H runs whole on
+every rank, each keeping its own rows after: the resize, and a level
+thinner than the space axis. ``spatial_pad_to`` pads the width locally and
+the height as zero rows past the last one, which the first convolution's
+window reads; the crop takes the input's rows back. ``latent_flatten``
+(one Dense over the whole grid) raises ``NotImplementedError`` there
+(ROADMAP A17c).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from srm_tpu_torch.nn.common import (apply_layer, fold_time, get_activation, init_conv_,
-                                     initializer_name, network_width_list, pad_height_width,
-                                     resolve_dtype)
+from srm_tpu_torch.nn.common import (apply_layer, conv_rows, fold_time, get_activation,
+                                     init_conv_, initializer_name, network_width_list,
+                                     pad_height_width, pad_width_rows, resolve_dtype)
+from srm_tpu_torch.parallel.halo import Rows, deconv_windows, gather_rows, own_rows, take_rows
 
 
 def _skip_layers_list(residual_params: Dict) -> list:
@@ -310,13 +331,91 @@ class EncoderDecoder(nn.Module):
             skip = apply_layer(self.skip_proj[str(level)], skip, self.cdt)
         return x + skip
 
-    def forward(self, inputs: torch.Tensor, training: bool = False) -> torch.Tensor:
+    def _add_skip_rows(self, x: torch.Tensor, cur: Rows, skip: torch.Tensor, srows: Rows,
+                       level: int) -> torch.Tensor:
+        """:meth:`_add_skip` on a space axis: the centred zero pad of H is a
+        re-cut of the encoder's level (its rows shifted by the pad)."""
+        off = (cur.n - srows.n) // 2
+        skip = take_rows(skip, srows, [(a - off, b - off) for a, b in cur.blocks])
+        pads = [0, 0] * (x.dim() - 2)
+        for j, (s, t) in enumerate(reversed(list(zip(skip.shape[2:], x.shape[2:])))):
+            if j != 1:                                  # H is cut, the others padded
+                pads[2 * j:2 * j + 2] = [(t - s) // 2, (t - s) - (t - s) // 2]
+        skip = F.pad(skip, pads)
+        if str(level) in self.skip_proj:
+            skip = apply_layer(self.skip_proj[str(level)], skip, self.cdt)
+        return x + skip
+
+    def _deconv_rows(self, layer, x: torch.Tensor, cur: Rows) -> Tuple[torch.Tensor, Rows]:
+        """A transposed convolution (VALID) on a space axis: this rank's
+        block of the output from the input rows that feed it."""
+        k, s = layer.kernel_size[-2], layer.stride[-2]
+        out = Rows.level(cur.mesh, (cur.n - 1) * s + k)
+        windows = deconv_windows(out, k, s)
+        y = apply_layer(layer, take_rows(x, cur, windows), self.cdt)
+        a0 = s * windows[cur.mesh.space_rank][0]
+        return y[..., out.lo - a0:out.hi - a0, :].contiguous(), out
+
+    def _forward_rows(self, x: torch.Tensor, rows: Rows, training: bool) -> torch.Tensor:
+        """The layers on this rank's rows ``rows`` of a channels-first input
+        (the module docstring's rule); returns the same rows."""
+        if self.latent_dense is not None:
+            raise NotImplementedError(
+                "latent_flatten on a space axis: its Dense reads the whole encoded grid "
+                "(ROADMAP A17c)")
+        act, cdt, mesh = self.act, self.cdt, rows.mesh
+        true_w = x.shape[-1]
+        x, n = pad_width_rows(x, rows.n, self.spatial_pad_to)
+        target = tuple(x.shape[2:-2]) + (n, x.shape[-1])
+        self.check_spatial(target)
+        skips, cur = {}, rows
+        for i, conv in enumerate(self.enc_convs):
+            k = self._enc_kernel(i)
+            if i == 0:
+                out = Rows.level(mesh, n - k + 1)
+            else:
+                x = F.pad(x, (1, 1, 0, 0) + (1, 1) * (self.spatial_dims - 2))
+                out = Rows.level(mesh, (cur.n + 2 - k) // 2 + 1)
+            x = conv_rows(conv, x, cur, out, self.cdt_io if i == 0 else cdt, 0 if i == 0 else 1)
+            cur = out
+            if self._use_skip(i):
+                skips[i + 1] = (x, cur)                 # pre-activation
+            x = self._dropout(act(x), i, training)
+        for conv in self.enc_extra:
+            x = act(conv_rows(conv, x, cur, cur, cdt))
+        x = self._latent(x)
+        for i in range(self.depth):
+            if i == 0:
+                if self.dec_dense_start is not None:
+                    x = act(apply_layer(self.dec_dense_start, x, cdt))
+            else:
+                x, cur = self._deconv_rows(self.dec_deconvs[i - 1], x, cur)
+            level = self.depth - i
+            if level in skips:
+                x = self._add_skip_rows(x, cur, *skips[level], level)
+            x = self._dropout(act(x), level - 1, training)
+        if tuple(x.shape[2:-2]) + (cur.n, x.shape[-1]) != target:
+            whole = self._resize(gather_rows(x, cur).float(), target).to(x.dtype)
+            cur = Rows.level(mesh, target[-2])
+            x = own_rows(whole, cur)
+        for conv in self.dec_extra:
+            x = act(conv_rows(conv, x, cur, cur, cdt))
+        x = take_rows(x[..., :true_w], cur, rows.blocks)   # the input's rows, unpadded
+        return x
+
+    def forward(self, inputs: torch.Tensor, training: bool = False,
+                rows: Optional[Rows] = None) -> torch.Tensor:
+        """``rows``: on a mesh's space axis, the layout of the input's H
+        (this rank's rows; the output has the same rows)."""
         act, cdt = self.act, self.cdt
         if self.temporal:
             x, unfold = fold_time(inputs)
         else:
             x, unfold = inputs, (lambda y: y)
         x = x.movedim(-1, 1)                            # channels-last → channels-first
+        if rows is not None:
+            x = self._forward_rows(x, rows, training)
+            return unfold(self._output_chain(x).movedim(1, -1))
         true_hw = tuple(x.shape[-2:])
         x = pad_height_width(x, self.spatial_pad_to)
         target = tuple(x.shape[2:])
@@ -348,10 +447,15 @@ class EncoderDecoder(nn.Module):
             x = act(apply_layer(conv, x, cdt))
         if tuple(x.shape[-2:]) != true_hw:              # the alignment padding off
             x = x[..., :true_hw[0], :true_hw[1]]
-        x = act(apply_layer(self.dec_final_dense, x, self.cdt_io))
+        return unfold(self._output_chain(x).movedim(1, -1))
+
+    def _output_chain(self, x: torch.Tensor) -> torch.Tensor:
+        """dec_final_dense → act, dec_final_conv → out_act, output_proj
+        (1×1 layers: cell by cell), then float32."""
+        x = self.act(apply_layer(self.dec_final_dense, x, self.cdt_io))
         x = self.out_act(apply_layer(self.dec_final_conv, x, self.cdt_io))
         if self.output_proj is not None:
             x = apply_layer(self.output_proj, x, self.cdt_io)
-        if cdt is not None:
+        if self.cdt is not None:
             x = x.float()
-        return unfold(x.movedim(1, -1))
+        return x

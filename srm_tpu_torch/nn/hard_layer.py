@@ -11,6 +11,9 @@ Pi for the pressure model, Sgi for the gas-condensate saturation model,
 whose ``act`` is softplus or abs.
 ``kernel_exponent`` is a trainable per-pixel field of shape
 ``(*spatial, 1)``, clipped in the forward pass with JAX's bound gradient.
+On a mesh's space axis (``forward(..., rows=)``) each rank uses its rows
+of it (H, axis -3); the parameter stays whole and replicated, and its
+gradient is whole after the trainer's sum over the ranks.
 
 Options (the reference's ``:89-103``):
 
@@ -84,9 +87,11 @@ class HardLayer(nn.Module):
                    rectifier=config.get("rectifier"), pdew=pdew, pmin=pmin, generator=generator)
 
     def forward(self, time: torch.Tensor, prop: torch.Tensor, p_net: torch.Tensor,
-                rect_input: Optional[torch.Tensor] = None) -> torch.Tensor:
+                rect_input: Optional[torch.Tensor] = None, rows=None) -> torch.Tensor:
         a, b = self.norm_limits
         k = self.kernel_exponent
+        if rows is not None and k.dim() >= 3 and k.shape[-3] == rows.n:
+            k = k[..., rows.lo:rows.hi, :, :]
         kexp = torch.minimum(torch.maximum(k, k.new_full((), self.exponent_min)),
                              k.new_full((), self.exponent_max))
         kexp = self.kernel_activation(kexp)

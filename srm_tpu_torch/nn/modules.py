@@ -56,16 +56,20 @@ class CompleteTrainableModule(nn.Module):
         self.hard_enforcement_only = hard_enforcement_only
 
     def forward(self, inputs: torch.Tensor, rectifier_input: Optional[torch.Tensor] = None,
-                training: bool = False) -> torch.Tensor:
+                training: bool = False, rows=None) -> torch.Tensor:
+        """``rows``: on a mesh's space axis, the layout of the input's H
+        (``parallel/halo.py``); the network and the HardLayer's per-cell
+        exponent take this rank's rows."""
         if self.hard_enforcement_only:
             net_out = inputs[..., -2:].mean(dim=-1, keepdim=True)
         else:
-            net_out = self.network(inputs, training=training)
+            extra = {} if rows is None else {"rows": rows}
+            net_out = self.network(inputs, training=training, **extra)
             if self.hard_layer is None:
                 return net_out
         t = inputs[..., slice(*self.time_slice)]
         prop = inputs[..., slice(*self.property_slice)]
-        return self.hard_layer(t, prop, net_out, rect_input=rectifier_input)
+        return self.hard_layer(t, prop, net_out, rect_input=rectifier_input, rows=rows)
 
 
 class PVTModuleWithHardLayer(nn.Module):

@@ -49,6 +49,14 @@ the plain head's output is cast to float32 (``:192-193``).
 ``spatial_pad_to`` (the reference's ``:133-158``, ``cnn`` and ``cnn3d``
 only) zero-pads the height and width at their ends up to that size before
 the blocks and crops the padding off after them, before the head.
+
+On a mesh's space axis (``forward(..., rows=)``, ``parallel/halo.py``) the
+input and the output hold this rank's rows of H: each SAME convolution
+computes the rank's rows from them and one fetched row of each neighbour
+(``nn.common.conv_rows``), and the pooled heads (the distribution head's
+global average pool) sum over the space group. The VAE head, whose noise
+every rank of a space group would have to share, raises
+``NotImplementedError`` there (ROADMAP A17c).
 """
 
 from __future__ import annotations
@@ -59,8 +67,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from srm_tpu_torch.nn.common import (apply_layer, fold_time, get_activation, init_conv_,
-                                     initializer_name, pad_height_width, resolve_dtype)
+from srm_tpu_torch.nn.common import (apply_layer, conv_rows, fold_time, get_activation,
+                                     init_conv_, initializer_name, pad_height_width,
+                                     pad_width_rows, resolve_dtype)
+from srm_tpu_torch.parallel.halo import Rows, sum_over_space, take_rows
 
 
 _CONV = {"cnn": nn.Conv2d, "cnn3d": nn.Conv3d}
@@ -122,17 +132,26 @@ class ResidualBlock(nn.Module):
         self.bn2 = BatchNorm(filters) if bn else None
         self.bn_proj = BatchNorm(filters) if bn and self.proj is not None else None
 
-    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False, rows: Optional[Rows] = None,
+                out: Optional[Rows] = None) -> torch.Tensor:
+        """``rows``: on a space axis, the layout of ``x``'s H, and ``out``
+        the output's (None: the same)."""
         def norm(bn, y):
             return y if bn is None else bn(y, training)
 
-        y = self.act(norm(self.bn1, apply_layer(self.layer1, x, self.cdt)))
+        def layer(conv, y, src):
+            if rows is None:
+                return apply_layer(conv, y, self.cdt)
+            return conv_rows(conv, y, src, out, self.cdt)
+
+        out = out if out is not None else rows
+        y = self.act(norm(self.bn1, layer(self.layer1, x, rows)))
         if self.dropout_rate > 0:
             y = F.dropout(y, self.dropout_rate, training=training)
-        y = norm(self.bn2, apply_layer(self.layer2, y, self.cdt))
-        shortcut = x
+        y = norm(self.bn2, layer(self.layer2, y, out))
+        shortcut = x if rows is None else take_rows(x, rows, out.blocks)
         if self.proj is not None:
-            shortcut = norm(self.bn_proj, apply_layer(self.proj, x, self.cdt))
+            shortcut = norm(self.bn_proj, apply_layer(self.proj, shortcut, self.cdt))
         return self.act(y + shortcut)
 
 
@@ -205,28 +224,54 @@ class ResidualNetwork(nn.Module):
                    number_of_output_bins=config.get("number_of_output_bins", 50),
                    temporal=config.get("temporal", False))
 
+    def _blocks_rows(self, x: torch.Tensor, rows: Rows, training: bool) -> torch.Tensor:
+        """The blocks on this rank's rows of a channels-first input (the
+        width padded locally, the height as zero rows past the last, which
+        the first block's windows read), cropped back to the input's rows."""
+        if self.latent_output and self.include_output_layer:
+            raise NotImplementedError(
+                "the VAE head on a space axis: every rank of a space group would have to draw "
+                "the same noise (ROADMAP A17c)")
+        true_w = x.shape[-1]
+        x, n = pad_width_rows(x, rows.n, self.spatial_pad_to)
+        cur = rows if n == rows.n else Rows.split(rows.mesh, n)
+        for i, block in enumerate(self.blocks):
+            x = block(x, training, rows if i == 0 else cur, cur)
+        return take_rows(x[..., :true_w], cur, rows.blocks)
+
     def forward(self, inputs: torch.Tensor, training: bool = False,
                 eps: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Rows] = None) -> torch.Tensor:
         """``eps`` (or ``generator``, to draw it) is the VAE head's noise of
-        shape (B·T, output_filters); the other heads take neither."""
+        shape (B·T, output_filters); the other heads take neither.
+        ``rows``: on a mesh's space axis, the layout of the input's H (this
+        rank's rows; the output has the same rows)."""
         if self.temporal:
             x, unfold = fold_time(inputs)
         else:
             x, unfold = inputs, (lambda y: y)
         x = x.movedim(-1, 1)                            # channels-last → channels-first
-        true_hw = tuple(x.shape[-2:])
-        x = pad_height_width(x, self.spatial_pad_to)
-        for block in self.blocks:
-            x = block(x, training)
-        if tuple(x.shape[-2:]) != true_hw:              # the alignment padding off
-            x = x[..., :true_hw[0], :true_hw[1]]
+        if rows is not None:
+            x = self._blocks_rows(x, rows, training)
+        else:
+            true_hw = tuple(x.shape[-2:])
+            x = pad_height_width(x, self.spatial_pad_to)
+            for block in self.blocks:
+                x = block(x, training)
+            if tuple(x.shape[-2:]) != true_hw:          # the alignment padding off
+                x = x[..., :true_hw[0], :true_hw[1]]
         if not self.include_output_layer:
             return unfold(x.movedim(1, -1))
         spatial = tuple(range(2, x.dim()))
         ones = (1,) * len(spatial)
         if self.output_distribution:
-            logits = apply_layer(self.timestep_dense, x.mean(dim=spatial))
+            if rows is None:
+                pooled = x.mean(dim=spatial)
+            else:                                       # the whole grid's mean
+                cells = rows.n * x[0, 0].numel() // max(rows.count, 1)
+                pooled = sum_over_space(x.sum(dim=spatial), rows.mesh) / cells
+            logits = apply_layer(self.timestep_dense, pooled)
             probs = torch.softmax(logits, dim=-1)
             return unfold(probs.reshape((probs.shape[0],) + ones + (probs.shape[-1],)))
         if self.latent_output:

@@ -8,14 +8,22 @@ reference's operation order, so the plain stencils in
 
 Convention: i indexes the last axis (x / width), j the second-to-last
 (y / height), k the third-from-last (z / depth).
+
+On a mesh's space axis (``parallel/halo.py``) a field holds its rank's
+rows of H: :func:`pad_symmetric` and :func:`pad_symmetric_3d` given the
+field's ``rows`` then take the neighbours' rows at a block's interior edges
+(a halo exchange of one row each way) and the symmetric ghost rows only at
+the domain's first and last rows.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from srm_tpu_torch.parallel.halo import Rows, exchange_rows
 
 
 class _EdgePad(torch.autograd.Function):
@@ -50,13 +58,28 @@ class _EdgePad(torch.autograd.Function):
         return g, None
 
 
-def pad_symmetric(f: torch.Tensor) -> torch.Tensor:
+def _pad(f: torch.Tensor, dims: int, rows: Optional[Rows]) -> torch.Tensor:
+    """:class:`_EdgePad` of the last ``dims`` axes; on a space axis the H
+    ghost rows (axis -2) of a block's interior edges are replaced by the
+    neighbours' rows, each padded along the other axes as its owner pads
+    it (the edge repeat of a row is a row of the whole grid's pad)."""
+    padded = _EdgePad.apply(f, dims)
+    if rows is None or rows.is_whole:
+        return padded
+    core = exchange_rows(padded[..., 1:-1, :], rows, 1, 1)
+    first = padded[..., :1, :] if rows.lo == 0 else core[..., :1, :]
+    last = padded[..., -1:, :] if rows.hi == rows.n else core[..., -1:, :]
+    return torch.cat([first, core[..., 1:-1, :], last], dim=-2)
+
+
+def pad_symmetric(f: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
     """One ghost cell on each side of the last two axes.
 
     A width-1 ``jnp.pad(mode="symmetric")`` repeats the edge cell, which is
     torch's ``replicate`` mode (not ``reflect``); the gradient folds the
-    halo back in a fixed order (:class:`_EdgePad`)."""
-    return _EdgePad.apply(f, 2)
+    halo back in a fixed order (:class:`_EdgePad`). ``rows``: the field's
+    rows of H on a space axis (their halos come from the neighbours)."""
+    return _pad(f, 2, rows)
 
 
 class Neighbors(NamedTuple):
@@ -115,12 +138,12 @@ def five_point_divergence(a_ih, a_i_h, a_jh, a_j_h, p: Neighbors, q_over_dv, dv)
 # ---------------------------------------------------------------------------
 # 3D (7-point), srm_tpu/ops/stencil.py:97-160
 # ---------------------------------------------------------------------------
-def pad_symmetric_3d(f: torch.Tensor) -> torch.Tensor:
+def pad_symmetric_3d(f: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
     """One ghost cell on each side of the last three axes (edge repeat, as
-    :func:`pad_symmetric`). ``replicate`` on a 4D tensor would read it as
-    an unbatched (C, D, H, W) volume; :class:`_EdgePad` flattens the
-    volumes to (N, 1, D, H, W) explicitly."""
-    return _EdgePad.apply(f, 3)
+    :func:`pad_symmetric`, ``rows`` likewise). ``replicate`` on a 4D tensor
+    would read it as an unbatched (C, D, H, W) volume; :class:`_EdgePad`
+    flattens the volumes to (N, 1, D, H, W) explicitly."""
+    return _pad(f, 3, rows)
 
 
 class Neighbors3D(NamedTuple):

@@ -39,6 +39,13 @@ files hold the whole batch, as the JAX package's ``jax.debug.callback``
 receives its mesh's global arrays once: each rank's block is gathered and
 rank 0 writes. The JAX package also passes its active-trip count (``jnp.any``
 over the batch) to the logger, which never writes it; the port computes none.
+
+On a mesh's space axis (:meth:`WellRatesPressure.set_rows`) the well
+grids, and the connections whose shut-in windows the mask reads, are this
+rank's rows of H: a rank that holds no row of a well computes nothing for
+it. Every solve (the direct and the Newton BHP, the blocking integral) is
+cell by cell, so it needs nothing else. The iteration logs there raise
+``NotImplementedError`` (ROADMAP A17c).
 """
 
 from __future__ import annotations
@@ -242,12 +249,15 @@ class WellRatesPressure:
         def grid(values):
             return torch.from_numpy(scatter_to_grid(shp, conn, values)).to(device)
 
-        self.well_id = grid(1.0)
-        self.rw = grid(self.well_data["wellbore_radius"])
-        self.q0 = grid(self.well_data["control_mode_value"])
-        self.pwf_min = grid(self.well_data["minimum_bhp"])
-        self.completion_ratio = grid(self.well_data["completion_ratio"])
-        self.shutin_windows = torch.from_numpy(self.well_data["shutin_days"]).to(device)
+        #: the well grids over the whole H; :meth:`set_rows` takes this
+        #: rank's rows of them
+        self._grids = {"well_id": grid(1.0), "rw": grid(self.well_data["wellbore_radius"]),
+                       "q0": grid(self.well_data["control_mode_value"]),
+                       "pwf_min": grid(self.well_data["minimum_bhp"]),
+                       "completion_ratio": grid(self.well_data["completion_ratio"])}
+        self._shutin_all = torch.from_numpy(self.well_data["shutin_days"]).to(device)
+        self.rows = None
+        self.set_rows(None)
 
         self.relperm = RelativePermeability.from_config(scal["end_points"],
                                                         scal["corey_exponents"])
@@ -266,6 +276,25 @@ class WellRatesPressure:
         self.t_row = torch.from_numpy(ds.table_np[self.t_idx]).to(device)
         self.k_row = torch.from_numpy(ds.table_np[self.k_idx]).to(device)
         self.t_is_log, self.k_is_log = ds.is_log("time"), ds.is_log("permx")
+
+    def set_rows(self, rows) -> None:
+        """This rank's rows of H (a ``parallel/halo.py`` ``Rows``, H being
+        axis -3 of the well grids), or the whole grid with None: the well
+        grids and the connections (their row index made local) with their
+        shut-in windows."""
+        if rows is not None and self.log_iterations:
+            raise NotImplementedError(
+                "log_iterations on a space axis: the histories are per cell, and gathering "
+                "them over the space group is not ported (ROADMAP A17c)")
+        self.rows = rows
+        lo, hi = (0, None) if rows is None else (rows.lo, rows.hi)
+        for name, g in self._grids.items():
+            setattr(self, name, g[..., lo:hi, :, :])
+        conn = np.asarray(self.well_data["connection_index"])
+        keep = np.ones(len(conn), bool) if rows is None else (conn[:, 1] >= lo) & (conn[:, 1] < hi)
+        self.local_connections = conn[keep] - np.array([0, lo, 0])
+        self.shutin_windows = self._shutin_all[torch.from_numpy(np.flatnonzero(keep)).to(
+            self._shutin_all.device)] if not keep.all() else self._shutin_all
 
     # -- properties and mobilities -----------------------------------------------
     def _props(self, pvt: torch.Tensor):
@@ -427,9 +456,9 @@ class WellRatesPressure:
                            is_log=self.t_is_log, **self.norm)
         kx_n1 = denormalize(x_n1[..., self.k_idx: self.k_idx + 1], self.k_row,
                             is_log=self.k_is_log, **self.norm)
-        shutins_id = conn_shutins_mask(t_n1, self.well_data["connection_index"],
-                                       self.shutin_windows,
-                                       time_axis=max(t_n1.ndim - 5, 0))
+        shutins_id = (conn_shutins_mask(t_n1, self.local_connections, self.shutin_windows,
+                                        time_axis=max(t_n1.ndim - 5, 0))
+                      if len(self.local_connections) else torch.zeros_like(t_n1))
 
         ky_n1 = self.kx_ky * kx_n1
         ro = 0.28 * torch.sqrt(torch.sqrt(ky_n1 / kx_n1) * self.dx**2

@@ -50,6 +50,17 @@ the gradients and the metrics' sums over the ranks in one all-reduce,
 inside the step's graph on NCCL (:class:`Trainer`); ``train_epoch`` and
 ``eval_epoch`` are the JAX trainer's host-batched epochs, sharding batch
 axis 1.
+
+**Space axis.** On ``make_mesh(n, spatial=k)`` (the JAX trainer's
+``Trainer(mesh=make_mesh(n, spatial=k))``) each rank also holds only its
+rows of H of every staged dataset and batch (axis 2 of a 2D sample
+``(B, 1, H, W[, C])``, 3 of a 3D one ``(B, 1, D, H, W[, C])``, in
+``np.array_split``'s blocks) and the loss evaluates them with
+halo exchanges (``losses/physics_loss.py``, ``parallel/halo.py``). The
+step's one all-reduce still runs over every rank of data × space, so the
+gradients are the whole grid's and the whole batch's. On NCCL the halo
+exchanges are captured in the train and eval graphs with the all-reduce;
+a gloo group with a graph raises, as without a space axis.
 """
 
 from __future__ import annotations
@@ -65,7 +76,7 @@ import torch.distributed as dist
 from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG, get_optimizer_config
 from srm_tpu_torch.data.batching import collapse_groups
 from srm_tpu_torch.kernels import stencil as st
-from srm_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate, shard_batch
+from srm_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate
 from srm_tpu_torch.training.optimizers import build_optimizer_from_config
 
 log = logging.getLogger(__name__)
@@ -124,7 +135,11 @@ class Trainer:
     reduces its metrics the same way. On the card the collective is
     captured in the step's graph; that needs NCCL (a gloo group with a
     graph raises), and the eager warm-up steps run it first. Weights and
-    optimizer state are broadcast from rank 0 once, here."""
+    optimizer state are broadcast from rank 0 once, here. On a space axis
+    (``make_mesh(n, spatial=k)``) each rank holds and steps on its rows of
+    H as well; the metrics' counts are the whole grid's, and the Δt mean,
+    equal on every rank of a space group, enters the buffer once per
+    group."""
 
     #: eager steps of each kind before its capture (PyTorch's recipe: a few
     #: on a side stream, so that autograd, cuBLAS and cuDNN set up outside it)
@@ -143,8 +158,9 @@ class Trainer:
         self.cuda_graph = on_cuda if cuda_graph is None else bool(cuda_graph)
         distributed = self.mesh.group is not None
         if self.cuda_graph and distributed and self.mesh.backend != "nccl":
-            raise ValueError(f"a CUDA graph captures the gradient all-reduce on NCCL only, the "
-                             f"mesh's group is {self.mesh.backend}: pass cuda_graph=False")
+            raise ValueError(f"a CUDA graph captures the gradient all-reduce and the halo "
+                             f"exchanges on NCCL only (gloo stages them through the host), "
+                             f"the mesh's group is {self.mesh.backend}: pass cuda_graph=False")
         self.generator = torch.Generator().manual_seed(int(seed))
         self.optimizer_keys = list(loss_fn.trainable_models_keys)
         self.optimizers = {}
@@ -210,8 +226,9 @@ class Trainer:
         whatever its count), the summed total, and the Δt mean as the sum of
         each rank's mean times its share of the rows (times 1.0 on one rank:
         bitwise the mean)."""
-        sums = [wsse[ph][t] for ph, t in self._terms] + [
-            total, outs["tstep"].mean() * (s.rows / s.batch)]
+        # Δt is equal on every rank of a space group: its share once per group
+        share = s.rows / s.batch if self.mesh.space_rank == 0 else 0.0
+        sums = [wsse[ph][t] for ph, t in self._terms] + [total, outs["tstep"].mean() * share]
         stats = buf[buf.numel() - len(sums):]
         stats.copy_(torch.stack([v.detach().reshape(()) for v in sums]))
         if self.mesh.group is not None:
@@ -294,11 +311,27 @@ class Trainer:
     def _block(self, bs: int):
         """This rank's rows [lo, hi) of a batch of ``bs``, logged once per
         batch size where the split is uneven."""
-        if bs % self.mesh.size:
+        if bs % self.mesh.data_size:
             log.warning("a batch of %d rows over %d ranks gives blocks of %s rows: the ranks "
                         "with fewer rows idle part of each step; make the batch a multiple of "
-                        "the data-axis size", bs, self.mesh.size, self.mesh.block_sizes(bs))
+                        "the data-axis size", bs, self.mesh.data_size, self.mesh.block_sizes(bs))
         return self.mesh.block(bs)
+
+    @property
+    def _h_axis(self) -> int:
+        """H's axis in a batch of samples: (B, 1, H, W[, C]) in 2D,
+        (B, 1, D, H, W[, C]) in 3D."""
+        return 3 if self.loss_fn.Nz > 1 else 2
+
+    def _own_rows(self, a, lead: int = 0):
+        """This rank's rows of H of a batch of samples (features or
+        labels; ``lead`` axes before the batch axis), the whole without a
+        space axis: the one place where the trainer splits H."""
+        ax = self._h_axis + lead
+        if self.mesh.space_size <= 1 or a.ndim < ax + 2:
+            return a
+        lo, hi = self.mesh.rows(a.shape[ax])
+        return a[(slice(None),) * ax + (slice(lo, hi),)]
 
     def _host_metrics(self, s: _StepState, n: int) -> Dict[str, np.ndarray]:
         """The first n rows of the per-step metrics → host arrays, one copy
@@ -312,14 +345,16 @@ class Trainer:
         key = (kind, "_direct", bs)
         s = self._states.get(key)
         lo, hi = self.mesh.block(bs) if s is not None else self._block(bs)
+        x = self._own_rows(x[lo:hi])
+        y = {k: self._own_rows(v[lo:hi]) for k, v in y.items()}
         if s is None:
-            src_x = torch.empty_like(x[lo:hi], device=self.device)
-            src_y = {k: torch.empty_like(v[lo:hi], device=self.device) for k, v in y.items()}
+            src_x = torch.empty_like(x, device=self.device)
+            src_y = {k: torch.empty_like(v, device=self.device) for k, v in y.items()}
             s = self._states[key] = _StepState(src_x, src_y, bs, hi - lo, 1,
                                                len(self.metric_names))
-        s.x_all.copy_(x[lo:hi])
+        s.x_all.copy_(x)
         for k, v in y.items():
-            s.y_all[k].copy_(v[lo:hi])
+            s.y_all[k].copy_(v)
         s.row.zero_()
         self._run(kind, s)
         return dict(zip(self.metric_names, s.metrics[0].clone().unbind()))
@@ -336,12 +371,15 @@ class Trainer:
 
     def _epoch(self, kind: str, x_batches, y_batches) -> Dict[str, np.ndarray]:
         """Every batch of ``(num_batches, B, ...)`` host arrays: this rank's
-        block of batch axis 1 (``shard_batch``) copied to the device once,
-        then one step per batch; the per-step metrics on the host."""
-        xs = shard_batch(torch.as_tensor(np.asarray(x_batches)), self.mesh, batch_axis=1)
-        ys = {k: shard_batch(torch.as_tensor(np.asarray(v)), self.mesh, batch_axis=1)
+        block of batch axis 1 (as ``shard_batch`` lays it out) and its rows
+        of H copied to the device once, then one step per batch; the
+        per-step metrics on the host."""
+        bs = np.shape(x_batches)[1]
+        lo, hi = self._block(bs)
+        xs = self._own_rows(torch.as_tensor(np.asarray(x_batches))[:, lo:hi], lead=1)
+        ys = {k: self._own_rows(torch.as_tensor(np.asarray(v))[:, lo:hi], lead=1)
               for k, v in y_batches.items()}
-        nb, bs, rows = xs.shape[0], np.shape(x_batches)[1], xs.shape[1]
+        nb, rows = xs.shape[0], hi - lo
         x = xs.reshape((nb * rows,) + tuple(xs.shape[2:])).to(self.device)
         y = {k: v.reshape((nb * rows,) + tuple(v.shape[2:])).to(self.device)
              for k, v in ys.items()}
@@ -371,8 +409,9 @@ class Trainer:
 
     # -- device-resident datasets -------------------------------------------
     def stage_dataset(self, name: str, groups, batch_size: int):
-        """Collapse (K, T) groups and copy them to the device once.
-        Returns (num_batches, num_samples)."""
+        """Collapse (K, T) groups and copy them to the device once (on a
+        space axis, this rank's rows of H of them). Returns (num_batches,
+        num_samples)."""
         self._states = {k: v for k, v in self._states.items() if k[1] != name}
         if not groups or groups[0][0].shape[0] == 0:
             self._resident[name] = None
@@ -386,8 +425,9 @@ class Trainer:
             log.warning("stage_dataset[%s]: batch %d > N=%d — clamping the batch to the "
                         "dataset size", name, batch_size, n)
             batch_size = n
-        x = torch.from_numpy(x_np).to(self.device)
-        y = {k: torch.from_numpy(v).to(self.device) for k, v in y_np.items()}
+        x = torch.from_numpy(np.ascontiguousarray(self._own_rows(x_np))).to(self.device)
+        y = {k: torch.from_numpy(np.ascontiguousarray(self._own_rows(v))).to(self.device)
+             for k, v in y_np.items()}
         nb = n // batch_size
         if n - nb * batch_size:
             log.info("stage_dataset[%s]: N=%d is not divisible by B=%d — %d samples per "

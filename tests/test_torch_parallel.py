@@ -169,15 +169,19 @@ def test_shard_batch_splits_an_uneven_batch_as_array_split():
 
 def test_make_mesh_without_a_group_and_the_space_axis():
     """Without a process group the mesh is this process alone (no group,
-    no collective); the space axis is A17b and raises, as does asking for
-    more ranks than a group has."""
+    no collective); a space axis, like more ranks than one, needs a group
+    started by torchrun and raises without one; a device count that the
+    space axis does not divide raises as the JAX package's does."""
     mesh = make_mesh()
     assert (mesh.size, mesh.rank, mesh.group) == (1, 0, None)
     assert jax_make_mesh(4).axis_names == (mesh.axis_name,)
-    with pytest.raises(NotImplementedError, match="A17b"):
+    with pytest.raises(ValueError, match="torchrun"):
         make_mesh(2, spatial=2)
     with pytest.raises(ValueError, match="torchrun"):
         make_mesh(4)
+    for make in (make_mesh, jax_make_mesh):
+        with pytest.raises(ValueError, match="not divisible by spatial=2"):
+            make(3, spatial=2)
 
 
 def test_a_one_rank_group_is_bitwise_one_process(dg):

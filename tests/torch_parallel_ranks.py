@@ -13,6 +13,7 @@ Imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import sys
@@ -24,6 +25,8 @@ import torch.distributed as dist
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from srm_tpu_torch.config import (DEFAULT_GENERAL_CONFIG,  # noqa: E402
+                                  apply_production_overrides)
 from srm_tpu_torch.data.batching import collapse_groups  # noqa: E402
 from srm_tpu_torch.examples.common import setup_case  # noqa: E402
 from srm_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
@@ -31,12 +34,23 @@ from srm_tpu_torch.training.trainer import Trainer, train_combined_models_unifie
 
 
 def _case(spec):
-    """The spec's case on the CPU: its weights loaded (a file of state
-    dicts by model name), its loss attributes set, in float64 if asked."""
+    """The spec's case on the CPU (with ``production``, the production
+    preset; ``config``, settings over the default general config; with
+    ``nz``, the 3D case of uncorrelated fields): its weights
+    loaded (a file of state dicts by model name), its loss attributes set,
+    in float64 if asked."""
+    g = spec.get("general_config")
+    if spec.get("production"):
+        # the production preset, made here: its config's int keys do not
+        # survive the spec's JSON
+        g = apply_production_overrides(DEFAULT_GENERAL_CONFIG)
+    if spec.get("config"):
+        # settings over the default config, for the same reason
+        g = {**copy.deepcopy(g or DEFAULT_GENERAL_CONFIG), **spec["config"]}
     case = setup_case(spec["fluid"], base_dir=spec["base_dir"], nx=spec["nx"],
-                      n_realizations=spec["realizations"],
-                      general_config=spec.get("general_config"),
-                      well_solver_kwargs=spec.get("well_solver_kwargs"), device="cpu")
+                      n_realizations=spec["realizations"], general_config=g,
+                      well_solver_kwargs=spec.get("well_solver_kwargs"), device="cpu",
+                      nz=spec.get("nz"), kle_method="uncorrelated" if spec.get("nz") else None)
     if spec.get("weights"):
         for name, sd in torch.load(spec["weights"], weights_only=True).items():
             case["models"][name].load_state_dict(sd)
@@ -47,6 +61,11 @@ def _case(spec):
             if name in case["models"]:
                 case["models"][name].double()
     return case
+
+
+def _mesh(spec):
+    """The spec's mesh: ``spatial`` (default 1) ranks of each space group."""
+    return make_mesh(spatial=spec.get("spatial", 1))
 
 
 def _weights(trainer):
@@ -60,7 +79,7 @@ def step(spec):
     the metrics, the gradients summed over the ranks, the updated weights
     and the well model's log directory, if any."""
     case = _case(spec)
-    trainer = Trainer(case["loss_fn"])
+    trainer = Trainer(case["loss_fn"], mesh=_mesh(spec))
     dtype = torch.float64 if spec.get("float64") else torch.float32
     if spec.get("batch"):
         with np.load(spec["batch"]) as z:
@@ -84,7 +103,7 @@ def epochs(spec):
     float64 with a float64 case): each one's per-step metrics, and the
     weights after all."""
     case = _case(spec)
-    trainer = Trainer(case["loss_fn"], seed=3)
+    trainer = Trainer(case["loss_fn"], seed=3, mesh=_mesh(spec))
     trainer.stage_dataset("train", case["train_groups"], spec["batch_size"])
     x_all, y_all, nb, bs = trainer._resident["train"]
     if spec.get("float64"):
@@ -92,11 +111,79 @@ def epochs(spec):
         trainer._resident["train"] = (x_all, y_all, nb, bs)
     nb = min(nb, spec.get("steps", nb))
     out = {"resident": [trainer.train_epoch_resident("train", steps=nb) for _ in range(2)]}
-    xs = x_all[:nb * bs].reshape((nb, bs) + tuple(x_all.shape[1:]))
-    ys = {k: v[:nb * bs].reshape((nb, bs) + tuple(v.shape[1:])) for k, v in y_all.items()}
+    # the host epochs take the whole batches (each rank its block of them)
+    x_np, y_np = collapse_groups(case["train_groups"])
+    dtype = x_all.dtype
+    xs = torch.from_numpy(x_np[:nb * bs]).to(dtype).reshape((nb, bs) + x_np.shape[1:])
+    ys = {k: torch.from_numpy(v[:nb * bs]).to(dtype).reshape((nb, bs) + v.shape[1:])
+          for k, v in y_np.items()}
     out["host"] = trainer.train_epoch(xs, ys)
     out["eval"] = trainer.eval_epoch(xs, ys)
     out["weights"] = _weights(trainer)
+    return out
+
+
+def nets(spec):
+    """The networks of ``spec["file"]`` (``torch.save``d cases: a model of
+    the model map, its sample shape, its state dict, an input batch and an
+    output cotangent, in float64) on this rank's rows of H, over a space
+    axis of ``spatial`` ranks: each case's output rows, input-gradient rows
+    and parameter gradients (this rank's part of their sum)."""
+    from srm_tpu_torch.nn.modules import build_pressure_model, build_time_step_model
+    from srm_tpu_torch.parallel.halo import Rows
+    mesh = _mesh(spec)
+    out = []
+    for c in torch.load(spec["file"], weights_only=False):
+        shape = tuple(c["sample_shape"])
+        res = {"Nz": shape[1] if len(shape) == 5 else 1, "initialization": {"Pi": 5000.0}}
+        g = {"maximum_srm_timestep": 10.0, **c.get("general_config", {})}
+        build = build_pressure_model if c["model"] == "pressure" else build_time_step_model
+        model = (build(shape, g, res) if c["model"] == "pressure" else build(shape, g)).double()
+        model.load_state_dict(c["state"])
+        h = c["x"].dim() - 3
+        rows = Rows.split(mesh, c["x"].shape[h])
+        sl = (slice(None),) * h + (slice(rows.lo, rows.hi),)
+        x = c["x"][sl].clone().requires_grad_()
+        y = model(x, rows=rows)
+        (y * c["w"][sl]).sum().backward()
+        out.append({"rows": (rows.lo, rows.hi), "y": y.detach(), "gx": x.grad,
+                    "gp": [p.grad for p in model.parameters()]})
+    return out
+
+
+def pads(spec):
+    """The ghost-cell pads of ``spec["file"]``'s fields (a (B, H, W) or
+    (B, D, H, W) float64 field ``f`` and five per-cell weight fields ``w``)
+    on this rank's rows of H over a space axis of ``spatial`` ranks: each
+    field's padded block, the 5-point combination of it that the test takes
+    of ``jnp.pad`` on the whole grid, and the gradient of its sum, twice."""
+    from srm_tpu_torch.ops.stencil import pad_symmetric, pad_symmetric_3d
+    from srm_tpu_torch.parallel.halo import Rows
+    mesh = _mesh(spec)
+    out = []
+    for c in torch.load(spec["file"], weights_only=False):
+        f, w = c["f"], c["w"]
+        rows = Rows.split(mesh, f.shape[-2])
+        f, w = f[..., rows.lo:rows.hi, :], w[..., rows.lo:rows.hi, :]
+        pad = pad_symmetric_3d if f.dim() == 4 else pad_symmetric
+        inner = (slice(1, -1),) * (f.dim() - 3)
+
+        def cells(p):
+            def at(dj, di):
+                return p[(slice(None),) + inner + (slice(1 + dj, p.shape[-2] - 1 + dj),
+                                                  slice(1 + di, p.shape[-1] - 1 + di))]
+            return (at(0, 0) * w[0] + at(1, 0) * w[1] + at(-1, 0) * w[2] + at(0, 1) * w[3]
+                    + at(0, -1) * w[4])
+
+        grads = []
+        for _ in range(2):
+            x = f.clone().requires_grad_()
+            padded = pad(x, rows)
+            y = cells(padded)
+            y.sum().backward()
+            grads.append(x.grad)
+        out.append({"rows": (rows.lo, rows.hi), "padded": padded.detach(),
+                    "cells": y.detach(), "grad": grads[0], "grad_again": grads[1]})
     return out
 
 
