@@ -162,7 +162,9 @@ the process exits non-zero:
     (each loss evaluation the kernel, each step its backward kernel,
     nothing else), the loss finite, and the steps/s of one more epoch.
     Then the tools: ``mfu_probe`` (``base`` and ``bf16`` at batch 32, one
-    JSON line each, 0 < mfu < 1), ``flops_breakdown`` (DG 3D production at
+    JSON line each, 0 < mfu < 1; ``probe_two_nets`` on GC 2D's pair at
+    batch 32, sequential and stacked by turns, their gradients within
+    OPTIONS_GRAD_REL of each other), ``flops_breakdown`` (DG 3D production at
     batch 32, its total) and ``sg_head_probe.probe`` for one epoch on the
     drawdown phase's trained case (B3 and its backward at every step, every
     key of its report finite).
@@ -191,14 +193,20 @@ the process exits non-zero:
     gloo ranks on the one card as ``make_mesh(2, spatial=2)``: each rank
     the whole batch of 32 and its 20 or 19 rows of the 39 of H, the halos
     staged through the host, eager, from one set of initial weights;
-    DG 2D at 39×39, 20 realizations, one epoch, and one GC 2D step. Against
+    DG 2D at 39×39, 20 realizations, one epoch, one DG 2D step with
+    ``remat_forwards`` (the halo exchanges repeated in the backward's
+    recompute) and one GC 2D step. Against
     one eager rank on the same batches: the first step's total within
     DP_FIRST_RTOL and its gradients, summed over the ranks, within
     ``tools/data_parallel.py``'s SPACE_GRAD_RTOL per model but DG's Δt net
     (C2); every step's total within SP_LOSS_RTOL and each model's update
     within DP_UPDATE_RTOL; the ranks' weights bitwise equal; B1 (B3) and
     its backward at every step on both ranks' blocks; ``cuda_graph=True``
-    on that group raising.
+    on that group raising. After the remat step the same two ranks run one
+    dg2d_newton_bhp step with ``log_iterations`` (rank 0's one file
+    against one rank's, SP_LOG_RTOL) and the full-width ``latent_flatten``
+    encoder–decoder and VAE residual net's forwards on their rows against
+    the whole grid (OPTIONS_RTOL).
 
 The line before the last is a JSON object describing each kernel (its
 numbers at batch 32, under ``at_b128`` those at batch 128, under
@@ -208,8 +216,9 @@ configurations' shape, its launches on its f32 main path and, under
 solver's paths, the example drivers' ``example_dg`` and ``example_gc``,
 ``sg_head_probe``, the data-parallel phase's ``dp_nccl_world1``,
 ``dp_gloo_rank0`` and ``dp_gloo_rank1`` and the space axis's
-``sp_gloo_rank0``, ``sp_gloo_rank1``, ``sp_gloo_gc_rank0`` and
-``sp_gloo_gc_rank1`` among them); the last line is
+``sp_gloo_rank0``, ``sp_gloo_rank1``, ``sp_gloo_remat_rank0``,
+``sp_gloo_remat_rank1``, ``sp_gloo_gc_rank0`` and ``sp_gloo_gc_rank1``
+among them); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1967,15 +1976,31 @@ def _replayed_iteration_logs(case, log_dir: str, steps: int = 6) -> None:
     graphed trainer of a copy of its loss (the well model logging into
     ``log_dir``) runs ``steps`` steps, 3 eager then replays; each step
     writes one file of the pwf history (max_iters rows and the final one)
-    after it, and no two steps' files are the same (a replay that left its
-    buffer stale would repeat the step before)."""
+    after it, and no two steps' histories, as the flush found them in the
+    device buffers, are the same bits (a replay that left its buffer stale
+    would repeat the step before). The files are not compared: they hold
+    the first values at six digits, and where pwf is clipped to the cell's
+    pressure near its initial value two steps' files can read the same
+    (4 distinct of 6 measured on the card)."""
     import copy
 
+    import torch
     from srm_tpu_torch.training.trainer import Trainer
     loss = _copy_loss(case["loss_fn"])
     well = copy.copy(loss.models["well_rate_bhp_model"])
     well.log_iterations, well.log_dir = True, log_dir
     well._log_buffers, well._log_written = {}, {}
+    flushed, flush = [], well.flush_iteration_logs
+
+    def recording_flush():
+        """The flush, with a copy of each history it is about to write."""
+        counts = {k: int(b[2]) for k, b in well._log_buffers.items()}
+        flushed.extend(torch.cat([b[0].flatten(), b[1].flatten()]).cpu()
+                       for k, b in well._log_buffers.items()
+                       if counts[k] > well._log_written[k])
+        return flush()
+
+    well.flush_iteration_logs = recording_flush
     loss.models = {**loss.models, "well_rate_bhp_model": well}
     trainer = Trainer(loss, seed=3)
     trainer.stage_dataset("train", case["train_groups"], 32)
@@ -1985,13 +2010,15 @@ def _replayed_iteration_logs(case, log_dir: str, steps: int = 6) -> None:
         with open(os.path.join(log_dir, f)) as fh:
             texts.append(fh.read())
     rows = {len(t.splitlines()) for t in texts}
-    if len(texts) != steps or trainer.replays["train"] != steps - trainer.warmup_steps or \
-            rows != {well.max_iters + 2} or len(set(texts)) != steps:
-        raise AssertionError(f"log_iterations under replay: {len(texts)} files "
-                             f"({len(set(texts))} distinct) for {steps} steps "
-                             f"({trainer.replays} replays), rows {rows}")
+    repeats = sum(torch.equal(a, b) for i, a in enumerate(flushed) for b in flushed[:i])
+    if len(texts) != steps or len(flushed) != steps or rows != {well.max_iters + 2} or \
+            trainer.replays["train"] != steps - trainer.warmup_steps or repeats:
+        raise AssertionError(f"log_iterations under replay: {len(texts)} files, "
+                             f"{len(flushed)} histories ({repeats} pairs the same bits) for "
+                             f"{steps} steps ({trainer.replays} replays), rows {rows}")
     log(f"log_iterations under replay: {len(texts)} pwf histories for {steps} steps "
-        f"({trainer.replays['train']} replays) in {secs:.2f} s, each replay's its own")
+        f"({trainer.replays['train']} replays) in {secs:.2f} s, each replay's its own "
+        f"({len(set(texts))} distinct files at six digits)")
     del trainer, loss
 
 
@@ -2335,17 +2362,35 @@ def phase_examples(base_dir: str) -> dict:
 
 def phase_tools(base_dir: str, drawdown_case) -> dict:
     """``mfu_probe`` (``base`` and ``bf16`` at batch 32, 2D: one JSON line
-    each, 0 < mfu < 1), ``flops_breakdown`` (DG 3D production at batch 32:
-    its total) and ``sg_head_probe.probe`` for one epoch on the drawdown
-    phase's trained case (B3 at every training step, its backward kernel
-    too; every key finite). Returns the probe's launches."""
+    each, 0 < mfu < 1; ``probe_two_nets`` on GC 2D's pair of encoder–
+    decoders at batch 32, one after the other and stacked under ``vmap``,
+    by turns, their gradients equal within float32 rounding),
+    ``flops_breakdown`` (DG 3D production at batch 32: its total) and
+    ``sg_head_probe.probe`` for one epoch on the drawdown phase's trained
+    case (B3 at every training step, its backward kernel too; every key
+    finite). Returns the probe's launches."""
     import math
 
+    import torch
     from srm_tpu_torch.tools import flops_breakdown, mfu_probe, sg_head_probe
     lines = mfu_probe.main(["--case", "base", "--case", "bf16", "--batch", "32"])
     for line in lines:
         if not (line["ms_per_step"] > 0 and 0.0 < line["mfu"] < 1.0):
             raise AssertionError(f"mfu_probe: {line}")
+    pair = [mfu_probe.probe_two_nets(f"gc2d_pair_{'stacked' if stacked else 'sequential'}",
+                                     batch=32, nx=39, stacked=stacked)
+            for stacked in (False, True, True, False)]
+    nets, x = mfu_probe.two_nets(batch=32, nx=39, device="cuda")
+    seq, vm = (mfu_probe.two_nets_step(nets, x, stacked)() for stacked in (False, True))
+    gap = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(vm, seq))
+    log(f"probe_two_nets (GC 2D's pair, 39x39, batch 32): sequential "
+        f"{[p['ms_per_step'] for p in pair if not p['stacked']]} ms, stacked "
+        f"{[p['ms_per_step'] for p in pair if p['stacked']]} ms a step; gradients "
+        f"{gap:.2e} apart (bound {OPTIONS_GRAD_REL})")
+    if not all(p["ms_per_step"] > 0 for p in pair) or gap > OPTIONS_GRAD_REL:
+        raise AssertionError(f"probe_two_nets: {pair}, gradients {gap:.2e} apart")
+    del nets, x, seq, vm
+    torch.cuda.empty_cache()
     total, secs = _timed(lambda: flops_breakdown.main(["--base-dir", base_dir]))
     if not total > 0:
         raise AssertionError(f"flops_breakdown total {total}")
@@ -2398,9 +2443,12 @@ def _dp_gloo_rank(spec_path: str) -> None:
     from the saved initial weights, on ``make_mesh(spatial=spatial)``;
     ``cuda_graph=True`` must raise on that group; then one eager epoch at
     batch 32 (or its first ``steps`` steps) with the launch counters set to
-    0 just before and read just after; writes its metrics, its first step's
-    gradients (summed over the ranks), weights, counts, seconds and its rows
-    of the batch and of H."""
+    0 just before and read just after; writes its metrics, its first
+    step's gradients (summed over the ranks), weights, counts, seconds and
+    its rows of the batch and of H. With ``then_remat`` the rank then
+    reloads the initial weights and writes the same of one step with
+    ``remat_forwards`` (under ``remat``), and the results of
+    ``_sp_extras`` (under ``extras``)."""
     import torch
     import torch.distributed as dist
     from srm_tpu_torch.examples.common import setup_case
@@ -2417,8 +2465,6 @@ def _dp_gloo_rank(spec_path: str) -> None:
     try:
         fluid = spec.get("fluid", "DG")
         case = setup_case(fluid, base_dir=spec["base_dir"], n_realizations=20, device="cuda:0")
-        for name, state in torch.load(spec["weights"], weights_only=True).items():
-            case["models"][name].load_state_dict(state)
         mesh = make_mesh(spatial=spec.get("spatial", 1))
         try:
             Trainer(case["loss_fn"], mesh=mesh, cuda_graph=True)
@@ -2426,22 +2472,33 @@ def _dp_gloo_rank(spec_path: str) -> None:
             refused = str(e)
         else:
             raise AssertionError("cuda_graph=True on a gloo group did not raise")
-        trainer = Trainer(case["loss_fn"], mesh=mesh, cuda_graph=False)
-        trainer.stage_dataset("train", case["train_groups"], 32)
-        grads = data_parallel.record_first_gradients(trainer)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics, counts, recomputes = _counted_training(
-            KERNEL_OF[fluid], lambda: trainer.train_epoch_resident("train", spec.get("steps")))
-        seconds = time.perf_counter() - t0
-        rows = case["loss_fn"].rows
-        torch.save({"metrics": metrics, "grads": grads, "counts": counts,
-                    "recomputes": recomputes,
-                    "seconds": seconds, "weights": trainer.snapshot(), "refused": refused,
+
+        def run(steps, remat: bool) -> dict:
+            """``steps`` eager steps from the initial weights."""
+            for name, state in torch.load(spec["weights"], weights_only=True).items():
+                case["models"][name].load_state_dict(state)
+            loss = _copy_loss(case["loss_fn"])
+            loss.remat_forwards = remat
+            trainer = Trainer(loss, mesh=mesh, cuda_graph=False)
+            trainer.stage_dataset("train", case["train_groups"], 32)
+            grads = data_parallel.record_first_gradients(trainer)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, counts, recomputes = _counted_training(
+                KERNEL_OF[fluid], lambda: trainer.train_epoch_resident("train", steps))
+            rows = loss.rows
+            return {"metrics": metrics, "grads": grads, "counts": counts,
+                    "recomputes": recomputes, "seconds": time.perf_counter() - t0,
+                    "weights": trainer.snapshot(), "refused": refused,
                     "rows": trainer._states[("train", "train", 32)].rows,
                     "h_rows": None if rows is None else rows.count,
-                    "n_train": len(metrics["total"])},
-                   os.path.join(spec["out"], f"rank{rank}.pt"))
+                    "n_train": len(metrics["total"])}
+
+        out = run(spec.get("steps"), False)
+        if spec.get("then_remat"):
+            out["remat"] = run(1, True)
+            out["extras"] = _sp_extras(spec, mesh, torch.device("cuda:0"))
+        torch.save(out, os.path.join(spec["out"], f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -2697,18 +2754,36 @@ SP_LOSS_RTOL = 5e-2
 SP_NOISY_GRADIENTS = {"DG": ("time_step",), "GC": ()}
 
 
-def _sp_gloo_two_ranks(case, base_dir: str, fluid: str, steps=None) -> dict:
+def _sp_gloo_two_ranks(case, base_dir: str, fluid: str, steps=None,
+                       then_remat: bool = False) -> dict:
     """Phase 19 on ``case`` (DG 2D or GC 2D at 39×39): two gloo ranks as a
     space axis of 2 against one eager rank, the epoch's first ``steps``
-    steps (all with None); see SP_ROWS' comment."""
+    steps (all with None); see SP_ROWS' comment. With ``then_remat`` the
+    same ranks then run one step with ``remat_forwards`` from the initial
+    weights, held the same way to one rank's (under ``remat``), and
+    ``_sp_extras``, held to one rank by ``_check_sp_extras``."""
+    ranks, wall = _gloo_ranks(case, base_dir, spatial=2, fluid=fluid, steps=steps,
+                              then_remat=then_remat)
+    out = _sp_hold(case, fluid, steps, False, ranks, wall)
+    if then_remat:
+        out["remat"] = _sp_hold(case, fluid, 1, True, [r["remat"] for r in ranks], wall)
+        out["extras"] = _check_sp_extras([r["extras"] for r in ranks], case, base_dir)
+    return out
+
+
+def _sp_hold(case, fluid: str, steps, remat: bool, ranks, wall: float) -> dict:
+    """The two space ranks' results of ``steps`` steps (``remat_forwards``
+    on where ``remat``) against one eager rank's from ``case``'s initial
+    weights (SP_ROWS' comment); their gaps and each rank's launches."""
     import numpy as np
     import torch
     from srm_tpu_torch.tools import data_parallel
     from srm_tpu_torch.training.trainer import Trainer
 
     kernel = KERNEL_OF[fluid]
-    ranks, wall = _gloo_ranks(case, base_dir, spatial=2, fluid=fluid, steps=steps)
-    ref = Trainer(_copy_loss(case["loss_fn"]), cuda_graph=False)
+    ref_loss = _copy_loss(case["loss_fn"])
+    ref_loss.remat_forwards = remat
+    ref = Trainer(ref_loss, cuda_graph=False)
     ref.stage_dataset("train", case["train_groups"], 32)
     ref_grads = data_parallel.record_first_gradients(ref)
     metrics, ref_seconds = _timed(lambda: ref.train_epoch_resident("train", steps))
@@ -2733,7 +2808,8 @@ def _sp_gloo_two_ranks(case, base_dir: str, fluid: str, steps=None) -> dict:
                           [live[n].detach() - start[n] for n in live])
     seconds = max(got["seconds"] for got in ranks)
     noisy = SP_NOISY_GRADIENTS[fluid]
-    log(f"space axis, {fluid} 2D, 2 gloo ranks on one card, eager, rows {SP_ROWS} of 39: "
+    log(f"space axis, {fluid} 2D{' with remat_forwards' if remat else ''}, 2 gloo ranks on one "
+        f"card, eager, rows {SP_ROWS} of 39: "
         f"{len(ref_totals)} steps, totals {', '.join(f'{g:.3e}' for g in gaps)} from one "
         f"rank's (relative; bounds {DP_FIRST_RTOL} on the first, {SP_LOSS_RTOL}), the first "
         f"step's gradients {grad_gaps} apart (relative, summed and averaged over the ranks; "
@@ -2753,21 +2829,157 @@ def _sp_gloo_two_ranks(case, base_dir: str, fluid: str, steps=None) -> dict:
             "updates": updates, "grad_gaps": grad_gaps}
 
 
+# phase_space's extras: on the space axis of two gloo ranks, (a) one DG 2D
+# step through the Newton BHP with log_iterations (dg2d_newton_bhp, one loss
+# evaluation: one file, written by rank 0 alone from both ranks' rows of H)
+# against one rank's file of the same step: the same header and rows, each
+# row's values within SP_LOG_RTOL (six significant digits; the pressure
+# net's float32 convolutions on each rank's window round apart from the
+# whole grid's); (b) full-width module forwards (39×39, batch 32) that read
+# the whole grid: the encoder–decoder with latent_flatten (its encoded level,
+# 4 rows, split 2/2, gathered for the Dense) and the residual net's VAE head
+# (the whole grid's mean) with ε given, and drawing ε from each rank's own
+# CUDA generator (seeds 5 and 6, the first rank's draw broadcast), each
+# rank's rows against the whole grid's output on the card within
+# OPTIONS_RTOL (of the entry and of the output's largest magnitude).
+SP_LOG_RTOL = 1e-5
+SP_NEWTON = {"use_non_iterative": False, "log_iterations": True}
+
+
+def _sp_modules():
+    """phase_space's full-width modules from seeds, on the CPU: the
+    encoder–decoder with ``latent_flatten`` and the residual net with the
+    VAE head, their (B, T, H, W, C) input batch of 32 and ε."""
+    import torch
+    from srm_tpu_torch.config import get_configuration
+    from srm_tpu_torch.nn.encoder_decoder import EncoderDecoder
+    from srm_tpu_torch.nn.residual import ResidualNetwork
+
+    gen = torch.Generator().manual_seed(3)
+    ed = get_configuration("encoder_decoder")
+    ed["temporal"] = True
+    ed["residual_params"]["Latent_Layer"]["Flatten"] = True
+    res = get_configuration("residual")
+    vae = ResidualNetwork(5, num_blocks=res["num_blocks"], filters=res["filters"],
+                          latent_output=True, latent_a=0.1, latent_b=10.0, temporal=True,
+                          generator=gen)
+    x = torch.rand((32, 1, 39, 39, 5), generator=gen) * 2 - 1
+    eps = torch.randn((32, 1), generator=gen)
+    return EncoderDecoder.from_config(ed, 5, generator=gen, grid=(39, 39)), vae, x, eps
+
+
+def _sp_module_outputs(mesh, device) -> dict:
+    """The three forwards of ``_sp_modules`` on ``device``: on this rank's
+    rows over ``mesh``'s space axis, or the whole grid without one."""
+    import torch
+    from srm_tpu_torch.parallel.halo import Rows
+    ed, vae, x, eps = (t.to(device) for t in _sp_modules())
+    rows = Rows.split(mesh, 39) if mesh is not None else None
+    kw = {} if rows is None else {"rows": rows}
+    if rows is not None:
+        x = x[:, :, rows.lo:rows.hi].contiguous()
+    seed = 5 + (mesh.space_rank if mesh is not None else 0)
+    with torch.no_grad():
+        return {"latent_flatten": ed(x, **kw).cpu(), "vae_eps": vae(x, eps=eps, **kw).cpu(),
+                "vae_generator": vae(x, generator=torch.Generator(device).manual_seed(seed),
+                                     **kw).cpu()}
+
+
+def _newton_log_step(base_dir: str, weights: str, mesh, log_dir: str, device) -> tuple:
+    """One eager dg2d_newton_bhp training step at batch 32 (its first)
+    from ``weights`` with ``log_iterations`` into ``log_dir``, over
+    ``mesh`` (None: one rank); the launch counts and the lines of the one
+    file written (None where this rank wrote none)."""
+    import torch
+    from srm_tpu_torch.examples.common import setup_case
+    from srm_tpu_torch.training.trainer import Trainer
+    case = setup_case("DG", base_dir=base_dir, n_realizations=20, device=device,
+                      well_solver_kwargs=dict(SP_NEWTON, log_dir=log_dir))
+    for name, state in torch.load(weights, weights_only=True).items():
+        case["models"][name].load_state_dict(state)
+    trainer = Trainer(case["loss_fn"], mesh=mesh, cuda_graph=False)
+    trainer.stage_dataset("train", case["train_groups"], 32)
+    _, counts, recomputes = _counted_training(
+        "dg_stencil_residual", lambda: trainer.train_epoch_resident("train", 1))
+    _check_launches("dg_stencil_residual", counts, recomputes, 1, 0, 1)
+    files = os.listdir(log_dir) if os.path.isdir(log_dir) else []
+    if len(files) > 1:
+        raise AssertionError(f"one step wrote {len(files)} log files")
+    if not files:
+        return counts, None
+    with open(os.path.join(log_dir, files[0])) as f:
+        return counts, f.read().splitlines()
+
+
+def _sp_extras(spec, mesh, device) -> dict:
+    """A rank's part of phase_space's extras (see SP_LOG_RTOL's comment)."""
+    log_dir = os.path.join(spec["out"], f"newton_logs_rank{mesh.rank}")
+    counts, lines = _newton_log_step(spec["base_dir"], spec["weights"], mesh, log_dir, device)
+    return {"newton_counts": counts, "log": lines,
+            "modules": _sp_module_outputs(mesh, device)}
+
+
+def _check_sp_extras(ranks, case, base_dir: str) -> dict:
+    """The two ranks' ``_sp_extras`` against one rank on the card from
+    ``case``'s initial weights (SP_LOG_RTOL's comment); their gaps."""
+    import numpy as np
+    import torch
+    if ranks[1]["log"] is not None or ranks[0]["log"] is None:
+        raise AssertionError("the iteration log was not written by rank 0 alone")
+    trained = [case["loss_fn"].logical_name(k) for k in case["loss_fn"].trainable_models_keys]
+    with tempfile.TemporaryDirectory(prefix="newton_", dir=os.path.join(ROOT, "build")) as d:
+        weights = os.path.join(d, "initial.pt")
+        torch.save({k: case["models"][k].state_dict() for k in trained}, weights)
+        _, want = _newton_log_step(base_dir, weights, None, os.path.join(d, "logs"), "cuda")
+    got = ranks[0]["log"]
+    if got[0] != want[0] or len(got) != len(want):
+        raise AssertionError(f"iteration logs: {got[:1]} ({len(got)} lines) against one "
+                             f"rank's {want[:1]} ({len(want)} lines)")
+    log_gap = 0.0
+    for g, w in zip(got[1:], want[1:]):
+        gv = np.array([float(v) for v in g.split('"')[1].split()])
+        wv = np.array([float(v) for v in w.split('"')[1].split()])
+        if g.split('"')[0] != w.split('"')[0] or gv.shape != wv.shape:
+            raise AssertionError(f"iteration log row {g!r} against one rank's {w!r}")
+        log_gap = max(log_gap, float(np.max(np.abs(gv - wv) / np.abs(wv))) if wv.size else 0.0)
+    want_out = _sp_module_outputs(None, torch.device("cuda"))
+    gaps = {}
+    for name, w in want_out.items():
+        g = torch.cat([r["modules"][name] for r in ranks], dim=2)
+        tol = OPTIONS_RTOL * (w.abs() + w.abs().max())
+        gaps[name] = float(((g - w).abs() / (w.abs() + w.abs().max())).max())
+        if g.shape != w.shape or ((g - w).abs() > tol).any():
+            raise AssertionError(f"{name} over the space axis against the whole grid: "
+                                 f"{gaps[name]:.3e} apart (bound {OPTIONS_RTOL})")
+    log(f"space axis extras: dg2d_newton_bhp's pwf log (rank 0's, {len(got)} lines) within "
+        f"{log_gap:.3e} of one rank's (bound {SP_LOG_RTOL}); module forwards over the ranks "
+        f"against the whole grid {gaps} (bound {OPTIONS_RTOL} of the entry and the largest); "
+        f"Newton step launches {[r['newton_counts'] for r in ranks]}")
+    if log_gap > SP_LOG_RTOL:
+        raise AssertionError(f"iteration logs {log_gap:.3e} apart")
+    return {"log_gap": log_gap, "module_gaps": gaps}
+
+
 def phase_space(base_dir: str) -> dict:
     """The space axis (``make_mesh(n, spatial=k)``, ``parallel/halo.py``)
     on the main path: DG 2D at 39×39, 20 realizations, batch 32, one epoch,
-    and one GC 2D step, each over two gloo ranks on the one card against
-    one rank (``_sp_gloo_two_ranks``). Returns each path's launches by path
-    name and the numbers."""
+    then one DG 2D step with ``remat_forwards`` by the same ranks (and
+    ``_sp_extras``: a dg2d_newton_bhp step logging its iterations, and the
+    full-width ``latent_flatten`` and VAE forwards), and one GC 2D step,
+    each over two gloo ranks on the one card against one rank
+    (``_sp_gloo_two_ranks``).
+    Returns each path's launches by path name and the numbers."""
     from srm_tpu_torch.examples.common import setup_case
     out = {}
     for fluid, steps in (("DG", None), ("GC", 1)):
         case = setup_case(fluid, base_dir=base_dir, n_realizations=20, device="cuda")
-        out[fluid] = _sp_gloo_two_ranks(case, base_dir, fluid, steps)
+        out[fluid] = _sp_gloo_two_ranks(case, base_dir, fluid, steps, then_remat=fluid == "DG")
         del case
         _free_cached()
     return {"sp_gloo_rank0": out["DG"].pop("counts_0"),
             "sp_gloo_rank1": out["DG"].pop("counts_1"),
+            "sp_gloo_remat_rank0": out["DG"]["remat"].pop("counts_0"),
+            "sp_gloo_remat_rank1": out["DG"]["remat"].pop("counts_1"),
             "sp_gloo_gc_rank0": out["GC"].pop("counts_0"),
             "sp_gloo_gc_rank1": out["GC"].pop("counts_1"), "numbers": out}
 
@@ -2859,7 +3071,8 @@ def main() -> int:
              **{path: {"dg_stencil_residual": data_parallel[path]}
                 for path in ("dp_nccl_world1", "dp_gloo_rank0", "dp_gloo_rank1")},
              **{path: {"dg_stencil_residual": space[path]}
-                for path in ("sp_gloo_rank0", "sp_gloo_rank1")},
+                for path in ("sp_gloo_rank0", "sp_gloo_rank1", "sp_gloo_remat_rank0",
+                             "sp_gloo_remat_rank1")},
              **{path: {"gc_stencil_residual": space[path]}
                 for path in ("sp_gloo_gc_rank0", "sp_gloo_gc_rank1")},
              **{path: {WELL_PATHS[path]["kernel"]: c} for path, c in well.items()}}

@@ -59,7 +59,8 @@ balances' mbc) is summed over it. A term that is then equal on every rank
 of a space group (mbc²) is counted on its space rank 0 only, since the
 trainer sums the loss over every rank; the cell terms stay local. The
 counts that :meth:`PhysicsLoss.weighted_sse` returns are the whole grid's.
-``remat_forwards`` raises ``NotImplementedError`` there (ROADMAP A17c).
+With ``remat_forwards`` the backward pass recomputes each network's forward
+whole, its halo exchanges included, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from srm_tpu_torch.config import (
     DEFAULT_GENERAL_CONFIG,
@@ -485,10 +486,6 @@ class PhysicsLoss:
         self.mesh = mesh if mesh is not None and mesh.group is not None else None
         self.rows = (Rows.split(self.mesh, self.reservoir_config["Ny"])
                      if self.mesh is not None and self.mesh.space_size > 1 else None)
-        if self.rows is not None and self.remat_forwards:
-            raise NotImplementedError(
-                "remat_forwards on a space axis: the recomputed forwards would repeat their "
-                "halo exchanges inside the backward pass (ROADMAP A17c)")
         lo, hi = (0, None) if self.rows is None else (self.rows.lo, self.rows.hi)
         self.q_well_idx = self._q_well_whole[..., lo:hi, :].contiguous()
         if self._phi_whole is not None:
@@ -527,8 +524,12 @@ class PhysicsLoss:
         the forward (its dtype casts included) instead of keeping its
         activations. No ported network draws random numbers, so the RNG
         state is neither saved nor restored, which a CUDA graph capture
-        would not allow. A network with dropout or BatchNorm is refused, as
-        the reference's loss fails on it (:func:`untrainable_layers`)."""
+        would not allow. On a space axis the recompute repeats the forward's
+        halo exchanges inside the backward pass; it runs the whole forward
+        (no early stop), so every rank issues the same messages in the same
+        order whatever tensors its autograd graph saved. A network with
+        dropout or BatchNorm is refused, as the reference's loss fails on it
+        (:func:`untrainable_layers`)."""
         mod = self.models[name]
         refused = untrainable_layers(mod)
         if refused:
@@ -545,9 +546,12 @@ class PhysicsLoss:
             else:                                       # the global phase of ::s
                 rows, start = rows.strided(s)
                 x = x[..., start::s, ::s, :]
-        if self.remat_forwards:
+        if not self.remat_forwards:
+            return mod(x) if rows is None else mod(x, rows=rows)
+        if rows is None:
             return checkpoint(mod, x, use_reentrant=False, preserve_rng_state=False)
-        return mod(x) if rows is None else mod(x, rows=rows)
+        with set_checkpoint_early_stop(False):
+            return checkpoint(mod, x, use_reentrant=False, preserve_rng_state=False, rows=rows)
 
     def _dt_mean(self, f: torch.Tensor) -> torch.Tensor:
         """Each sample's Δt: the mean of Model 2's field (B, T, [D,] H, W, 1)

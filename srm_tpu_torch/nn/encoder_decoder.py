@@ -85,8 +85,13 @@ every rank, each keeping its own rows after: the resize, and a level
 thinner than the space axis. ``spatial_pad_to`` pads the width locally and
 the height as zero rows past the last one, which the first convolution's
 window reads; the crop takes the input's rows back. ``latent_flatten``
-(one Dense over the whole grid) raises ``NotImplementedError`` there
-(ROADMAP A17c).
+(one Dense over the whole encoded grid) gathers the encoded level's rows on
+every rank, applies the Dense in flax's flatten order there and keeps the
+rank's rows of its output; the rows that other ranks keep carry no
+cotangent here, so the Dense's gradients, summed over the space group,
+count each output row once (a level thinner than the space axis is whole
+on every rank already, and each rank's cotangent is then the part its own
+rows below read).
 """
 
 from __future__ import annotations
@@ -359,10 +364,6 @@ class EncoderDecoder(nn.Module):
     def _forward_rows(self, x: torch.Tensor, rows: Rows, training: bool) -> torch.Tensor:
         """The layers on this rank's rows ``rows`` of a channels-first input
         (the module docstring's rule); returns the same rows."""
-        if self.latent_dense is not None:
-            raise NotImplementedError(
-                "latent_flatten on a space axis: its Dense reads the whole encoded grid "
-                "(ROADMAP A17c)")
         act, cdt, mesh = self.act, self.cdt, rows.mesh
         true_w = x.shape[-1]
         x, n = pad_width_rows(x, rows.n, self.spatial_pad_to)
@@ -383,7 +384,10 @@ class EncoderDecoder(nn.Module):
             x = self._dropout(act(x), i, training)
         for conv in self.enc_extra:
             x = act(conv_rows(conv, x, cur, cur, cdt))
-        x = self._latent(x)
+        if self.latent_dense is None:
+            x = self._latent(x)
+        else:                                           # the Dense reads the whole grid
+            x = own_rows(self._latent(gather_rows(x, cur)), cur)
         for i in range(self.depth):
             if i == 0:
                 if self.dec_dense_start is not None:

@@ -54,9 +54,13 @@ On a mesh's space axis (``forward(..., rows=)``, ``parallel/halo.py``) the
 input and the output hold this rank's rows of H: each SAME convolution
 computes the rank's rows from them and one fetched row of each neighbour
 (``nn.common.conv_rows``), and the pooled heads (the distribution head's
-global average pool) sum over the space group. The VAE head, whose noise
-every rank of a space group would have to share, raises
-``NotImplementedError`` there (ROADMAP A17c).
+and the VAE head's global average pool) take the whole grid's mean: the
+rank's sum over the whole grid's cell count, summed over the space group.
+The VAE head's noise is one ε per sample for the whole space group: an
+``eps`` given is used as it is (the caller passes every rank the same);
+drawn from ``generator``, every rank draws (so that the ranks' generators
+step alike) and the space group's first rank's draw is broadcast to the
+others.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ from torch import nn
 from srm_tpu_torch.nn.common import (apply_layer, conv_rows, fold_time, get_activation,
                                      init_conv_, initializer_name, pad_height_width,
                                      pad_width_rows, resolve_dtype)
-from srm_tpu_torch.parallel.halo import Rows, sum_over_space, take_rows
+from srm_tpu_torch.parallel.halo import Rows, broadcast_over_space, sum_over_space, take_rows
 
 
 _CONV = {"cnn": nn.Conv2d, "cnn3d": nn.Conv3d}
@@ -228,10 +232,6 @@ class ResidualNetwork(nn.Module):
         """The blocks on this rank's rows of a channels-first input (the
         width padded locally, the height as zero rows past the last, which
         the first block's windows read), cropped back to the input's rows."""
-        if self.latent_output and self.include_output_layer:
-            raise NotImplementedError(
-                "the VAE head on a space axis: every rank of a space group would have to draw "
-                "the same noise (ROADMAP A17c)")
         true_w = x.shape[-1]
         x, n = pad_width_rows(x, rows.n, self.spatial_pad_to)
         cur = rows if n == rows.n else Rows.split(rows.mesh, n)
@@ -246,7 +246,9 @@ class ResidualNetwork(nn.Module):
         """``eps`` (or ``generator``, to draw it) is the VAE head's noise of
         shape (B·T, output_filters); the other heads take neither.
         ``rows``: on a mesh's space axis, the layout of the input's H (this
-        rank's rows; the output has the same rows)."""
+        rank's rows; the output has the same rows). There ``eps`` must be
+        the same on every rank of the space group; a ``generator``'s draw
+        is the group's first rank's, broadcast."""
         if self.temporal:
             x, unfold = fold_time(inputs)
         else:
@@ -265,17 +267,17 @@ class ResidualNetwork(nn.Module):
             return unfold(x.movedim(1, -1))
         spatial = tuple(range(2, x.dim()))
         ones = (1,) * len(spatial)
-        if self.output_distribution:
+        if self.output_distribution or self.latent_output:
             if rows is None:
                 pooled = x.mean(dim=spatial)
             else:                                       # the whole grid's mean
                 cells = rows.n * x[0, 0].numel() // max(rows.count, 1)
                 pooled = sum_over_space(x.sum(dim=spatial), rows.mesh) / cells
+        if self.output_distribution:
             logits = apply_layer(self.timestep_dense, pooled)
             probs = torch.softmax(logits, dim=-1)
             return unfold(probs.reshape((probs.shape[0],) + ones + (probs.shape[-1],)))
         if self.latent_output:
-            pooled = x.mean(dim=spatial)
             z_mean = apply_layer(self.z_mean, pooled)
             z_log_var = apply_layer(self.z_log_var, pooled)
             if eps is None:
@@ -283,6 +285,8 @@ class ResidualNetwork(nn.Module):
                     raise ValueError("the VAE head needs its noise: pass eps or a generator")
                 eps = torch.randn(z_mean.shape, generator=generator, dtype=z_mean.dtype,
                                   device=generator.device).to(z_mean.device)
+                if rows is not None:
+                    eps = broadcast_over_space(eps, rows.mesh)
             z = z_mean + torch.exp(0.5 * z_log_var) * eps
             z = (self.latent_b - self.latent_a) * torch.sigmoid(z) + self.latent_a
             out = z.reshape(z.shape + ones).expand((z.shape[0], z.shape[1]) + x.shape[2:])

@@ -26,7 +26,9 @@ needs from the ranks that hold them.
   :func:`own_rows` (a whole tensor's rows of this rank, copied, so that
   autograd does not keep the whole alive) are windows of it.
 * :func:`sum_over_space` all-reduces a partial sum over the space group;
-  its backward all-reduces the cotangent.
+  its backward all-reduces the cotangent. :func:`broadcast_over_space`
+  gives every rank of the space group its first rank's tensor (noise that
+  the group shares; no gradient).
 
 Each primitive is the identity without a space axis. The route of the
 point-to-point messages names the backend: NCCL sends device tensors with
@@ -307,3 +309,16 @@ def sum_over_space(x: torch.Tensor, mesh) -> torch.Tensor:
     if mesh is None or mesh.space_size <= 1:
         return x
     return _SumOverSpace.apply(x, mesh)
+
+
+@torch.no_grad()
+def broadcast_over_space(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The space group's first rank's ``x`` on every rank of the group (a
+    new tensor; ``x`` itself without a space axis). A CUDA tensor over
+    gloo is staged through the host, as :func:`take_rows`' messages are."""
+    if mesh is None or mesh.space_size <= 1:
+        return x
+    staged = mesh.backend != "nccl" and x.device.type != "cpu"
+    buf = _transport(x.detach().to("cpu") if staged else x.detach().clone())
+    dist.broadcast(buf, src=mesh.space_peer(0), group=mesh.space_group)
+    return (buf.view(x.dtype) if buf.dtype != x.dtype else buf).to(x.device)

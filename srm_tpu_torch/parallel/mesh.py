@@ -328,17 +328,25 @@ def mean_over(tensors: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]
     return list((buf[:k] / buf[k:]).unbind())
 
 
-def gather_rows(arrays: Sequence[np.ndarray], mesh: Mesh, axes: Sequence[int]
-                ) -> Optional[List[np.ndarray]]:
+def gather_rows(arrays: Sequence[np.ndarray], mesh: Mesh, axes: Sequence[int],
+                h_axes: Optional[Sequence[int]] = None) -> Optional[List[np.ndarray]]:
     """Host arrays concatenated over the ranks along ``axes`` (rank order)
     on rank 0, None on the others: the whole batch that this rank holds a
-    block of."""
+    block of. On a space axis each data index's blocks are first
+    concatenated along ``h_axes`` (space index order: the whole H), then
+    the data indices along ``axes``."""
     if mesh.group is None:
         return list(arrays)
     got: List[Any] = [None] * mesh.size
     dist.all_gather_object(got, list(arrays), group=mesh.group)
     if mesh.rank != 0:
         return None
+    k = mesh.space_size
+    if k > 1:
+        if h_axes is None:
+            raise ValueError("gather_rows on a space axis needs the arrays' H axes (h_axes=)")
+        got = [[np.concatenate([g[i] for g in got[d:d + k]], axis=h_axes[i])
+                for i in range(len(arrays))] for d in range(0, mesh.size, k)]
     return [np.concatenate([g[i] for g in got], axis=ax) for i, ax in enumerate(axes)]
 
 

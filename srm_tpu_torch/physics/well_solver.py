@@ -44,8 +44,10 @@ On a mesh's space axis (:meth:`WellRatesPressure.set_rows`) the well
 grids, and the connections whose shut-in windows the mask reads, are this
 rank's rows of H: a rank that holds no row of a well computes nothing for
 it. Every solve (the direct and the Newton BHP, the blocking integral) is
-cell by cell, so it needs nothing else. The iteration logs there raise
-``NotImplementedError`` (ROADMAP A17c).
+cell by cell, so it needs nothing else. The iteration logs keep each
+rank's rows of the histories; the flush gathers them over the space group
+along H, then over the data axis along the batch, and rank 0 writes the
+files that one process writes for the whole grid and batch.
 """
 
 from __future__ import annotations
@@ -282,10 +284,6 @@ class WellRatesPressure:
         axis -3 of the well grids), or the whole grid with None: the well
         grids and the connections (their row index made local) with their
         shut-in windows."""
-        if rows is not None and self.log_iterations:
-            raise NotImplementedError(
-                "log_iterations on a space axis: the histories are per cell, and gathering "
-                "them over the space group is not ported (ROADMAP A17c)")
         self.rows = rows
         lo, hi = (0, None) if rows is None else (rows.lo, rows.hi)
         for name, g in self._grids.items():
@@ -542,9 +540,10 @@ class WellRatesPressure:
             hist, final, _ = self._log_buffers[key]
             arrays = [hist.cpu().numpy(), final.cpu().numpy()]
             if self.mesh is not None:
-                # the JAX package's callback receives the whole batch of its
-                # mesh, once: each rank's block, gathered, written by rank 0
-                arrays = gather_rows(arrays, self.mesh, axes=(1, 0))
+                # the JAX package's callback receives the whole batch and
+                # grid of its mesh, once: each rank's block, gathered (its
+                # rows of H, axis -3, first), written by rank 0
+                arrays = gather_rows(arrays, self.mesh, axes=(1, 0), h_axes=(-3, -3))
             if arrays is not None:
                 log_tensor_to_file(arrays[0], None, arrays[1], tensor_name=key[0],
                                    file_prefix=key[1], well_specific=True,

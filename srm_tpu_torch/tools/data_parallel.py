@@ -4,12 +4,14 @@ steps/s against one rank, and the gradient all-reduce on the device.
     torchrun --standalone --nproc-per-node=N -m srm_tpu_torch.tools.data_parallel
         [--fluid DG|GC] [--batch 32] [--realizations 20] [--epochs 3]
         [--nx N] [--nz N] [--base-dir DIR] [--device cuda|cpu] [--spatial K]
-        [--label-source simulator|files]
+        [--label-source simulator|files] [--remat]
 
 ``--spatial K`` trains on ``make_mesh(N, spatial=K)``: N/K data blocks of
 the batch, each rank also its rows of H (``parallel/halo.py``), with the
 halo exchanges (NCCL point-to-point sends) in the step's graph beside the
-all-reduce. ``--nz``
+all-reduce. ``--remat`` sets ``remat_forwards`` (the ranks and the rank
+alone): the backward recomputes each network's forward, on a space axis
+its halo exchanges too, inside the same graph. ``--nz``
 gives the 3D case (uncorrelated permeability fields). ``--label-source
 files`` gives zero labels, which the physics-mode loss never reads, so that
 setup simulates no split.
@@ -38,8 +40,8 @@ magnifies and Model 2's noisy gradient feeds (ROADMAP C2), moves the
 weights, so they are printed, not held. Past either bound, after the
 ranks have ended, rank 0 exits non-zero.
 
-Prints, on rank 0, one JSON line last: ``world``, ``spatial``, ``batch``,
-``rows`` (a rank's batch rows), ``h_rows`` (its rows of H), the steps/s of
+Prints, on rank 0, one JSON line last: ``world``, ``spatial``, ``remat``,
+``batch``, ``rows`` (a rank's batch rows), ``h_rows`` (its rows of H), the steps/s of
 each timed epoch over the ranks and alone, ``nccl_kernels_per_step``,
 ``all_reduce_us_median``, ``all_reduce_us_min``, ``send_recv_kernels_per_step``,
 ``send_recv_us_per_step`` (the halo exchanges' NCCL kernels, with their
@@ -186,6 +188,7 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--spatial", type=int, default=1)
     p.add_argument("--label-source", default=None, choices=["simulator", "files"])
+    p.add_argument("--remat", action="store_true", help="set remat_forwards")
     args = p.parse_args(argv)
 
     import torch
@@ -204,6 +207,7 @@ def main(argv=None) -> dict:
         g = copy.deepcopy(DEFAULT_GENERAL_CONFIG)
         if args.label_source:
             g["label_source"] = args.label_source
+        g["remat_forwards"] = args.remat
         case = setup_case(args.fluid, base_dir=args.base_dir, nx=args.nx, nz=args.nz,
                           n_realizations=args.realizations, device=args.device,
                           general_config=g, kle_method="uncorrelated" if args.nz else None)
@@ -255,7 +259,8 @@ def main(argv=None) -> dict:
                                         "--format=csv,noheader"], capture_output=True,
                                        text=True).stdout.strip().splitlines()[0]
                         if cuda else None)
-                result = {"world": mesh.size, "spatial": mesh.space_size, "batch": args.batch,
+                result = {"world": mesh.size, "spatial": mesh.space_size, "remat": args.remat,
+                          "batch": args.batch,
                           "rows": rows, "h_rows": h_rows,
                           "steps_per_s": rates, "alone_steps_per_s": alone_rates,
                           **{k: device.get(k) for k in ("nccl_kernels_per_step",

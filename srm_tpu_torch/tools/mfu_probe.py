@@ -29,6 +29,13 @@ otherwise. Prints one JSON line per lever: ``case``, ``ms_per_step``,
 ``batch``, ``grid``, ``gflops``, ``tflops_per_s``, ``mfu`` and the peak's
 name. With ``--device cpu`` it counts the FLOPs only: the time, the rate
 and ``mfu`` are null (not measured). On ``cuda`` TF32 is off.
+
+:func:`probe_two_nets` (the JAX tool's; ``main`` does not call it, as
+there) asks whether two equal encoder–decoders, such as gas condensate's
+pressure and saturation networks, run faster one after the other or as
+one batched forward: ``torch.func.vmap`` over their parameters stacked by
+``torch.func.stack_module_state``. Either way one step is the gradient of
+the sum of both outputs' squares.
 """
 
 from __future__ import annotations
@@ -134,6 +141,80 @@ def probe(case_name: str, *, batch: int = 32, nx: int = 39, nz: int = 1, width=B
         out.update(ms_per_step=round(ms, 3),
                    tflops_per_s=round(rates["achieved_flop_per_s"] / 1e12, 2),
                    mfu=round(rates["achieved_share_of_peak"], 4), peak=rates["peak_name"],
+                   device=torch.cuda.get_device_name(dev))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def two_nets(*, batch: int = 32, nx: int = 39, nz: int = 1, compute_dtype=None,
+             device="cuda"):
+    """Two encoder–decoders of the default config (weights from seeds 1
+    and 2) and an input batch (seed 0) on ``device``."""
+    import torch
+
+    from srm_tpu_torch.nn.encoder_decoder import EncoderDecoder
+    dev = torch.device(device)
+    cfg = network_config(nx, nz, compute_dtype=compute_dtype)
+    grid = (nz, nx, nx) if nz > 1 else (nx, nx)
+    nets = [EncoderDecoder.from_config(cfg, 5, generator=torch.Generator().manual_seed(seed),
+                                       grid=grid).to(dev) for seed in (1, 2)]
+    shape = (batch, nz, nx, nx, 5) if nz > 1 else (batch, nx, nx, 5)
+    x = (torch.rand(shape, generator=torch.Generator().manual_seed(0)) * 2 - 1).to(dev)
+    return nets, x
+
+
+def two_nets_step(nets, x, stacked: bool):
+    """The step of :func:`probe_two_nets`: a function returning the
+    gradients of the sum of both networks' squared outputs, stacked as
+    (2, ...) per parameter (in ``nets[0].parameters()``' order) either way,
+    so that the two designs compare entry by entry."""
+    import copy
+
+    import torch
+    if stacked:
+        params, buffers = torch.func.stack_module_state(nets)
+        leaves = [params[name].requires_grad_() for name, _ in nets[0].named_parameters()]
+        template = copy.deepcopy(nets[0]).to("meta")
+
+        def one(p, b, xx):
+            return torch.func.functional_call(template, (p, b), (xx,))
+
+        def step():
+            y = torch.func.vmap(one, in_dims=(0, 0, None))(params, buffers, x)
+            return torch.autograd.grad(torch.square(y).sum(), leaves)
+    else:
+        leaves = [list(net.parameters()) for net in nets]
+
+        def step():
+            loss = torch.square(nets[0](x)).sum() + torch.square(nets[1](x)).sum()
+            grads = torch.autograd.grad(loss, leaves[0] + leaves[1])
+            n = len(leaves[0])
+            return tuple(torch.stack([a, b]) for a, b in zip(grads[:n], grads[n:]))
+    return step
+
+
+def probe_two_nets(case_name: str, *, batch: int = 32, nx: int = 39, nz: int = 1,
+                   compute_dtype=None, stacked: bool = False, reps: int = 20,
+                   device="cuda") -> dict:
+    """Two equal encoder–decoders (:func:`two_nets`), one after the other or,
+    with ``stacked``, as one ``vmap`` over their stacked parameters
+    (:func:`two_nets_step`); on a CUDA device ``ms_per_step`` from CUDA
+    events over back-to-back steps (median of 5), as :func:`probe` times;
+    null on the CPU (not measured). Prints and returns its JSON line."""
+    import torch
+
+    from srm_tpu_torch.tools.profile_step import time_ms
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no usable CUDA device; pass device="cpu"')
+    nets, x = two_nets(batch=batch, nx=nx, nz=nz, compute_dtype=compute_dtype, device=dev)
+    step = two_nets_step(nets, x, stacked)
+    step()
+    out = {"case": case_name, "ms_per_step": None, "batch": batch, "grid": f"{nx}x{nx}x{nz}",
+           "stacked": bool(stacked), "device": str(dev)}
+    if dev.type == "cuda":
+        out.update(ms_per_step=round(time_ms(step, repeats=5, calls=reps), 3),
                    device=torch.cuda.get_device_name(dev))
     print(json.dumps(out), flush=True)
     return out

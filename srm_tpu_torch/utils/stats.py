@@ -1,8 +1,8 @@
 """Normalization transforms and the named statistics table.
 
 Port of ``srm_tpu/utils/stats.py``: ``normalize``, ``denormalize``,
-``normalize_diff``, :class:`DataSummary` (with its channelwise
-``normalize``) and :func:`compute_statistics`.
+``normalize_diff``, ``normalize_derivative``, :class:`DataSummary` (with
+its channelwise ``normalize``) and :func:`compute_statistics`.
 The transforms act on tensors with one statistics row
 ``[min, max, mean, std, count]``; ``is_log`` is a Python bool here, so only
 the selected branch is evaluated (the reference evaluates both and selects,
@@ -85,6 +85,22 @@ def normalize_diff(d: torch.Tensor, row: torch.Tensor, *, method: str = "lnk-lin
     else:
         out = (b - a) / (hi - lo) * d
     return _scrub(out)
+
+
+def normalize_derivative(row: torch.Tensor, *, method: str = "lnk-linear-scaling",
+                         limits=(-1.0, 1.0), is_log: bool = False) -> torch.Tensor:
+    """The analytic d(x_norm)/dx of the normalization map with one stats row
+    (srm_tpu/utils/stats.py:115-130): 1/std for z-score, (b − a)/ln(max/min)
+    for a log row under lnk-linear-scaling, else (b − a)/(max − min)."""
+    a, b = limits
+    lo, hi, sd = row[MIN], row[MAX], row[STD]
+    if method == "z-score":
+        out = 1.0 / sd
+    elif method == "lnk-linear-scaling" and is_log:
+        out = (b - a) / torch.log(hi / lo)
+    else:
+        out = (b - a) / (hi - lo)
+    return _scrub(torch.as_tensor(out))
 
 
 class DataSummary:

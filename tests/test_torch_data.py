@@ -107,6 +107,90 @@ def test_collapse_groups_matches_batch_generator(both):
     np.testing.assert_array_equal(y["PRESSURE"], bg.y_all["PRESSURE"])
 
 
+def _batcher_groups(dict_labels: bool = True):
+    """Two seeded (features, labels) groups of (K, T, H, W, C) samples (K 3
+    and 2, T 5), labels a dict of two keys or one array."""
+    rng = np.random.RandomState(5)
+    groups = []
+    for k in (3, 2):
+        x = rng.standard_normal((k, 5, 4, 3, 2)).astype(np.float32)
+        y = {"PRESSURE": rng.standard_normal((k, 5, 4, 3, 1)).astype(np.float32),
+             "SGAS": rng.standard_normal((k, 5, 4, 3, 1)).astype(np.float32)}
+        groups.append((x, y if dict_labels else y["PRESSURE"]))
+    return groups
+
+
+BATCHERS = {
+    "in_order": dict(shuffle=False),
+    "shuffle": dict(seed=3),
+    "lhs_shuffle": dict(lhs_shuffle=True, seed=4),
+    "lhs_in_order": dict(lhs_shuffle=True, shuffle=False),
+    "keep_remainder": dict(drop_remainder=False, seed=5),
+    "c_order": dict(collapse_order="C", seed=6),
+    "no_collapse": dict(collapse_axes=None, shuffle=False),
+    "stack_labels": dict(stack_labels=True, seed=7),
+    "array_labels": dict(seed=8),
+}
+
+
+def _same(a, b):
+    if isinstance(b, dict):
+        assert list(a) == list(b)
+        for k in b:
+            _same(a[k], b[k])
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(BATCHERS))
+def test_batch_generator_gives_the_jax_packages_batches(case):
+    """The host batcher over the same groups gives the JAX package's
+    batches bit for bit through two epochs (the ``RandomState`` shuffles
+    and the LHS strata the same draws; F and C collapse, the remainder kept
+    or dropped, stacked or array labels); ``epoch_batches`` likewise, or
+    both raise where a short last batch cannot be laid out."""
+    kw = dict(BATCHERS[case])
+    groups = _batcher_groups(dict_labels=case != "array_labels")
+    if case == "no_collapse":
+        groups = [(x.reshape((-1,) + x.shape[2:]), {k: v.reshape((-1,) + v.shape[2:])
+                                                     for k, v in y.items()})
+                  for x, y in groups]
+    want = jbatch.BatchGenerator(groups, batch_size=4, **kw)
+    got = tbatch.BatchGenerator(groups, batch_size=4, **kw)
+    assert len(got) == len(want) == (7 if case == "keep_remainder" else 6)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    for _ in range(2):
+        for i in range(len(want)):
+            for a, b in zip(got[i], want[i]):
+                _same(a, b)
+        if len(want) * 4 == want.N or kw.get("drop_remainder", True):
+            for a, b in zip(got.epoch_batches(), want.epoch_batches()):
+                _same(a, b)
+        else:
+            for batcher in (got, want):
+                with pytest.raises(ValueError):
+                    batcher.epoch_batches()
+        got.on_epoch_end()
+        want.on_epoch_end()
+
+
+def test_batch_generator_edge_cases_match_the_jax_package():
+    """No groups: an empty batcher of length 0 in both; pairs that are not a
+    list and an unknown collapse order raise ``ValueError`` in both; and
+    ``lhs_shuffle_indices`` draws the JAX package's indices."""
+    for mod in (jbatch, tbatch):
+        empty = mod.BatchGenerator([], batch_size=4)
+        assert len(empty) == 0 and empty.N == 0
+        with pytest.raises(ValueError, match="list"):
+            mod.BatchGenerator(tuple(_batcher_groups()), batch_size=4)
+        with pytest.raises(ValueError, match="collapse_order"):
+            mod.BatchGenerator(_batcher_groups(), batch_size=4, collapse_order="A")
+    for n, seed in ((1, 0), (7, 42), (100, 3)):
+        np.testing.assert_array_equal(tbatch.lhs_shuffle_indices(n, seed),
+                                      jbatch.lhs_shuffle_indices(n, seed))
+
+
 def _fake_simulate_labels(proc, split, permx=None, times=None, **kw):
     """Seeded labels of the simulator's shape (K, T, Nz, Ny, Nx), the same
     in both packages, in place of a simulator run."""

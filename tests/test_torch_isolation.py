@@ -253,12 +253,14 @@ def test_data_parallel_step_never_imports_jax(tmp_path):
 
 def test_space_axis_step_never_imports_jax(tmp_path):
     """A train step over a space axis of two ranks (each rank its rows of
-    H, the halo exchanges over gloo; ``tests/torch_parallel_ranks.py``)
-    stands alone as well, on each rank."""
+    H, the halo exchanges over gloo; ``tests/torch_parallel_ranks.py``),
+    and one with ``remat_forwards`` (the exchanges repeated in the
+    backward's recompute), stand alone as well, on each rank."""
     spec = tmp_path / "spec.json"
+    step = {"scenario": "step", "fluid": "DG", "base_dir": str(tmp_path / "data"), "nx": 9,
+            "realizations": 6, "batch_size": 8, "spatial": 2}
     spec.write_text(json.dumps({"out": str(tmp_path), "runs": [
-        {"scenario": "step", "fluid": "DG", "base_dir": str(tmp_path / "data"), "nx": 9,
-         "realizations": 6, "batch_size": 8, "spatial": 2}, {"scenario": "loaded"}]}))
+        step, dict(step, config={"remat_forwards": True}), {"scenario": "loaded"}]}))
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1", "WORLD_SIZE": "2",
            "STORE": str(tmp_path / "store")}
     procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_parallel_ranks.py"),
@@ -275,8 +277,10 @@ def test_space_axis_step_never_imports_jax(tmp_path):
     assert all(p.returncode == 0 for p in procs), [e[-3000:] for e in errors]
     import torch
     for r in range(2):
-        step, loaded = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
-        assert loaded == [] and np.isfinite(step["metrics"]["total"]), (loaded, step["metrics"])
+        plain, remat, loaded = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert loaded == [], loaded
+        assert np.isfinite(plain["metrics"]["total"]), plain["metrics"]
+        assert remat["metrics"] == plain["metrics"], (remat["metrics"], plain["metrics"])
 
 
 def test_checkpoint_path_never_imports_jax(tmp_path):

@@ -549,3 +549,25 @@ def test_data_parallel_tool_on_the_cpu(tmp_path):
     gap = line["grad_gaps"]["pressure"]           # the Δt net's is noise (C2)
     assert gap["summed"] <= line["grad_rtol"] < 0.4 < gap["averaged"]
 
+
+
+def test_data_parallel_tool_with_remat_on_a_space_axis_on_the_cpu(tmp_path):
+    """The tool's ``--remat`` over a space axis of two gloo ranks on the CPU
+    (each rank 5 or 4 of the 9 rows of H, the recompute's halo exchanges
+    inside the backward): its JSON line names the option and the space
+    axis, the first step's total is within the tool's FIRST_RTOL and the
+    pressure net's gradients (summed over the ranks) within its bound of
+    the rank alone's (which has ``remat_forwards`` too)."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
+         "-m", "srm_tpu_torch.tools.data_parallel", "--device", "cpu", "--nx", "9",
+         "--realizations", "6", "--batch", "8", "--epochs", "1", "--spatial", "2", "--remat",
+         "--base-dir", str(tmp_path)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (line["world"], line["spatial"], line["remat"], line["rows"], line["h_rows"]) == (
+        2, 2, True, 8, 5)
+    assert line["first_step_rtol"] <= 1e-5
+    assert line["grad_gaps"]["pressure"]["summed"] <= line["grad_rtol"]

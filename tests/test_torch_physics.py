@@ -49,6 +49,23 @@ def test_normalization_matches_reference(fn, method, row, is_log):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("method,row,is_log", [
+    ("lnk-linear-scaling", ROW_LIN, False),
+    ("lnk-linear-scaling", ROW_LOG, True),
+    ("linear-scaling", ROW_LIN, False),
+    ("z-score", ROW_LOG, False),
+    ("linear-scaling", np.array([2.0, 2.0, 2.0, 0.0, 1.0], np.float32), False),
+], ids=["lnk_linear", "lnk_log", "linear", "z_score", "flat_row_scrubbed"])
+def test_normalize_derivative_matches_reference(method, row, is_log):
+    """d(x_norm)/dx of each method (a log row under lnk-linear-scaling, and
+    a row whose min equals its max: its infinite slope scrubbed to 0)."""
+    kw = dict(method=method, limits=(-1.0, 2.0), is_log=is_log)
+    want = np.asarray(jstats.normalize_derivative(jnp.asarray(row), **kw))
+    got = tstats.normalize_derivative(torch.from_numpy(row), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    assert got.shape == want.shape
+
+
 def test_normalization_round_trip_and_scrub():
     row = torch.from_numpy(ROW_LOG)
     x = torch.linspace(0.5, 11.0, 17)

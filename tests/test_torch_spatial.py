@@ -36,7 +36,11 @@ Tolerances (``test_torch_parallel``'s where they apply):
   shape (1.5e-3 measured on the total);
 - FLAX_RTOL: a network's output rows over a space axis against the flax
   module's on the whole grid: float32 convolutions in two libraries
-  (``tests/test_torch_knobs.py``'s RTOL);
+  (``tests/test_torch_knobs.py``'s RTOL); for the ``latent_flatten`` and
+  VAE cases also as an absolute bound of the output's largest magnitude,
+  as ``tests/test_torch_nn_options.py`` holds these modules (the
+  encoder–decoder's outputs cross zero, where float32's rounding is of the
+  output's scale: 3.4e-4 relative on 4 of 722 entries at 19×19);
 - SLICE3D_RTOL: the DG 3D step's total against the JAX mesh's
   (``tests/test_torch_slice_3d.py``'s bound: the float32 7-point stencil
   rounds ~1e-3 of its scale in either package; 5.2e-4 measured), beside
@@ -45,10 +49,19 @@ Tolerances (``test_torch_parallel``'s where they apply):
   libraries round bfloat16 apart, so the total is held within twice the
   JAX package's own bfloat16-to-float32 distance on the same weights and
   batch plus BF16_TOTAL_RTOL (``tests/test_torch_knobs.py``'s rule for a
-  bf16 step), the weights within the Adam-step bound.
+  bf16 step), the weights within the Adam-step bound;
+- LOG_RTOL: the well solver's iteration logs (six significant digits) of
+  a float64 step against the JAX package's float32 step on the same
+  weights and batch (``tests/test_torch_parallel.py``'s bound for logs in
+  another rounding).
+
+``remat_forwards`` recomputes the same operations in the same order, so a
+step with it is held to the same step without it bit for bit.
 """
 
 import copy
+import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -59,17 +72,19 @@ import torch
 from srm_tpu.config import DEFAULT_GENERAL_CONFIG as JAX_GENERAL_CONFIG
 from srm_tpu.config import DEFAULT_RESERVOIR_CONFIG as JAX_RESERVOIR_CONFIG
 from srm_tpu.config import apply_production_overrides as jax_production_overrides
+from srm_tpu.config import get_configuration as jax_configuration
 from srm_tpu.examples.common import setup_case as jax_setup_case
 from srm_tpu.nn import modules as jmod
+from srm_tpu.nn.encoder_decoder import EncoderDecoderModel
+from srm_tpu.nn.residual import ResidualNetworkLayer
 from srm_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from srm_tpu.parallel.mesh import shard_batch as jax_shard_batch
 from srm_tpu.training.trainer import Trainer as JaxTrainer
-from srm_tpu_torch.config import DEFAULT_GENERAL_CONFIG, apply_production_overrides
+from srm_tpu_torch.config import (DEFAULT_GENERAL_CONFIG, apply_production_overrides,
+                                  get_configuration)
 from srm_tpu_torch.examples.common import setup_case
 from srm_tpu_torch.kernels import stencil as st
-from srm_tpu_torch.nn.convert import load_flax_params
-from srm_tpu_torch.nn.encoder_decoder import EncoderDecoder
-from srm_tpu_torch.nn.residual import ResidualNetwork
+from srm_tpu_torch.nn.convert import load_flax_module, load_flax_params
 from srm_tpu_torch.parallel.halo import Rows
 from srm_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
 from srm_tpu_torch.training.trainer import Trainer
@@ -89,6 +104,8 @@ SPACE_EPOCH_RTOL = 1e-5
 FLAX_RTOL = 1e-4
 SLICE3D_RTOL = 1e-3
 BF16_TOTAL_RTOL = 1e-3
+LOG_RTOL = 1e-5
+NEWTON_LOG = dict(use_non_iterative=False, max_iters=3)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -350,17 +367,31 @@ def preset13(tmp_path_factory):
     return case
 
 
+def _logged(spec, directory, **kwargs):
+    """``spec`` with the well solver logging its iterations into ``directory``."""
+    return dict(spec, well_solver_kwargs=dict(kwargs, log_iterations=True,
+                                              log_dir=str(directory)))
+
+
 @pytest.fixture(scope="module")
 def world4(dg12, gc12, dg3d9, preset13, tmp_path_factory):
     """Four ranks as 2 × 2 (data × space): the DG step in float32 and in
     float64 and the GC step, each on its 8-sample batch; the DG 3D step and
-    the production preset's step on their 4-sample batches."""
-    runs = [dict(dg12["spec"], scenario="step", spatial=2),
-            dict(dg12["spec"], scenario="step", spatial=2, float64=True),
+    the production preset's step on their 4-sample batches; then the DG
+    step with ``remat_forwards`` in float32 (its direct BHP solve logging
+    λ) and in float64, and in float64 with the direct solve's λ log and the
+    Newton solve's pwf log."""
+    out = tmp_path_factory.mktemp("spatial_world4")
+    remat = dict(dg12["spec"], scenario="step", spatial=2, config={"remat_forwards": True})
+    step64 = dict(dg12["spec"], scenario="step", spatial=2, float64=True)
+    runs = [dict(dg12["spec"], scenario="step", spatial=2), step64,
             dict(gc12["spec"], scenario="step", spatial=2),
             dict(dg3d9["spec"], scenario="step", spatial=2),
-            dict(preset13["spec"], scenario="step", spatial=2)]
-    return run_ranks(tmp_path_factory.mktemp("spatial_world4"), 4, runs)
+            dict(preset13["spec"], scenario="step", spatial=2),
+            _logged(remat, out / "logs_remat"), dict(remat, float64=True),
+            _logged(step64, out / "logs_lambda"),
+            _logged(step64, out / "logs_pwf", **NEWTON_LOG)]
+    return run_ranks(out / "ranks", 4, runs)
 
 
 def _padded_flax_models():
@@ -381,14 +412,49 @@ def _padded_flax_models():
     return out
 
 
+def _flatten_config(jax_side: bool):
+    """The encoder–decoder's default config with ``latent_flatten`` (its
+    Dense 128 wide), on (B, T, H, W, C) inputs."""
+    cfg = (jax_configuration if jax_side else get_configuration)("encoder_decoder")
+    cfg["temporal"] = True
+    cfg["residual_params"]["Latent_Layer"].update(Flatten=True, Width=128)
+    return cfg
+
+
+VAE = dict(num_blocks=2, filters=8, output_filters=1, latent_a=0.1, latent_b=10.0,
+           temporal=True)
+
+
+def _flax_vae(model, params, eps):
+    """The flax VAE head's output for a given ε: its ``z_mean`` and
+    ``z_log_var`` (captured; its own draw unused) through the head's
+    formula, broadcast over the grid."""
+    def apply(x):
+        _, state = model.apply(params, jnp.asarray(x, jnp.float32),
+                               rngs={"sample": jax.random.PRNGKey(0)},
+                               capture_intermediates=True)
+        inter = state["intermediates"]
+        z_mean = np.asarray(inter["z_mean"]["__call__"][0], np.float64)
+        z_log_var = np.asarray(inter["z_log_var"]["__call__"][0], np.float64)
+        z = z_mean + np.exp(0.5 * z_log_var) * eps
+        z = (VAE["latent_b"] - VAE["latent_a"]) / (1.0 + np.exp(-z)) + VAE["latent_a"]
+        return np.broadcast_to(z.reshape(x.shape[:2] + (1, 1, -1)), x.shape[:-1] + (1,))
+    return apply
+
+
 def _net_cases(dg12, dg13_case):
     """The networks of the rank scenario ``nets``: Model 1 (encoder-decoder
     and HardLayer) with the JAX package's weights at 12×12 (its decoder
     lands on 15 and resizes) and 13×13 (uneven blocks), Model 2 (the
-    residual net) at 13×13, both at 9×9×9 (seeded; H 5/4) and both at
-    13×13 with ``spatial_pad_to=16`` (the JAX package's, seeded), each with
-    a float64 input batch and output cotangent; and the flax model and
-    params of each case that has them, by case index."""
+    residual net) at 13×13, both at 9×9×9 (seeded; H 5/4), both at
+    13×13 with ``spatial_pad_to=16`` (the JAX package's, seeded), the
+    encoder–decoder with ``latent_flatten`` at 13×13 (its encoded level, 1
+    row, whole on every rank) and 19×19 (2 rows, split) and the residual
+    net with the VAE head at 13×13, given ε, each with the JAX package's
+    weights (seeded), and last that VAE net drawing ε from each space
+    rank's own generator (seeds 11 and 12); each with a float64 input batch
+    and output cotangent; and a function of the input giving the JAX
+    package's whole-grid output, for each case that has one, by index."""
     from srm_tpu_torch.nn.modules import build_pressure_model, build_time_step_model
     g = {"maximum_srm_timestep": 10.0}
     res2, res3 = ({"Nz": nz, "initialization": {"Pi": 5000.0}} for nz in (1, 9))
@@ -410,16 +476,48 @@ def _net_cases(dg12, dg13_case):
               ("time_step", build_time_step_model((1, 9, 9, 9, 5), g, gen), (1, 9, 9, 9, 5), g),
               ("pressure", m16["pressure"], (1, 13, 13, 5), pad),
               ("time_step", m16["time_step"], (1, 13, 13, 5), pad)]
-    flax = {0: (dg12["jcase"]["models"]["pressure"], dg12["jcase"]["params"]["pressure"]),
-            1: (dg13_case["models"]["pressure"], dg13_case["params"]["pressure"]),
-            2: (dg13_case["models"]["time_step"], dg13_case["params"]["time_step"]),
-            5: padded["pressure"], 6: padded["time_step"]}
+
+    def applied(model, params):
+        return lambda x: np.asarray(model.apply(params, jnp.asarray(x, jnp.float32)))
+
+    flax = {0: applied(dg12["jcase"]["models"]["pressure"], dg12["jcase"]["params"]["pressure"]),
+            1: applied(dg13_case["models"]["pressure"], dg13_case["params"]["pressure"]),
+            2: applied(dg13_case["models"]["time_step"], dg13_case["params"]["time_step"]),
+            5: applied(*padded["pressure"]), 6: applied(*padded["time_step"])}
     cases = []
     for name, model, shape, config in models:
         x = torch.from_numpy(rng.uniform(-1, 1, (2,) + shape))
         cases.append({"model": name, "sample_shape": shape, "general_config": config,
                       "state": {k: v.double() for k, v in model.state_dict().items()},
                       "x": x, "w": torch.from_numpy(rng.standard_normal((2,) + shape[:-1] + (1,)))})
+    # latent_flatten and the VAE head, the JAX package's weights carried across
+    vae_flax = ResidualNetworkLayer(latent_output=True, **VAE)
+    sample13 = jnp.zeros((1, 1, 13, 13, 5), jnp.float32)
+    vae_params = vae_flax.init({"params": jax.random.PRNGKey(12),
+                                "sample": jax.random.PRNGKey(0)}, sample13)
+    options = []
+    for n, key in ((13, 10), (19, 11)):
+        jm = EncoderDecoderModel.from_config(_flatten_config(True))
+        params = jm.init(jax.random.PRNGKey(key), jnp.zeros((1, 1, n, n, 5), jnp.float32))
+        options.append(("encoder_decoder", _flatten_config(False), jm, params, (1, n, n, 5)))
+    options.append(("residual", dict(VAE, latent_output=True), vae_flax, vae_params,
+                    (1, 13, 13, 5)))
+    for kind, config, jm, params, shape in options:
+        case = {"model": kind, "sample_shape": shape, "config": config, "state": {},
+                "x": torch.from_numpy(rng.uniform(-1, 1, (2,) + shape)),
+                "w": torch.from_numpy(rng.standard_normal((2,) + shape[:-1] + (1,)))}
+        module = ranks.net_module(case)
+        load_flax_module(module, jax.tree_util.tree_map(np.asarray, params))
+        case["state"] = module.state_dict()
+        if kind == "residual":
+            eps = rng.standard_normal((2, 1))
+            case["kwargs"] = {"eps": torch.from_numpy(eps)}
+            flax[len(cases)] = _flax_vae(jm, params, eps)
+        else:
+            flax[len(cases)] = applied(jm, params)
+        cases.append(case)
+    drawn = {k: v for k, v in cases[-1].items() if k != "kwargs"}
+    cases.append(dict(drawn, seeds=[11, 12]))
     return cases, flax
 
 
@@ -427,8 +525,9 @@ def _net_cases(dg12, dg13_case):
 def world2(dg12, dg13_case, tmp_path_factory):
     """Two ranks: the networks over a space axis of 2, the halo pads, the
     resident epochs at 2 × 1 and at 1 × 2, a production-preset step at
-    13 × 13 and a float64 DG 3D step at 9 × 9 × 9, each over a space axis
-    of 2."""
+    13 × 13, a float64 DG 3D step at 9 × 9 × 9, the strided Δt input's
+    step and the DG 3D step again with ``remat_forwards``, each over a
+    space axis of 2."""
     out = tmp_path_factory.mktemp("spatial_world2")
     cases, flax = _net_cases(dg12, dg13_case)
     torch.save(cases, out / "nets.pt")
@@ -445,7 +544,8 @@ def world2(dg12, dg13_case, tmp_path_factory):
                   float64=True)
     runs = [dict(scenario="nets", file=str(out / "nets.pt"), spatial=2),
             dict(scenario="pads", file=str(out / "pads.pt"), spatial=2),
-            dict(epochs, spatial=1), dict(epochs, spatial=2), preset, dg3d, stride]
+            dict(epochs, spatial=1), dict(epochs, spatial=2), preset, dg3d, stride,
+            dict(dg3d, config={"remat_forwards": True})]
     return dict(cases=cases, flax=flax, pads=pads, epochs=epochs, preset=preset, dg3d=dg3d,
                 stride=stride, outs=run_ranks(out / "ranks", 2, runs))
 
@@ -504,29 +604,34 @@ def test_halo_pads_equal_the_whole_grids_pad_and_its_vjp(world2):
 
 # -- (4) the networks -------------------------------------------------------------
 
-@pytest.mark.parametrize("i", range(7), ids=["ed12", "ed13", "res13", "ed9x9x9", "res9x9x9",
-                                             "ed13_pad16", "res13_pad16"])
+OPTION_IDS = ["ed13_latent_flatten", "ed19_latent_flatten", "res13_vae"]
+NET_IDS = ["ed12", "ed13", "res13", "ed9x9x9", "res9x9x9", "ed13_pad16", "res13_pad16",
+           *OPTION_IDS]
+
+
+@pytest.mark.parametrize("i", range(len(NET_IDS)), ids=NET_IDS)
 def test_networks_over_row_blocks_match_the_whole_grid(world2, i):
     """Model 1 (encoder-decoder, HardLayer) and Model 2 (residual net) on
     each rank's rows of H over a space axis of 2, with the JAX package's
     weights at 12×12 (the resize path) and 13×13 (uneven blocks) and seeded
     ones at 9×9×9 (H split 5/4, D and W whole) and at 13×13 with
     ``spatial_pad_to=16`` (the padding's rows past H read as zeros, then
-    cropped): the output rows within 1e-12 of the whole grid's module, the
-    input gradients' rows and the parameter gradients summed over the two
-    ranks within NET_RTOL, in float64; and, where the case has the JAX
-    package's weights (12×12, 13×13, the padded pair), the output rows put
-    together within FLAX_RTOL of the flax module's on the whole grid."""
-    from srm_tpu_torch.nn.modules import build_pressure_model, build_time_step_model
+    cropped); the encoder–decoder with ``latent_flatten`` at 13×13 (the
+    encoded level, one row, whole on every rank) and at 19×19 (two rows,
+    one a rank: the Dense on the gathered level, each rank keeping its
+    row) and the residual net's VAE head at 13×13 (the whole grid's mean,
+    one ε given to every rank), each with the JAX package's weights: the
+    output rows within 1e-12 of the whole grid's module, the input
+    gradients' rows and the parameter gradients summed over the two ranks
+    within NET_RTOL, in float64 (the latent Dense's gradient counted once,
+    not once a rank); and, where the case has the JAX package's weights,
+    the output rows put together within FLAX_RTOL of the flax module's on
+    the whole grid (the VAE head's from flax's z_mean and z_log_var with
+    the same ε; the option cases also of the output's scale)."""
     case = world2["cases"][i]
-    shape = case["sample_shape"]
-    g = {"maximum_srm_timestep": 10.0, **case["general_config"]}
-    res = {"Nz": shape[1] if len(shape) == 5 else 1, "initialization": {"Pi": 5000.0}}
-    model = (build_pressure_model(shape, g, res) if case["model"] == "pressure"
-             else build_time_step_model(shape, g)).double()
-    model.load_state_dict(case["state"])
+    model = ranks.net_module(case)
     x = case["x"].clone().requires_grad_()
-    y = model(x)
+    y = model(x, **case.get("kwargs", {}))
     (y * case["w"]).sum().backward()
     outs = [o[0][i] for o in world2["outs"]]
     h = x.dim() - 3
@@ -539,10 +644,31 @@ def test_networks_over_row_blocks_match_the_whole_grid(world2, i):
     summed = [a + b for a, b in zip(outs[0]["gp"], outs[1]["gp"])]
     assert _rel(summed, [p.grad for p in model.parameters()]) <= NET_RTOL
     if i in world2["flax"]:
-        flax_model, params = world2["flax"][i]
-        want = np.asarray(flax_model.apply(params, jnp.asarray(case["x"].numpy(), jnp.float32)))
         got = torch.cat([o["y"] for o in outs], dim=h).numpy()
-        np.testing.assert_allclose(got, want, rtol=FLAX_RTOL, atol=0)
+        want = world2["flax"][i](case["x"].numpy())
+        scale = np.abs(want).max() if NET_IDS[i] in OPTION_IDS else 0.0
+        np.testing.assert_allclose(got, want, rtol=FLAX_RTOL, atol=FLAX_RTOL * scale)
+
+
+def test_vae_head_draws_one_noise_over_a_space_axis(world2):
+    """The VAE head drawing ε from a generator over a space axis of 2, the
+    two ranks' generators seeded apart (11 and 12): the first rank's draw
+    is broadcast, so both ranks' rows are one process's output with the
+    first rank's generator within 1e-12 (and far from one with the
+    second's), and its parameter gradients, summed over the ranks, within
+    NET_RTOL."""
+    case = world2["cases"][-1]
+    outs = [o[0][len(world2["cases"]) - 1] for o in world2["outs"]]
+    got = torch.cat([o["y"] for o in outs], dim=2)
+    model = ranks.net_module(case)
+    want = model(case["x"], generator=torch.Generator().manual_seed(11))
+    (want * case["w"]).sum().backward()
+    np.testing.assert_allclose(got.numpy(), want.detach().numpy(), rtol=1e-12, atol=0)
+    summed = [a + b for a, b in zip(outs[0]["gp"], outs[1]["gp"])]
+    assert _rel(summed, [p.grad for p in model.parameters()]) <= NET_RTOL
+    with torch.no_grad():
+        second = model(case["x"], generator=torch.Generator().manual_seed(12))
+    assert _rel([got], [second]) > 1e-3
 
 
 # -- (5) one train step against the JAX mesh ---------------------------------------
@@ -720,7 +846,7 @@ def test_dg3d_step_over_a_space_axis_matches_one_process(world2):
     _assert_ranks_agree(outs)
 
 
-# -- (8) spatial=1 and the refusals -------------------------------------------------------
+# -- (8) spatial=1 ---------------------------------------------------------------------------
 
 def test_spatial_1_is_bitwise_one_process(dg12):
     """``make_mesh(spatial=1)`` in a one-rank group is the data-parallel
@@ -755,28 +881,106 @@ def test_spatial_1_is_bitwise_one_process(dg12):
                                                      plain.optimizers[k].params)), k
 
 
-def _space_mesh():
-    """A rank's mesh of a 1 × 2 space axis, for the refusals, which raise
-    before any message (no process group is needed)."""
-    return Mesh(size=2, rank=0, group=object(), space_size=2, space_group=object())
+# -- (9) remat_forwards and the iteration logs on a space axis -------------------------
+
+def _assert_same_step(a, b):
+    """Two ranks' steps with the same bits: metrics, gradients, weights."""
+    assert a["metrics"] == b["metrics"]
+    for key in ("grads", "weights"):
+        for k in b[key]:
+            assert all(torch.equal(p, q) for p, q in zip(a[key][k], b[key][k])), (key, k)
 
 
-def test_options_a_space_axis_does_not_carry_raise_naming_a17c(dg12):
-    """``latent_flatten``, the VAE head, ``remat_forwards`` and the well
-    solver's iteration logs raise ``NotImplementedError`` naming ROADMAP
-    A17c on a space axis, before anything runs."""
-    rows = Rows.split(_space_mesh(), 12)
-    ed = EncoderDecoder(5, latent_flatten=True, grid=(12, 12), bottom_size=8)
-    with pytest.raises(NotImplementedError, match="A17c"):
-        ed(torch.zeros(1, 1, 6, 12, 5), rows=rows)
-    vae = ResidualNetwork(5, filters=4, latent_output=True)
-    with pytest.raises(NotImplementedError, match="A17c"):
-        vae(torch.zeros(1, 1, 6, 12, 5), rows=rows, eps=torch.zeros(1, 1))
-    loss = copy.copy(dg12["tcase"]["loss_fn"])
-    loss.remat_forwards = True
-    with pytest.raises(NotImplementedError, match="A17c"):
-        loss.set_mesh(_space_mesh())
-    well = copy.copy(dg12["tcase"]["models"]["well_rate_bhp_model"])
-    well.log_iterations = True
-    with pytest.raises(NotImplementedError, match="A17c"):
-        well.set_rows(rows)
+@pytest.mark.parametrize("kind", ["dg2d_2x2", "dg3d_1x2"])
+def test_remat_step_over_a_space_axis_is_the_step_without(dg12, world2, world4, kind):
+    """A float64 step with ``remat_forwards`` over a space axis (DG 2D at
+    12×12 on 2 × 2 ranks; DG 3D at 9×9×9 on a space axis of 2): the backward
+    pass recomputes every network's forward, its halo exchanges with it,
+    and gives on every rank the bits of the same step without remat; and
+    one process's total within TOTAL_RTOL and gradients within GRAD_RTOL
+    per model."""
+    if kind == "dg2d_2x2":
+        pairs = [(r[6], r[1]) for r in world4]
+        want, total = _one_process_grads(dg12)
+    else:
+        pairs = [(r[7], r[5]) for r in world2["outs"]]
+        one = ranks.step(dict(world2["dg3d"], spatial=1))
+        want, total = one["grads"], one["metrics"]["total"]
+    for remat, plain in pairs:
+        _assert_same_step(remat, plain)
+    got = pairs[0][0]
+    np.testing.assert_allclose(got["metrics"]["total"], total, rtol=TOTAL_RTOL)
+    for k in want:
+        assert _rel(got["grads"][k], want[k]) <= GRAD_RTOL, k
+
+
+def _jax_logged_case(dg12, directory, **kwargs):
+    """The JAX package's DG case at nx = 12 (dg12's data and weights) with
+    its well solver logging into ``directory``."""
+    jcase = jax_setup_case("DG", base_dir=str(dg12["base"] / "jdata"), nx=12, n_realizations=8,
+                           well_solver_kwargs=dict(kwargs, log_iterations=True,
+                                                   log_dir=str(directory)))
+    return dict(dg12, jcase=dict(jcase, params=dg12["jcase"]["params"]))
+
+
+def _log_file(directory):
+    """The lines of the one file in ``directory``."""
+    (name,) = os.listdir(directory)
+    return (directory / name).read_text().splitlines()
+
+
+def _assert_logs_close(got, want, rtol):
+    """Two iteration logs: the same header and rows, each row's numbers
+    within ``rtol``."""
+    assert got[0] == want[0] and len(got) == len(want)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.split('"')[0] == w.split('"')[0]
+        np.testing.assert_allclose([float(v) for v in g.split('"')[1].split()],
+                                   [float(v) for v in w.split('"')[1].split()], rtol=rtol)
+
+
+def test_remat_step_at_2x2_matches_the_jax_space_mesh(dg12, world4, tmp_path):
+    """The float32 DG step at 12×12 with ``remat_forwards`` over 4 ranks as
+    2 × 2 against the JAX Trainer's on ``make_mesh(8, spatial=2)`` with
+    ``remat_forwards`` (``jax.checkpoint`` around each network): the total
+    within TOTAL_RTOL, the updated weights within the Adam-step bound,
+    every rank's weights the same bits; rank 0's λ log (the direct BHP
+    solve's) of that step is the JAX step's within LOG_RTOL."""
+    case = _jax_logged_case(dg12, tmp_path)
+    jloss = copy.copy(case["jcase"]["loss_fn"])
+    jloss.remat_forwards = True
+    trainer, metrics = _jax_step(dict(case, jcase=dict(case["jcase"], loss_fn=jloss)),
+                                 jax_make_mesh(8, spatial=2))
+    jax.effects_barrier()
+    outs = [r[5] for r in world4]
+    np.testing.assert_allclose(outs[0]["metrics"]["total"], float(metrics["total"]),
+                               rtol=TOTAL_RTOL)
+    _assert_adam_close(outs[0]["weights"], _jax_weights_as_port(
+        dg12["tcase"], trainer.params, ("pressure", "time_step")))
+    _assert_ranks_agree(outs)
+    got = _log_file(Path(outs[0]["logs"]))
+    assert got[0] == f"# lambda_opt, shape [1, {len(dg12['x'])}, 1, 12, 12, 1]"
+    _assert_logs_close(got, _log_file(tmp_path), LOG_RTOL)
+
+
+@pytest.mark.parametrize("solve,run", [("lambda", 7), ("pwf", 8)])
+def test_iteration_logs_over_a_space_axis_hold_the_whole_grid(dg12, world4, tmp_path,
+                                                              solve, run):
+    """The well solver's iteration logs (the direct solve's λ, the Newton
+    solve's pwf history) of a float64 DG step at 12×12 over 4 ranks as
+    2 × 2: the ranks' rows of H gathered over each space group, then the
+    blocks of the batch over the data axis, and one file written, by rank
+    0 alone; its lines are one process's on the same batch bit for bit,
+    and the JAX package's float32 step's on ``make_mesh(8, spatial=2)``
+    (its callback receives the mesh's global arrays) within LOG_RTOL."""
+    kwargs = NEWTON_LOG if solve == "pwf" else {}
+    got = _log_file(Path(world4[0][run]["logs"]))
+    one = tmp_path / "one"
+    ranks.step(_logged(dict(dg12["spec"], float64=True), one, **kwargs))
+    assert got == _log_file(one)
+    jax_dir = tmp_path / "jax"
+    _jax_step(_jax_logged_case(dg12, jax_dir, **kwargs), jax_make_mesh(8, spatial=2))
+    jax.effects_barrier()
+    want = _log_file(jax_dir)
+    assert f"[{3 if solve == 'pwf' else 1}, {len(dg12['x'])}, 1, 12, 12, 1]" in got[0]
+    _assert_logs_close(got, want, LOG_RTOL)

@@ -29,6 +29,10 @@
   same step on the network built from the JAX package's config with the JAX
   tool's recipe and filled with its flax weights (so that its geometry is
   flax's).
+* ``probe_two_nets``: the two equal encoder–decoders' gradients, one after
+  the other and as one ``vmap`` over their stacked parameters, each within
+  float32 rounding of the other and, with the JAX tool's weights and input,
+  of ``jax.grad`` of the JAX tool's stacked loss (GRAD_REL).
 * ``EpochTimer``'s ``summary()`` equals the JAX class's on the same clock;
   ``trace`` writes a trace file on the CPU.
 """
@@ -221,6 +225,52 @@ def test_mfu_probe_flops_match_the_jax_geometry_network(lever, capsys):
     if lever in ("pad40", "pad48"):
         base = mfu_probe.probe("base", batch=batch, nx=nx, nz=nz, device="cpu")
         assert got["flops"] > base["flops"]
+
+
+GRAD_REL = 1e-4
+
+
+def _rel_l2(got, want) -> float:
+    num = math.sqrt(sum(float(((g.double() - w.double()) ** 2).sum()) for g, w in zip(got, want)))
+    return num / math.sqrt(sum(float((w.double() ** 2).sum()) for w in want))
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_probe_two_nets_on_the_cpu(stacked, capsys):
+    """The JSON line of either design on the CPU: its keys, no time."""
+    got = mfu_probe.probe_two_nets("two", batch=2, nx=13, stacked=stacked, device="cpu")
+    assert json.loads(capsys.readouterr().out) == got
+    assert (got["ms_per_step"], got["stacked"], got["grid"]) == (None, stacked, "13x13x1")
+
+
+def test_probe_two_nets_designs_give_the_jax_tools_gradients():
+    """At 13×13 with the JAX tool's weights (keys 1 and 2) and input: the
+    stacked design's gradients equal the sequential one's within float32
+    rounding, and both are ``jax.grad`` of the JAX tool's stacked loss
+    within GRAD_REL, net by net."""
+    nx, batch = 13, 2
+    cfg = jax_get_configuration("encoder_decoder")
+    cfg["spatial_dims"], cfg["temporal"], cfg["compute_dtype"] = 2, False, None
+    model = EncoderDecoderModel.from_config(cfg)
+    x = jax.random.uniform(jax.random.PRNGKey(0), (batch, nx, nx, 5), jnp.float32, -1, 1)
+    p1, p2 = (model.init(jax.random.PRNGKey(k), x) for k in (1, 2))
+    stacked = jax.tree_util.tree_map(lambda a, b: jnp.stack([a, b]), p1, p2)
+    want = jax.grad(lambda p: jnp.sum(jnp.square(
+        jax.vmap(model.apply, in_axes=(0, None))(p, x))))(stacked)
+    nets, _ = mfu_probe.two_nets(batch=batch, nx=nx, device="cpu")
+    for net, params in zip(nets, (p1, p2)):
+        load_flax_module(net, jax.tree_util.tree_map(np.asarray, params))
+    xt = torch.from_numpy(np.array(x))
+    seq = mfu_probe.two_nets_step(nets, xt, stacked=False)()
+    vm = mfu_probe.two_nets_step(nets, xt, stacked=True)()
+    for a, b in zip(vm, seq):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    for i in range(2):
+        holder = EncoderDecoder.from_config(cfg, 5, grid=(nx, nx))
+        load_flax_module(holder, jax.tree_util.tree_map(lambda a: np.asarray(a)[i], want))
+        ref = [p.detach() for p in holder.parameters()]
+        for got in (seq, vm):
+            assert _rel_l2([g[i] for g in got], ref) <= GRAD_REL
 
 
 # -- profiling --------------------------------------------------------------------

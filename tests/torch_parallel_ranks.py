@@ -123,28 +123,51 @@ def epochs(spec):
     return out
 
 
-def nets(spec):
-    """The networks of ``spec["file"]`` (``torch.save``d cases: a model of
-    the model map, its sample shape, its state dict, an input batch and an
-    output cotangent, in float64) on this rank's rows of H, over a space
-    axis of ``spatial`` ranks: each case's output rows, input-gradient rows
-    and parameter gradients (this rank's part of their sum)."""
+def net_module(c):
+    """A case's network in float64 with its state dict, if any: a model of the
+    model map (``pressure``, ``time_step``; ``general_config``), or an
+    ``encoder_decoder`` (built from ``config``) or a ``residual`` net (the
+    constructor's ``config``) on the sample shape's channels."""
+    from srm_tpu_torch.nn.encoder_decoder import EncoderDecoder
     from srm_tpu_torch.nn.modules import build_pressure_model, build_time_step_model
+    from srm_tpu_torch.nn.residual import ResidualNetwork
+    shape = tuple(c["sample_shape"])
+    if c["model"] == "encoder_decoder":
+        model = EncoderDecoder.from_config(c["config"], shape[-1], grid=shape[1:-1])
+    elif c["model"] == "residual":
+        model = ResidualNetwork(shape[-1], **c["config"])
+    else:
+        res = {"Nz": shape[1] if len(shape) == 5 else 1, "initialization": {"Pi": 5000.0}}
+        g = {"maximum_srm_timestep": 10.0, **c.get("general_config", {})}
+        model = (build_pressure_model(shape, g, res) if c["model"] == "pressure"
+                 else build_time_step_model(shape, g))
+    model = model.double()
+    if c.get("state"):
+        model.load_state_dict(c["state"])
+    return model
+
+
+def nets(spec):
+    """The networks of ``spec["file"]`` (``torch.save``d cases: a network of
+    :func:`net_module`, its sample shape, its state dict, an input batch,
+    an output cotangent, in float64, and the forward's keyword arguments
+    ``kwargs``; with ``seeds``, a generator seeded with this space rank's
+    seed) on this rank's rows of H, over a space axis of ``spatial`` ranks:
+    each case's output rows, input-gradient rows and parameter gradients
+    (this rank's part of their sum)."""
     from srm_tpu_torch.parallel.halo import Rows
     mesh = _mesh(spec)
     out = []
     for c in torch.load(spec["file"], weights_only=False):
-        shape = tuple(c["sample_shape"])
-        res = {"Nz": shape[1] if len(shape) == 5 else 1, "initialization": {"Pi": 5000.0}}
-        g = {"maximum_srm_timestep": 10.0, **c.get("general_config", {})}
-        build = build_pressure_model if c["model"] == "pressure" else build_time_step_model
-        model = (build(shape, g, res) if c["model"] == "pressure" else build(shape, g)).double()
-        model.load_state_dict(c["state"])
+        model = net_module(c)
+        kwargs = dict(c.get("kwargs", {}))
+        if c.get("seeds"):
+            kwargs["generator"] = torch.Generator().manual_seed(c["seeds"][mesh.space_rank])
         h = c["x"].dim() - 3
         rows = Rows.split(mesh, c["x"].shape[h])
         sl = (slice(None),) * h + (slice(rows.lo, rows.hi),)
         x = c["x"][sl].clone().requires_grad_()
-        y = model(x, rows=rows)
+        y = model(x, rows=rows, **kwargs)
         (y * c["w"][sl]).sum().backward()
         out.append({"rows": (rows.lo, rows.hi), "y": y.detach(), "gx": x.grad,
                     "gp": [p.grad for p in model.parameters()]})
